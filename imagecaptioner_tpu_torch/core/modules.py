@@ -4,7 +4,10 @@ Parameters live in small ``nn.Module``s whose attribute names follow the JAX
 parameter tree, so a converted JAX tree loads with ``strict=True``.  The
 numerics follow the JAX functions: matmuls accumulate in float32 and add a
 float32 bias before rounding to the activation dtype; layer norm runs in
-float32; batch norm (eval) normalizes in float32.  Images are NCHW.
+float32; batch norm normalizes in float32, with the running statistics in
+eval mode and the batch statistics (and torch's running-stat update) in
+train mode.  Images are NCHW.  Parameters are created frozen
+(``requires_grad=False``); a trainer turns on what it trains.
 
 Convolutions, pooling and the plain projections stay ``F.conv2d`` /
 ``F.linear`` / ``F.max_pool2d``, as the JAX package leaves them to XLA.  The
@@ -14,6 +17,7 @@ kernel, never through ``scaled_dot_product_attention``.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional, Tuple
 
@@ -57,20 +61,89 @@ def embedding(weight: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     return F.embedding(ids, weight)
 
 
-def conv2d(x: torch.Tensor, weight: torch.Tensor, *, stride: int = 1,
+def conv2d(x: torch.Tensor, weight: torch.Tensor,
+           bias: Optional[torch.Tensor] = None, *, stride: int = 1,
            padding: int = 0) -> torch.Tensor:
-    """Bias-free NCHW conv with an OIHW weight; the weight rides in
-    ``x.dtype``."""
-    return F.conv2d(x, weight.to(x.dtype), None, stride, padding)
+    """NCHW conv with an OIHW weight; weight and bias ride in ``x.dtype``."""
+    b = None if bias is None else bias.to(x.dtype)
+    return F.conv2d(x, weight.to(x.dtype), b, stride, padding)
 
 
 def batch_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                running_mean: torch.Tensor, running_var: torch.Tensor, *,
-               eps: float = 1e-5) -> torch.Tensor:
-    """Eval-mode BatchNorm over NCHW: normalized in float32 with the running
-    statistics, returned in ``x.dtype``."""
+               train: bool = False, momentum: float = 0.1, eps: float = 1e-5
+               ) -> torch.Tensor:
+    """BatchNorm over NCHW, normalized in float32 and returned in
+    ``x.dtype``.  Eval mode uses the running statistics.  Train mode uses
+    the batch statistics (biased variance) and updates the running
+    statistics in place with torch's rule: ``momentum`` and the unbiased
+    batch variance, as ``modules.batch_norm`` does."""
+    if train:
+        return F.batch_norm(x, running_mean, running_var, weight.float(),
+                            bias.float(), True, momentum, eps)
     return F.batch_norm(x, running_mean.float(), running_var.float(),
                         weight.float(), bias.float(), False, 0.0, eps)
+
+
+_DROPOUT_OFF = False
+
+
+@contextlib.contextmanager
+def no_dropout():
+    """Make every ``dropout`` the identity inside the block while the models
+    stay in train mode (batch norm keeps its batch statistics).  For parity
+    checks: a CPU and a CUDA generator, or torch and jax.random, never draw
+    the same masks."""
+    global _DROPOUT_OFF
+    old, _DROPOUT_OFF = _DROPOUT_OFF, True
+    try:
+        yield
+    finally:
+        _DROPOUT_OFF = old
+
+
+def dropout_on(rate: float, train: bool) -> bool:
+    """Whether a dropout of ``rate`` acts: train mode, a positive rate, and
+    not inside ``no_dropout()``."""
+    return train and rate > 0.0 and not _DROPOUT_OFF
+
+
+def dropout_keep_mask(shape, rate: float, generator: Optional[torch.Generator],
+                      device) -> torch.Tensor:
+    """Boolean keep mask, True with probability ``1 - rate``, drawn from
+    ``generator`` (which lives on ``device``)."""
+    if generator is None:
+        raise ValueError("dropout needs a torch.Generator when train=True "
+                         "and rate > 0")
+    return torch.rand(shape, generator=generator, device=device) >= rate
+
+
+def dropout(x: torch.Tensor, rate: float, train: bool,
+            generator: Optional[torch.Generator] = None,
+            mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Inverted dropout (scale by 1/(1-p) at train time).  The keep mask is
+    drawn from ``generator`` unless a ready boolean ``mask`` is given."""
+    if not dropout_on(rate, train):
+        return x
+    if mask is None:
+        mask = dropout_keep_mask(x.shape, rate, generator, x.device)
+    return torch.where(mask, x / (1.0 - rate), torch.zeros_like(x))
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """Exact (erf) GELU, as ``jax.nn.gelu(approximate=False)``."""
+    return F.gelu(x)
+
+
+def sinusoidal_positional_encoding(max_len: int, d_model: int) -> np.ndarray:
+    """Standard sinusoidal table (max_len, d_model), float32 numpy."""
+    position = np.arange(max_len, dtype=np.float32)[:, None]
+    div_term = np.exp(np.arange(0, d_model, 2, dtype=np.float32)
+                      * (-math.log(10000.0) / d_model))
+    pe = np.zeros((max_len, d_model), dtype=np.float32)
+    pe[:, 0::2] = np.sin(position * div_term)
+    pe[:, 1::2] = np.cos(position * div_term)
+    return pe
 
 
 def max_pool2d(x: torch.Tensor, window: int, stride: int,
@@ -87,6 +160,14 @@ def adaptive_pool_matrix(in_size: int, out_size: int) -> np.ndarray:
         end = -(-((i + 1) * in_size) // out_size)
         m[i, start:end] = 1.0 / (end - start)
     return m
+
+
+def adaptive_avg_pool1d(x: torch.Tensor, out_len: int) -> torch.Tensor:
+    """(B, C, L) -> (B, C, out_len) as one static matmul, torch
+    AdaptiveAvgPool1d semantics."""
+    m = torch.from_numpy(adaptive_pool_matrix(x.shape[-1], out_len))
+    m = m.to(x.device).to(x.dtype).float()
+    return torch.einsum("ol,bcl->bco", m, x.float()).to(x.dtype)
 
 
 def adaptive_avg_pool2d(x: torch.Tensor, out_hw: Tuple[int, int]
@@ -111,18 +192,33 @@ def _split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
 
 def multi_head_attention(p: "MultiheadAttention", query: torch.Tensor,
                          key: torch.Tensor, value: torch.Tensor, *,
-                         num_heads: int, causal: bool = False) -> torch.Tensor:
-    """nn.MultiheadAttention forward semantics (batch first, eval): the
-    packed ``in_proj`` split into q/k/v, heads split as
-    ``modules._split_heads``, the ported attention core, ``out_proj``."""
+                         num_heads: int, causal: bool = False,
+                         dropout_rate: float = 0.0, train: bool = False,
+                         generator: Optional[torch.Generator] = None
+                         ) -> torch.Tensor:
+    """nn.MultiheadAttention forward semantics (batch first): the packed
+    ``in_proj`` split into q/k/v, heads split as ``modules._split_heads``,
+    the ported attention core, ``out_proj``.  With dropout on the attention
+    weights (train mode, rate > 0) the function is a different one than the
+    kernel computes, and runs as plain tensor code, as in the JAX package."""
     e = query.shape[-1]
     w_q, w_k, w_v = p.in_proj_weight.chunk(3, dim=0)
     b_q, b_k, b_v = p.in_proj_bias.chunk(3, dim=0)
     q = _split_heads(dense(query, w_q, b_q), num_heads)     # (B, H, Lq, D)
     k = _split_heads(dense(key, w_k, b_k), num_heads)
     v = _split_heads(dense(value, w_v, b_v), num_heads)
-    out = attention_core(q, k, v, causal=causal,
-                         scale=1.0 / math.sqrt(e // num_heads))
+    scale = 1.0 / math.sqrt(e // num_heads)
+    if dropout_on(dropout_rate, train):
+        s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+        if causal:
+            lq, lk = s.shape[-2], s.shape[-1]
+            keep = torch.ones(lq, lk, dtype=torch.bool, device=s.device
+                              ).tril(lk - lq)
+            s = s.masked_fill(~keep, float("-inf"))
+        w = dropout(torch.softmax(s, dim=-1), dropout_rate, train, generator)
+        out = torch.matmul(w.to(v.dtype).float(), v.float()).to(v.dtype)
+    else:
+        out = attention_core(q, k, v, causal=causal, scale=scale)
     b, h, lq, d = out.shape
     out = out.transpose(1, 2).reshape(b, lq, h * d)
     return p.out_proj(out)
@@ -163,21 +259,26 @@ class Embedding(nn.Module):
 
 
 class Conv2d(nn.Module):
-    """Bias-free conv (no conv of ResNet-50 has one)."""
+    """Conv without a bias by default (no conv of ResNet-50 has one; the
+    ViT's patch embedding does)."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int, *,
-                 stride: int = 1, padding: int = 0):
+                 stride: int = 1, padding: int = 0, bias: bool = False):
         super().__init__()
         self.weight = _param(out_ch, in_ch, kernel_size, kernel_size)
+        self.bias = _param(out_ch) if bias else None
         self.stride, self.padding = stride, padding
 
     def forward(self, x):
-        return conv2d(x, self.weight, stride=self.stride, padding=self.padding)
+        return conv2d(x, self.weight, self.bias, stride=self.stride,
+                      padding=self.padding)
 
 
 class BatchNorm2d(nn.Module):
-    """Eval-mode batch norm; the running statistics are buffers (the JAX
-    package keeps them in a separate ``state`` tree)."""
+    """Batch norm in the module's mode (``train()`` / ``eval()``); the
+    running statistics are buffers (the JAX package keeps them in a separate
+    ``state`` tree) and update in train mode even when the affine parameters
+    are frozen."""
 
     def __init__(self, num_features: int):
         super().__init__()
@@ -188,7 +289,7 @@ class BatchNorm2d(nn.Module):
 
     def forward(self, x):
         return batch_norm(x, self.weight, self.bias, self.running_mean,
-                          self.running_var)
+                          self.running_var, train=self.training)
 
 
 class MultiheadAttention(nn.Module):
@@ -199,9 +300,13 @@ class MultiheadAttention(nn.Module):
         self.in_proj_bias = _param(3 * embed_dim)
         self.out_proj = Linear(embed_dim, embed_dim)
 
-    def forward(self, query, key, value, *, causal: bool = False):
-        return multi_head_attention(self, query, key, value,
-                                    num_heads=self.num_heads, causal=causal)
+    def forward(self, query, key, value, *, causal: bool = False,
+                dropout_rate: float = 0.0,
+                generator: Optional[torch.Generator] = None):
+        return multi_head_attention(
+            self, query, key, value, num_heads=self.num_heads, causal=causal,
+            dropout_rate=dropout_rate, train=self.training,
+            generator=generator)
 
 
 # ---------------------------------------------------------------------------
@@ -236,10 +341,14 @@ def linear_init(rng: np.random.Generator, in_features: int,
 
 
 def conv2d_init(rng: np.random.Generator, in_ch: int, out_ch: int,
-                kernel_size: int) -> dict:
+                kernel_size: int, bias: bool = False) -> dict:
     fan_in = in_ch * kernel_size * kernel_size
-    return {"weight": uniform_init(
-        rng, (out_ch, in_ch, kernel_size, kernel_size), 1.0 / math.sqrt(fan_in))}
+    bound = 1.0 / math.sqrt(fan_in)
+    p = {"weight": uniform_init(
+        rng, (out_ch, in_ch, kernel_size, kernel_size), bound)}
+    if bias:
+        p["bias"] = uniform_init(rng, (out_ch,), bound)
+    return p
 
 
 def batch_norm_init(num_features: int):

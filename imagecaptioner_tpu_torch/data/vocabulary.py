@@ -1,8 +1,13 @@
-"""Vocabulary lookup for serving, with the JSON schema of
+"""Vocabulary with the ordering rule and the JSON schema of
 ``imagecaptioner_tpu.data.vocabulary``.
 
-Only what serving needs: load a saved vocabulary and map ids back to words.
-Building a vocabulary needs the tokenizer and stays with the JAX package.
+Serving loads a saved vocabulary and maps ids back to words.  Training on
+the in-memory synthetic data also builds one: ``build_vocabulary`` adds a
+word when its running count reaches ``freq_threshold``, with ids in
+first-reached order from 4.  Its tokenizer is ``tokenize_words`` (lowercase,
+split on whitespace), which equals the JAX package's rule-based tokenizer
+on punctuation-free text such as the synthetic captions; the full tokenizer
+comes with the CSV/JPEG loader (ROADMAP Queue 1 item 4, still open).
 """
 
 from __future__ import annotations
@@ -14,6 +19,11 @@ PAD, START, END, UNK = 0, 1, 2, 3
 SPECIALS = {0: "<PAD>", 1: "<START>", 2: "<END>", 3: "<UNK>"}
 
 
+def tokenize_words(text: str) -> List[str]:
+    """Lowercase and split on whitespace (punctuation-free text only)."""
+    return text.lower().split()
+
+
 class Vocabulary:
     def __init__(self, freq_threshold: int = 5):
         self.itos: Dict[int, str] = dict(SPECIALS)
@@ -22,6 +32,23 @@ class Vocabulary:
 
     def __len__(self) -> int:
         return len(self.itos)
+
+    def build_vocabulary(self, sentence_list: Iterable[str]) -> None:
+        """First-reached-threshold insertion order."""
+        frequencies: Dict[str, int] = {}
+        idx = len(self.itos)
+        for sentence in sentence_list:
+            for word in tokenize_words(sentence):
+                frequencies[word] = frequencies.get(word, 0) + 1
+                if frequencies[word] == self.freq_threshold:
+                    self.stoi[word] = idx
+                    self.itos[idx] = word
+                    idx += 1
+
+    def encode_caption(self, text: str) -> List[int]:
+        """<START> + tokens + <END> framing."""
+        return ([START] + [self.stoi.get(t, UNK) for t in tokenize_words(text)]
+                + [END])
 
     def decode(self, ids: Iterable[int], *, strip_specials: bool = True
                ) -> List[str]:

@@ -1,0 +1,121 @@
+"""Distillation losses (``imagecaptioner_tpu/distill/losses.py:26-131``).
+
+Captions are padded to a fixed T, while the reference computes its losses
+over the batch's own maximum length.  Every normalizer therefore masks to
+``valid_steps = max(lengths) - 1`` so loss values match the reference:
+
+  * KL ``batchmean`` divides by valid_steps * B: in-range PAD rows count in
+    the normalizer, a reference quirk, preserved.
+  * CE ignores PAD targets: mean over non-PAD targets only.
+  * With the default weights the CE coefficient (1-a-b-g) is exactly 0:
+    preserved, not fixed.
+
+``focal_loss`` and ``optimized_distillation_loss`` belong to the optimized
+trainer (ROADMAP Queue 1 item 9).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from imagecaptioner_tpu_torch.core.config import DistillConfig
+
+
+LOSS_NAMES = ("total_loss", "ce_loss", "token_kd_loss", "feature_kd_loss",
+              "hidden_kd_loss")
+
+
+def _step_mask(T: int, B: int, lengths: Optional[torch.Tensor], device
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(T, B) float mask of steps < valid_steps, and valid_steps."""
+    if lengths is None:
+        return (torch.ones(T, B, device=device),
+                torch.tensor(float(T), device=device))
+    valid_steps = torch.clamp(lengths.max() - 1, min=1).float()
+    steps = torch.arange(T, dtype=torch.float32, device=device)[:, None]
+    return (steps < valid_steps).float().expand(T, B), valid_steps
+
+
+def cross_entropy_ignore_pad(logits: torch.Tensor, targets: torch.Tensor
+                             ) -> torch.Tensor:
+    """CrossEntropyLoss(ignore_index=0) over (T, B, V) logits and (T, B)
+    targets: mean over non-PAD positions."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -logp.gather(-1, targets[..., None]).squeeze(-1)
+    mask = (targets != 0).float()
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def token_level_distillation(student_logits: torch.Tensor,
+                             teacher_logits: torch.Tensor, temperature: float,
+                             lengths: Optional[torch.Tensor] = None
+                             ) -> torch.Tensor:
+    """KL(log_softmax(s/T) || softmax(t/T)) * T^2, batchmean."""
+    T, B, _ = student_logits.shape
+    s = torch.log_softmax(student_logits.float() / temperature, -1)
+    t = torch.softmax(teacher_logits.float() / temperature, -1)
+    log_t = torch.where(t > 0, torch.log(torch.clamp(t, min=1e-38)),
+                        torch.zeros_like(t))
+    kl = (t * (log_t - s)).sum(-1)                                  # (T, B)
+    mask, valid_steps = _step_mask(T, B, lengths, kl.device)
+    return (kl * mask).sum() / (valid_steps * B) * (temperature ** 2)
+
+
+def encoder_feature_distillation(student_features: torch.Tensor,
+                                 teacher_features: torch.Tensor
+                                 ) -> torch.Tensor:
+    """0.6 * MSE(global mean) + 0.4 * MSE(attention-weighted), where the
+    attention weights are a softmax over per-token feature sums."""
+    sf, tf = student_features.float(), teacher_features.float()
+    global_loss = (sf.mean(1) - tf.mean(1)).square().mean()
+    s_attn = torch.softmax(sf.sum(-1), dim=1)
+    t_attn = torch.softmax(tf.sum(-1), dim=1)
+    s_w = (sf * s_attn[..., None]).sum(1)
+    t_w = (tf * t_attn[..., None]).sum(1)
+    return 0.6 * global_loss + 0.4 * (s_w - t_w).square().mean()
+
+
+def decoder_hidden_state_distillation(student_hiddens: Optional[torch.Tensor],
+                                      teacher_hiddens: Optional[torch.Tensor]
+                                      ) -> torch.Tensor:
+    """Per-step 0.7*MSE + 0.3*(1-cos), mean over steps.  Zero when either
+    side is None, which is every real run: the teacher wrapper yields
+    ``hidden_states=None``."""
+    if student_hiddens is None or teacher_hiddens is None:
+        dev = (student_hiddens if student_hiddens is not None
+               else teacher_hiddens)
+        return torch.zeros((), device=None if dev is None else dev.device)
+    T = min(student_hiddens.shape[0], teacher_hiddens.shape[0])
+    s, t = student_hiddens[:T].float(), teacher_hiddens[:T].float()
+    mse = (s - t).square().mean(dim=(1, 2))
+    cos = (s * t).sum(-1) / torch.clamp(s.norm(dim=-1) * t.norm(dim=-1),
+                                        min=1e-8)
+    return (0.7 * mse + 0.3 * (1.0 - cos).mean(dim=1)).mean()
+
+
+def distillation_loss(student_outputs: Dict, teacher_outputs: Dict,
+                      targets: torch.Tensor, cfg: DistillConfig,
+                      lengths: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """DistillationLoss.forward: the weighted total and its four terms."""
+    ce = cross_entropy_ignore_pad(student_outputs["logits"], targets)
+    token_kd = token_level_distillation(
+        student_outputs["logits"], teacher_outputs["logits"], cfg.temperature,
+        lengths)
+    feature_kd = torch.zeros((), device=ce.device)
+    if ("encoder_features" in student_outputs
+            and "encoder_features" in teacher_outputs):
+        feature_kd = encoder_feature_distillation(
+            student_outputs["encoder_features"],
+            teacher_outputs["encoder_features"])
+    hidden_kd = decoder_hidden_state_distillation(
+        student_outputs.get("hidden_states"),
+        teacher_outputs.get("hidden_states")).to(ce.device)
+    total = ((1.0 - cfg.alpha - cfg.beta - cfg.gamma) * ce
+             + cfg.alpha * token_kd + cfg.beta * feature_kd
+             + cfg.gamma * hidden_kd)
+    return total, {"total_loss": total, "ce_loss": ce,
+                   "token_kd_loss": token_kd, "feature_kd_loss": feature_kd,
+                   "hidden_kd_loss": hidden_kd}

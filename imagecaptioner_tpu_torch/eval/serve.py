@@ -4,14 +4,16 @@ The ``--model student`` path of ``imagecaptioner_tpu/eval/serve.py`` with
 the same flags; the flags whose paths are not ported yet (the teacher,
 int8, data-parallel) exit with an error that says so.  Images are decoded
 with PIL, imported only here, so ``make_greedy_captioner`` (which takes
-uint8 arrays) runs on a machine without PIL.  Runs on the first CUDA device
-when there is one, else on the CPU.
+uint8 arrays) runs on a machine without PIL.  Runs on ``--device`` (default
+``cuda``): without a card it raises, and only ``--device cpu`` runs on the
+CPU.
 
 Usage:
   python -m imagecaptioner_tpu_torch.eval.serve \\
       --model student --checkpoint saved_models/best_student_model.npz \\
       --vocab saved_models/vocab.json --images data/flickr8k/Images \\
-      --out captions.jsonl [--batch 16] [--max-length 20] [--temperature 1.0]
+      --out captions.jsonl [--batch 16] [--max-length 20] [--temperature 1.0] \\
+      [--device cuda|cpu]
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import numpy as np
 import torch
 
 from imagecaptioner_tpu_torch.core.config import StudentConfig
+from imagecaptioner_tpu_torch.core.device import resolve_device
 from imagecaptioner_tpu_torch.core.modules import cast_parameters
 from imagecaptioner_tpu_torch.data import transforms as T
 from imagecaptioner_tpu_torch.data.vocabulary import Vocabulary
@@ -107,6 +110,8 @@ def main(argv=None):
     ap.add_argument("--int8-margin", type=float, default=None)
     ap.add_argument("--data-parallel", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default; raises without a card) or cpu")
     args = ap.parse_args(argv)
     if args.model == "teacher":
         raise _not_ported("teacher beam serving", "item 5")
@@ -115,6 +120,8 @@ def main(argv=None):
     if args.data_parallel:
         raise _not_ported("data-parallel serving", "item 13")
 
+    device = resolve_device(args.device)
+
     from PIL import Image
 
     vocab = Vocabulary.load(args.vocab)
@@ -122,7 +129,6 @@ def main(argv=None):
     if not files:
         print(f"no images found under {args.images}")
         return 1
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
     student, cfg = load_student(args.checkpoint, device)
     caption_fn = make_greedy_captioner(
         student, cfg, device, max_length=args.max_length,

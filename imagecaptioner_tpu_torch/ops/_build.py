@@ -6,8 +6,8 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its own:
          -Xcompiler -fPIC -Xptxas -v -o _build/lib<name>-<hash>.so csrc/<name>.cu
 
 into ``imagecaptioner_tpu_torch/_build/`` (listed in ``.gitignore``).  The
-library name carries a hash of the source, so an edited source rebuilds and
-a stale library is never loaded.  Importing this module needs no nvcc:
+library name carries a hash of the source and of the shared ``csrc/*.cuh``
+headers, so an edited source rebuilds and a stale library is never loaded.  Importing this module needs no nvcc:
 nothing is compiled until a kernel is first launched or ``build_all`` runs.
 """
 
@@ -25,7 +25,8 @@ from typing import Dict, Iterable
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
-SOURCES = ("attention_core", "greedy_decode")
+SOURCES = ("attention_core", "greedy_decode", "decoder_scan",
+           "decoder_scan_bwd")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -44,6 +45,8 @@ def nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    for header in sorted(CSRC.glob("*.cuh")):  # shared device helpers
+        src += header.read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD / f"lib{name}-{digest[:12]}.so"
 

@@ -7,8 +7,12 @@ the probabilities are rounded to ``v.dtype`` before the product with v, and
 the output is ``v.dtype`` (``pallas_attention.py:161-168``).
 
 ``attention_core`` dispatches on the device: a CPU tensor takes the plain
-version, a CUDA tensor the kernel in ``csrc/attention_core.cu`` (forward
-only, D = 64, Lk <= 256), which raises on anything it does not take.
+version (differentiable by ordinary autograd), a CUDA tensor the kernel in
+``csrc/attention_core.cu`` (D = 64, Lk <= 256, Lq = Lk when causal), which
+raises on anything it does not take.  The JAX package has no backward
+kernel for this core: its ``custom_vjp`` recomputes the plain core and
+differentiates that (``pallas_attention.py:_bwd``).  ``_AttentionCore`` does
+the same around the CUDA forward.
 """
 
 from __future__ import annotations
@@ -62,6 +66,9 @@ def attention_core_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if D != HEAD_DIM or not 0 < Lk <= MAX_LK or Lq == 0:
         raise ValueError(f"kernel takes D={HEAD_DIM}, 0 < Lk <= {MAX_LK}; "
                          f"got D={D}, Lq={Lq}, Lk={Lk}")
+    if causal and Lq != Lk:
+        raise ValueError(f"kernel takes a causal mask only for Lq == Lk; "
+                         f"got Lq={Lq}, Lk={Lk}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k and v must be contiguous")
     if not (q.device == k.device == v.device):
@@ -83,10 +90,44 @@ def attention_core_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out
 
 
+def attention_core_grads(q, k, v, g, *, causal: bool = False,
+                         scale: float = 1.0, needs=(True, True, True)):
+    """Gradients of the core with respect to q, k, v (None where not
+    needed) for the output cotangent ``g``: recompute the plain core and
+    differentiate it."""
+    leaves = [t.detach().requires_grad_(need)
+              for t, need in zip((q, k, v), needs)]
+    with torch.enable_grad():
+        out = attention_core_plain(*leaves, causal=causal, scale=scale)
+    wanted = [t for t in leaves if t.requires_grad]
+    grads = iter(torch.autograd.grad(out, wanted, g))
+    return tuple(next(grads) if t.requires_grad else None for t in leaves)
+
+
+class _AttentionCore(torch.autograd.Function):
+    """The CUDA forward under autograd; the backward differentiates a
+    recomputation of the plain core, as the JAX ``custom_vjp`` does."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.scale = causal, scale
+        return attention_core_cuda(q, k, v, causal=causal, scale=scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        return attention_core_grads(
+            *ctx.saved_tensors, g, causal=ctx.causal, scale=ctx.scale,
+            needs=ctx.needs_input_grad[:3]) + (None, None)
+
+
 def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    causal: bool = False, scale: float = 1.0) -> torch.Tensor:
     """The kernel for CUDA tensors, the plain version for CPU tensors."""
     if q.is_cuda:
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            return _AttentionCore.apply(q, k, v, causal, scale)
         return attention_core_cuda(q, k, v, causal=causal, scale=scale)
     if q.device.type == "cpu":
         return attention_core_plain(q, k, v, causal=causal, scale=scale)

@@ -1,0 +1,78 @@
+"""Shared trainer plumbing (``imagecaptioner_tpu/train/common.py``):
+accumulation stacking, early stopping, history, progress lines.  The mesh
+helpers belong to multi-GPU (ROADMAP Queue 1 item 13).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Dict, Iterator, List, Optional
+
+import numpy as np
+
+from imagecaptioner_tpu_torch.distill.losses import LOSS_NAMES
+
+
+def stacked_batches(loader, accumulation_steps: int) -> Iterator[Dict]:
+    """Group loader batches into stacks of ``A`` for in-step accumulation.
+    A trailing incomplete group is dropped: the reference only steps the
+    optimizer on accumulation boundaries."""
+    buf: List[Dict] = []
+    for batch in loader:
+        buf.append(batch)
+        if len(buf) == accumulation_steps:
+            yield {k: np.stack([b[k] for b in buf]) for k in buf[0]}
+            buf = []
+
+
+class EarlyStopping:
+    """Best-value tracking + patience (mode='min' for loss, 'max' for BLEU)."""
+
+    def __init__(self, patience: int, mode: str = "min"):
+        self.patience = patience
+        self.mode = mode
+        self.best: Optional[float] = None
+        self.counter = 0
+
+    def update(self, value: float) -> bool:
+        """Returns True if ``value`` is a new best."""
+        improved = (self.best is None
+                    or (self.mode == "min" and value < self.best)
+                    or (self.mode == "max" and value > self.best))
+        if improved:
+            self.best = value
+            self.counter = 0
+        else:
+            self.counter += 1
+        return improved
+
+    @property
+    def should_stop(self) -> bool:
+        return self.counter >= self.patience
+
+
+def write_history(path: str, history: Dict) -> None:
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(history, f, indent=2)
+
+
+def log_progress(epoch, batch_idx, loss_dict, learning_rate, total_batches):
+    print(f"Epoch {epoch}, Batch {batch_idx}/{total_batches}")
+    print(f"  LR: {learning_rate:.6f}")
+    for name in LOSS_NAMES:
+        if name in loss_dict:
+            label = name.replace("_", " ").title()
+            print(f"  {label}: {float(loss_dict[name]):.4f}")
+    print("-" * 50)
+
+
+def monitoring_bleu(pred_ids, target_ids, vocab) -> float:
+    """Set-intersection BLEU-1 used inside training validation
+    (``eval/metrics.monitoring_bleu``); ids 0/1/2 stripped."""
+    def words(ids):
+        return {vocab.itos[int(i)] for i in ids
+                if int(i) not in (0, 1, 2) and int(i) in vocab.itos}
+    pred, target = words(pred_ids), words(target_ids)
+    return len(pred & target) / len(target) if target else 0.0

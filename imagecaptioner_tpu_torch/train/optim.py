@@ -1,0 +1,95 @@
+"""Optimizer and LR schedule (``imagecaptioner_tpu/train/optim.py``).
+
+AdamW with torch semantics (decoupled decay first, then the Adam step) over
+named parameters, with a per-parameter lr scale, weight decay and trainable
+mask: the generalisation of torch param groups that the JAX package uses.
+A frozen parameter keeps its value and its zero moments.  Plus
+``clip_by_global_norm`` and ``cosine_warm_restarts``.  ``onecycle_lr`` and
+``label_smoothing_loss`` belong to trainers not ported yet (ROADMAP Queue 1
+items 6 and 9).
+"""
+
+from __future__ import annotations
+
+import math
+from collections import defaultdict
+from dataclasses import dataclass
+from typing import Callable, Dict
+
+import torch
+
+
+@dataclass
+class AdamWState:
+    step: int
+    mu: Dict[str, torch.Tensor]
+    nu: Dict[str, torch.Tensor]
+
+
+def adamw_init(params: Dict[str, torch.Tensor]) -> AdamWState:
+    return AdamWState(step=0,
+                      mu={k: torch.zeros_like(p) for k, p in params.items()},
+                      nu={k: torch.zeros_like(p) for k, p in params.items()})
+
+
+@torch.no_grad()
+def adamw_update(grads: Dict[str, torch.Tensor], state: AdamWState,
+                 params: Dict[str, torch.Tensor], *,
+                 lr_fn: Callable[[float], float], lr_scale: Dict[str, float],
+                 weight_decay: float = 0.01, trainable: Dict[str, bool],
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> None:
+    """One AdamW step in place on ``params`` and ``state``.  A parameter's
+    learning rate is ``lr_fn(lr_scale[name])``; parameters that share a
+    scale are updated together."""
+    state.step += 1
+    bc1 = 1.0 - b1 ** state.step
+    bc2 = 1.0 - b2 ** state.step
+    groups = defaultdict(list)
+    for name in params:
+        if trainable[name]:
+            groups[lr_scale[name]].append(name)
+    for scale, names in groups.items():
+        lr = lr_fn(scale)
+        P = [params[n] for n in names]
+        G = [grads[n] for n in names]
+        M = [state.mu[n] for n in names]
+        V = [state.nu[n] for n in names]
+        torch._foreach_mul_(M, b1)
+        torch._foreach_add_(M, G, alpha=1.0 - b1)
+        torch._foreach_mul_(V, b2)
+        torch._foreach_addcmul_(V, G, G, value=1.0 - b2)
+        # p <- p * (1 - lr*wd) - lr * (m / bc1) / (sqrt(v / bc2) + eps)
+        denom = torch._foreach_div(V, bc2)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, eps)
+        torch._foreach_mul_(P, 1.0 - lr * weight_decay)
+        torch._foreach_addcdiv_(P, M, denom, value=-lr / bc1)
+
+
+@torch.no_grad()
+def clip_by_global_norm(grads: Dict[str, torch.Tensor], max_norm: float
+                        ) -> torch.Tensor:
+    """``clip_grad_norm_`` semantics, in place; returns the norm before
+    clipping."""
+    gs = list(grads.values())
+    norm = torch.linalg.vector_norm(
+        torch.stack(torch._foreach_norm([g.float() for g in gs])))
+    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-6), max=1.0)
+    torch._foreach_mul_(gs, scale)
+    return norm
+
+
+def cosine_warm_restarts(t: float, *, base_lr: float, t0: int = 5,
+                         t_mult: int = 2, eta_min: float = 1e-6) -> float:
+    """torch CosineAnnealingWarmRestarts at continuous epoch time ``t`` (the
+    trainers step it fractionally per batch)."""
+    t = float(t)
+    if t_mult == 1:
+        t_cur, t_i = math.fmod(t, t0), float(t0)
+    else:
+        n = math.floor(math.log(t / t0 * (t_mult - 1.0) + 1.0)
+                       / math.log(t_mult))
+        t_cur = t - t0 * (t_mult ** n - 1.0) / (t_mult - 1.0)
+        t_i = t0 * float(t_mult) ** n
+    return eta_min + (base_lr - eta_min) * (
+        1.0 + math.cos(math.pi * t_cur / t_i)) / 2.0

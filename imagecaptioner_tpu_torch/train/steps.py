@@ -1,0 +1,191 @@
+"""KD train and eval steps (``imagecaptioner_tpu/train/steps.py:192-388,
+438-467``).
+
+One train step = for each of the A stacked micro-batches: augment and
+normalize on the device, run the frozen teacher and the student, take the
+distillation loss and its gradient; then the mean of the A gradients, the
+global-norm clip, and AdamW with the three learning-rate groups (student
+encoder x ``encoder_lr_scale``; decoder; refinement and projectors).
+Batch-norm statistics thread through the micro-batches in order, as the
+JAX step threads its state tree.
+
+Batch layout (stacked for accumulation):
+  images   uint8 (A, B, S, S, 3)  NHWC
+  captions int   (A, T, B)        time-major
+  lengths  int   (A, B)
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from imagecaptioner_tpu_torch.core.config import (DistillConfig,
+                                                  KDTrainConfig, StudentConfig,
+                                                  TeacherConfig)
+from imagecaptioner_tpu_torch.core.precision import as_dtype
+from imagecaptioner_tpu_torch.data import transforms as T
+from imagecaptioner_tpu_torch.distill import losses as DL
+from imagecaptioner_tpu_torch.distill.wrapper import teacher_forward_for_kd
+from imagecaptioner_tpu_torch.models.student import Student, set_trainable
+from imagecaptioner_tpu_torch.models.teacher import Teacher
+from imagecaptioner_tpu_torch.train import optim as O
+
+
+@dataclass
+class TrainState:
+    """What a KD step updates in place: the student (parameters and
+    batch-norm statistics), the projectors and the optimizer state."""
+    student: Student
+    projectors: nn.ModuleDict
+    opt_state: O.AdamWState
+
+    def named_parameters(self) -> Dict[str, nn.Parameter]:
+        """``student.*`` then ``projectors.*``, the JAX params tree's order."""
+        out = {f"student.{k}": p for k, p in self.student.named_parameters()}
+        out.update({f"projectors.{k}": p
+                    for k, p in self.projectors.named_parameters()})
+        return out
+
+
+def init_train_state(student: Student, projectors: nn.ModuleDict,
+                     s_cfg: StudentConfig) -> TrainState:
+    """Mark what trains (``student_trainable_mask``; every projector
+    parameter) and start AdamW from zero moments."""
+    set_trainable(student, s_cfg)
+    for p in projectors.parameters():
+        p.requires_grad_(True)
+    state = TrainState(student, projectors, None)
+    state.opt_state = O.adamw_init(state.named_parameters())
+    return state
+
+
+def kd_group_scales(names, *, encoder_scale: float = 0.1
+                    ) -> Dict[str, float]:
+    """Learning-rate scale per parameter: the student's encoder ->
+    ``encoder_scale``; its decoder, and the others (refinement, projectors)
+    -> 1.0.  The two groups at 1.0 differ in the optimized trainer only
+    (ROADMAP Queue 1 item 9)."""
+    return {n: encoder_scale if n.startswith("student.encoder.") else 1.0
+            for n in names}
+
+
+def batch_to_device(batch: Dict, device) -> Dict[str, torch.Tensor]:
+    """A loader batch (numpy or torch) as tensors on ``device``; captions
+    and lengths as int64."""
+    def put(x, dtype=None):
+        t = torch.from_numpy(np.ascontiguousarray(x)) \
+            if isinstance(x, np.ndarray) else x
+        return t.to(device=device, dtype=dtype)
+    return {"images": put(batch["images"]),
+            "captions": put(batch["captions"], torch.long),
+            "lengths": put(batch["lengths"], torch.long)}
+
+
+def _kd_forward(teacher: Teacher, t_cfg: TeacherConfig, state: TrainState,
+                s_cfg: StudentConfig, images: torch.Tensor,
+                captions_in: torch.Tensor, *, generator, teacher_dtype):
+    teacher_out = teacher_forward_for_kd(teacher, images, captions_in,
+                                         compute_dtype=teacher_dtype)
+    s_logits, s_feats, s_hiddens, _ = state.student(images, captions_in,
+                                                    generator=generator)
+    projected = state.projectors["encoder"](
+        teacher_out["encoder_features"], teacher_seq_len=t_cfg.num_tokens,
+        student_seq_len=s_cfg.feature_tokens, generator=generator)
+    student_out = {"logits": s_logits, "encoder_features": s_feats,
+                   "hidden_states": s_hiddens}
+    teacher_out = dict(teacher_out, encoder_features=projected,
+                       hidden_states=None)
+    return student_out, teacher_out
+
+
+def make_kd_train_step(teacher: Teacher, t_cfg: TeacherConfig,
+                       s_cfg: StudentConfig, d_cfg: DistillConfig,
+                       tr_cfg: KDTrainConfig, *,
+                       aug: T.AugmentConfig = T.KD_TRAIN_AUG,
+                       compute_dtype=torch.float32):
+    """Returns ``step(state, batch, sched_t, generator) -> metrics``; the
+    state is updated in place.  ``metrics`` holds the five loss terms (mean
+    over the micro-batches), ``grad_norm`` (before clipping) and ``lr`` as
+    0-d tensors on the device: fetching them is the caller's
+    synchronisation point."""
+    compute_dtype = as_dtype(compute_dtype)
+    teacher_dtype = torch.bfloat16 if tr_cfg.teacher_bf16 else torch.float32
+
+    def step(state: TrainState, batch: Dict, sched_t: float,
+             generator: Optional[torch.Generator]) -> Dict[str, torch.Tensor]:
+        def lr_fn(scale: float) -> float:
+            return O.cosine_warm_restarts(
+                sched_t, base_lr=tr_cfg.learning_rate * scale,
+                t0=tr_cfg.sched_t0, t_mult=tr_cfg.sched_t_mult,
+                eta_min=tr_cfg.sched_eta_min)
+
+        params = state.named_parameters()
+        trainable = {n: p.requires_grad for n, p in params.items()}
+        scales = kd_group_scales(params,
+                                 encoder_scale=tr_cfg.encoder_lr_scale)
+        state.student.train()
+        state.projectors.train()
+        for p in params.values():
+            p.grad = None
+        A = batch["images"].shape[0]
+        ld_sum = None
+        for a in range(A):
+            images = T.augment_and_normalize(batch["images"][a], aug,
+                                             generator, dtype=compute_dtype)
+            captions = batch["captions"][a]
+            student_out, teacher_out = _kd_forward(
+                teacher, t_cfg, state, s_cfg, images, captions[:-1],
+                generator=generator, teacher_dtype=teacher_dtype)
+            loss, ld = DL.distillation_loss(
+                student_out, teacher_out, captions[1:], d_cfg,
+                lengths=batch["lengths"][a])
+            loss.backward()                  # .grad holds the running sum
+            ld = {k: v.detach() for k, v in ld.items()}
+            ld_sum = ld if ld_sum is None else {k: ld_sum[k] + v
+                                                for k, v in ld.items()}
+        # a trainable parameter the loss never reached (the `hidden`
+        # projector) has a zero gradient and still decays, as in JAX
+        grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
+                 for n, p in params.items() if trainable[n]}
+        torch._foreach_div_(list(grads.values()), float(A))
+        gnorm = O.clip_by_global_norm(grads, tr_cfg.grad_clip)
+        O.adamw_update(grads, state.opt_state, params, lr_fn=lr_fn,
+                       lr_scale=scales, weight_decay=tr_cfg.weight_decay,
+                       trainable=trainable)
+        dev = gnorm.device
+        metrics = {k: v / A for k, v in ld_sum.items()}
+        metrics["grad_norm"] = gnorm
+        metrics["lr"] = torch.tensor(lr_fn(1.0), device=dev)
+        return metrics
+
+    return step
+
+
+def make_kd_eval_step(teacher: Teacher, t_cfg: TeacherConfig,
+                      s_cfg: StudentConfig, d_cfg: DistillConfig, *,
+                      compute_dtype=torch.float32):
+    """Returns ``step(state, batch) -> (loss, loss_dict, preds, cap_tgt)``
+    on one un-stacked batch, in eval mode and without gradients; the
+    teacher computes in float32, as in the JAX eval step."""
+    compute_dtype = as_dtype(compute_dtype)
+
+    @torch.no_grad()
+    def step(state: TrainState, batch: Dict):
+        state.student.eval()
+        state.projectors.eval()
+        images = T.normalize(batch["images"], dtype=compute_dtype)
+        cap_in, cap_tgt = batch["captions"][:-1], batch["captions"][1:]
+        student_out, teacher_out = _kd_forward(
+            teacher, t_cfg, state, s_cfg, images, cap_in, generator=None,
+            teacher_dtype=torch.float32)
+        loss, ld = DL.distillation_loss(student_out, teacher_out, cap_tgt,
+                                        d_cfg, lengths=batch["lengths"])
+        preds = student_out["logits"].float().argmax(-1)
+        return loss, ld, preds, cap_tgt
+
+    return step

@@ -1,4 +1,4 @@
-"""JAX student parameter trees -> the port's ``state_dict``.
+"""JAX parameter trees <-> the port's ``state_dict``s.
 
 The JAX parameters are already stored in torch layouts (Linear (out, in),
 conv OIHW) and the port's submodules are named after the JAX tree, so the
@@ -8,11 +8,15 @@ Two naming quirks of the JAX state tree are undone here: its top level is
 ``{"resnet": ...}`` (not ``{"encoder": ...}``), and a downsample branch keeps
 its statistics under ``downsample_bn`` while its affine parameters sit in
 ``downsample.bn`` (``resnet.py:42-43``).
+
+The teacher, the projectors and the AdamW moments flatten the same way; the
+inverse direction (``state_dict_to_tree``, ``student_to_jax_trees``) writes
+checkpoints that the JAX package reads.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
@@ -50,3 +54,64 @@ def jax_student_to_state_dict(params: Dict, state: Dict, cfg: StudentConfig
     for k, v in tree_to_state_dict(state["resnet"], "encoder.resnet").items():
         sd[k.replace(".downsample_bn.", ".downsample.bn.")] = v
     return sd
+
+
+def jax_teacher_to_state_dict(params: Dict) -> Dict[str, torch.Tensor]:
+    """``teacher_init`` / a teacher checkpoint's params -> a ``state_dict``
+    for ``models.teacher.Teacher`` (``strict=True``; the positional table is
+    not a parameter on either side)."""
+    return tree_to_state_dict(params)
+
+
+def jax_projectors_to_state_dict(params: Dict) -> Dict[str, torch.Tensor]:
+    """``create_feature_projectors`` params -> a ``state_dict`` for
+    ``distill.projector.make_projectors``."""
+    return tree_to_state_dict(params)
+
+
+def jax_adamw_to_state(opt_state: Dict, named_params) -> Tuple[int, Dict, Dict]:
+    """A JAX ``AdamWState`` over ``{"student": ..., "projectors": ...}``
+    (as a dict with ``step``, ``mu``, ``nu``) -> ``(step, mu, nu)`` keyed
+    like ``TrainState.named_parameters()``."""
+    mu = tree_to_state_dict(opt_state["mu"])
+    nu = tree_to_state_dict(opt_state["nu"])
+    names = list(named_params)
+    if set(mu) != set(names) or set(nu) != set(names):
+        raise ValueError("optimizer state does not match the parameters")
+    return (int(opt_state["step"]), {n: mu[n] for n in names},
+            {n: nu[n] for n in names})
+
+
+def state_dict_to_tree(sd: Dict[str, torch.Tensor]) -> Any:
+    """The inverse of ``tree_to_state_dict``: dotted keys -> nested dicts of
+    float32 numpy arrays; a level whose keys are 0..n-1 becomes a list."""
+    root: Dict = {}
+    for key, value in sd.items():
+        node = root
+        parts = key.split(".")
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = value.detach().float().cpu().numpy()
+
+    def listify(node):
+        if not isinstance(node, dict):
+            return node
+        node = {k: listify(v) for k, v in node.items()}
+        if node and all(k.isdigit() for k in node):
+            return [node[str(i)] for i in range(len(node))]
+        return node
+
+    return listify(root)
+
+
+def student_to_jax_trees(model) -> Tuple[Dict, Dict]:
+    """A ``Student`` -> ``(params, model_state)`` in the JAX layout: the
+    parameters' tree, and the batch-norm statistics under ``{"resnet":
+    ...}`` with ``downsample_bn``."""
+    params = state_dict_to_tree(dict(model.named_parameters()))
+    buffers = {k[len("encoder.resnet."):].replace(".downsample.bn.",
+                                                  ".downsample_bn."): v
+               for k, v in model.named_buffers()
+               if k.startswith("encoder.resnet.")
+               and not k.endswith("num_batches_tracked")}
+    return params, {"resnet": state_dict_to_tree(buffers)}

@@ -5,7 +5,10 @@ float32 on the CPU, where the port takes its plain versions.  atol 1e-5:
 the two sides sum in different orders at float32.
 """
 
+import ast
 import dataclasses
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -15,9 +18,11 @@ import torch
 
 from imagecaptioner_tpu.core import config as JC
 from imagecaptioner_tpu.core import modules as JM
+from imagecaptioner_tpu.data import transforms as JT
 from imagecaptioner_tpu.data.vocabulary import Vocabulary as JVocabulary
 from imagecaptioner_tpu_torch.core import config as PC
 from imagecaptioner_tpu_torch.core import modules as PM
+from imagecaptioner_tpu_torch.data import transforms as PT
 from imagecaptioner_tpu_torch.data.vocabulary import Vocabulary
 
 ATOL = 1e-5
@@ -152,3 +157,143 @@ def test_numpy_init_bounds():
     np.testing.assert_allclose(q.T @ q, np.eye(8), atol=1e-5)
     jq = np.asarray(JM.orthogonal(jax.random.PRNGKey(0), (32, 8)))
     assert jq.shape == q.shape
+
+
+@pytest.mark.parametrize("name", ["TeacherConfig", "DistillConfig",
+                                  "KDTrainConfig", "DataConfig"])
+def test_training_configs_match_jax_field_for_field(name):
+    jf = [(f.name, f.default) for f in dataclasses.fields(getattr(JC, name))]
+    pf = [(f.name, f.default) for f in dataclasses.fields(getattr(PC, name))]
+    assert pf == jf
+    if name == "TeacherConfig":
+        assert PC.TeacherConfig().num_tokens == JC.TeacherConfig().num_tokens
+        assert PC.replace(PC.TeacherConfig(), image_size=32).num_tokens == 5
+
+
+def test_batch_norm_train_matches_jax_and_updates_running_stats():
+    x = _np(4, 8, 5, 5, seed=30, scale=2.0) + 0.5
+    w, b = _np(8, seed=31), _np(8, seed=32)
+    mean = _np(8, seed=33)
+    var = np.abs(_np(8, seed=34)) + 0.5
+    ref, new = JM.batch_norm(
+        {"weight": jnp.asarray(w), "bias": jnp.asarray(b)},
+        {"running_mean": jnp.asarray(mean), "running_var": jnp.asarray(var)},
+        jnp.asarray(x.transpose(0, 2, 3, 1)), train=True)
+    bn = PM.BatchNorm2d(8)
+    bn.load_state_dict({"weight": _t(w), "bias": _t(b), "running_mean":
+                        _t(mean), "running_var": _t(var)})
+    got = bn.train()(_t(x))
+    _close(got.permute(0, 2, 3, 1), ref)
+    _close(bn.running_mean, new["running_mean"])
+    _close(bn.running_var, new["running_var"])
+    # frozen affine parameters do not stop the statistics from updating
+    assert not bn.weight.requires_grad
+    before = bn.running_mean.clone()
+    bn.eval()(_t(x))
+    assert torch.equal(bn.running_mean, before)
+
+
+def test_dropout_semantics():
+    x = _t(_np(6, 10, seed=35))
+    assert PM.dropout(x, 0.5, False) is x and PM.dropout(x, 0.0, True) is x
+    with pytest.raises(ValueError, match="Generator"):
+        PM.dropout(x, 0.5, True)
+    keep = np.random.default_rng(36).random((6, 10)) < 0.7
+    key = jax.random.PRNGKey(0)
+    got = PM.dropout(x, 0.3, True, mask=torch.from_numpy(keep))
+    np.testing.assert_allclose(got.numpy(),
+                               np.where(keep, x.numpy() / 0.7, 0.0), atol=1e-7)
+    # the same inverted-dropout rule as the JAX function, on its own mask
+    jmask = np.asarray(jax.random.bernoulli(key, 0.7, (6, 10)))
+    _close(PM.dropout(x, 0.3, True, mask=torch.from_numpy(jmask)),
+           JM.dropout(key, jnp.asarray(x.numpy()), 0.3, True), atol=1e-7)
+    g = torch.Generator().manual_seed(0)
+    big = torch.ones(200, 200)
+    kept = (PM.dropout(big, 0.3, True, g) != 0).float().mean().item()
+    assert abs(kept - 0.7) < 0.02
+    with PM.no_dropout():
+        assert PM.dropout(x, 0.5, True) is x
+    with pytest.raises(ValueError):
+        PM.dropout(x, 0.5, True)
+
+
+def test_positional_encoding_gelu_and_pool1d():
+    np.testing.assert_array_equal(PM.sinusoidal_positional_encoding(50, 16),
+                                  JM.sinusoidal_positional_encoding(50, 16))
+    x = _np(3, 7, seed=37, scale=2.0)
+    _close(PM.gelu(_t(x)), jax.nn.gelu(jnp.asarray(x), approximate=False),
+           atol=1e-6)
+    y = _np(2, 6, 17, seed=38)
+    _close(PM.adaptive_avg_pool1d(_t(y), 5),
+           JM.adaptive_avg_pool1d(jnp.asarray(y), 5))
+
+
+def test_conv2d_with_bias():
+    x, w, b = _np(2, 3, 32, 32, seed=39), _np(8, 3, 16, 16, seed=40, scale=0.1), \
+        _np(8, seed=41)
+    ref = JM.conv2d({"weight": jnp.asarray(w), "bias": jnp.asarray(b)},
+                    jnp.asarray(x.transpose(0, 2, 3, 1)), stride=16, padding=0)
+    conv = PM.Conv2d(3, 8, 16, stride=16, bias=True)
+    conv.load_state_dict({"weight": _t(w), "bias": _t(b)})
+    _close(conv(_t(x)).permute(0, 2, 3, 1), ref, atol=5e-5)
+
+
+def test_color_jitter_and_flip_match_jax_on_shared_draws():
+    """The JAX functions draw their factors from a key; the same factors,
+    computed here as they do, go ready-made to the port."""
+    cfg = JT.KD_TRAIN_AUG
+    pcfg = PT.KD_TRAIN_AUG
+    assert dataclasses.asdict(pcfg) == dataclasses.asdict(cfg)
+    x = np.random.default_rng(42).random((3, 8, 8, 3)).astype(np.float32)
+    key = jax.random.PRNGKey(3)
+    kb, kc, ks, kh = jax.random.split(key, 4)
+    u = lambda k, f: np.asarray(jax.random.uniform(  # noqa: E731
+        k, (3, 1, 1, 1), minval=max(0.0, 1.0 - f), maxval=1.0 + f))
+    factors = {"brightness": _t(u(kb, cfg.brightness)),
+               "contrast": _t(u(kc, cfg.contrast)),
+               "saturation": _t(u(ks, cfg.saturation)),
+               "hue": _t(np.asarray(jax.random.uniform(
+                   kh, (3, 1, 1), minval=-cfg.hue, maxval=cfg.hue)))}
+    ref = JT.color_jitter(key, jnp.asarray(x), cfg)
+    _close(PT.color_jitter(_t(x), pcfg, None, factors), ref)
+    flip = np.asarray(jax.random.bernoulli(key, 0.5, (3, 1, 1, 1)))
+    _close(PT.random_hflip(_t(x), 0.5, None, torch.from_numpy(flip[:, 0, 0, 0])),
+           JT.random_hflip(key, jnp.asarray(x), 0.5), atol=0)
+    u8 = np.random.default_rng(43).integers(0, 256, (2, 8, 8, 3), dtype=np.uint8)
+    _close(PT.augment_and_normalize(torch.from_numpy(u8), PT.AugmentConfig(),
+                                    None),
+           JT.augment_and_normalize(key, jnp.asarray(u8), JT.AugmentConfig()),
+           atol=1e-6)
+    g = torch.Generator().manual_seed(1)
+    out = PT.augment_and_normalize(torch.from_numpy(u8), pcfg, g)
+    assert out.shape == (2, 3, 8, 8) and torch.isfinite(out).all()
+    with pytest.raises(NotImplementedError, match="not ported"):
+        PT.augment_and_normalize(torch.from_numpy(u8),
+                                 PT.AugmentConfig(rotation_deg=5.0), g)
+
+
+REPO = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted(str(p.relative_to(REPO)) for p in
+                    (REPO / "imagecaptioner_tpu_torch").rglob("*.py")
+                    ) + ["chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", PORT_FILES)
+def test_port_file_imports_no_jax_and_picks_no_device(path):
+    """Every file of the port and the smoke script: no import of jax or of
+    the JAX package, and no ``"cuda" if torch.cuda.is_available() else
+    "cpu"``-style fallback to the CPU."""
+    src = (REPO / path).read_text()
+    for node in ast.walk(ast.parse(src)):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        for n in names:
+            root = n.split(".")[0]
+            assert root not in ("jax", "jaxlib", "flax", "optax",
+                                "imagecaptioner_tpu"), f"{path} imports {n}"
+    picks = re.findall(r"is_available\(\)\s*else|if\s+torch\.cuda\.is_available"
+                       r"\(\)\s*else|else\s+[\"']cpu[\"']", src)
+    assert not picks, f"{path} picks its device by itself: {picks}"

@@ -159,7 +159,8 @@ def test_unported_variants_and_flags_raise(tmp_path):
                                  "model_config": {"model_type": "enhanced"}})
     with pytest.raises(NotImplementedError, match="not ported"):
         PCKPT.load_student_checkpoint(path)
-    base = ["--checkpoint", "c", "--vocab", "v", "--images", "i"]
+    base = ["--checkpoint", "c", "--vocab", "v", "--images", "i",
+            "--device", "cpu"]
     for extra in (["--model", "teacher"], ["--model", "student", "--int8"],
                   ["--model", "student", "--data-parallel"]):
         with pytest.raises(SystemExit, match="not ported yet"):
@@ -189,7 +190,8 @@ def test_serve_cli_end_to_end(jax_student, tmp_path):
     out = tmp_path / "captions.jsonl"
     rc = serve.main(["--model", "student", "--checkpoint", ckpt, "--vocab",
                      str(tmp_path / "vocab.json"), "--images", str(img_dir),
-                     "--out", str(out), "--batch", "2", "--max-length", "5"])
+                     "--out", str(out), "--batch", "2", "--max-length", "5",
+                     "--device", "cpu"])
     lines = out.read_text().splitlines()
     assert rc == 0 and len(lines) == 3
     words = set(vocab.itos.values())
@@ -197,10 +199,58 @@ def test_serve_cli_end_to_end(jax_student, tmp_path):
                for w in json.loads(line)["caption"].split())
 
 
+def test_serve_cli_default_device_raises_without_a_card(tmp_path):
+    """The CLI defaults to the card and never picks the CPU by itself."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card")
+    out = tmp_path / "captions.jsonl"
+    with pytest.raises((SystemExit, RuntimeError), match="no CUDA device"):
+        serve.main(["--model", "student", "--checkpoint", "c", "--vocab", "v",
+                    "--images", "i", "--out", str(out)])
+    assert not out.exists()
+
+
+def test_student_forward_matches_jax_student_apply(jax_student, port_student,
+                                                   images_u8):
+    """``Student.forward`` in eval mode against ``student_apply``: the
+    4-tuple with the unrefined feature tap (atol 1e-4 as for the features
+    above)."""
+    cfg, p, s = jax_student
+    _, model = port_student
+    caps = np.random.default_rng(9).integers(0, V, (T, B)).astype(np.int32)
+    imgs = JT.normalize(jnp.asarray(images_u8))
+    (logits, raw, hid, attn), _ = SM.student_apply(p, s, imgs,
+                                                   jnp.asarray(caps), cfg)
+    with torch.inference_mode():
+        got = model(PT.normalize(torch.from_numpy(images_u8)),
+                    torch.from_numpy(caps).long())
+    for g, r in zip(got, (logits, raw, hid, attn)):
+        assert g.shape == r.shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=1e-4)
+    _, refined = model.encode_image(PT.normalize(torch.from_numpy(images_u8)))
+    assert not torch.equal(refined, got[1])         # the tap is unrefined
+
+
+def test_trainable_mask_matches_jax(jax_student, port_student):
+    from imagecaptioner_tpu_torch.models.student import student_trainable_mask
+    from imagecaptioner_tpu_torch.utils.convert import tree_to_state_dict
+    cfg, p, _ = jax_student
+    pcfg, model = port_student
+    ref = tree_to_state_dict(jax.tree.map(
+        lambda b: np.float32(b), SM.student_trainable_mask(p, cfg)))
+    got = student_trainable_mask(model, pcfg)
+    assert {k: bool(v) for k, v in ref.items()} == got
+    assert not got["encoder.resnet.layer2.3.bn3.weight"]
+    assert got["encoder.resnet.layer3.0.conv1.weight"]
+    assert all(student_trainable_mask(
+        model, PC.full_student_config(V, freeze_backbone=False)).values())
+
+
 def test_port_imports_no_jax():
     subprocess.run(
         [sys.executable, "-c",
          "import imagecaptioner_tpu_torch.eval.serve, sys; "
+         "import imagecaptioner_tpu_torch.train.train_student_kd; "
          "assert 'jax' not in sys.modules; "
          "assert 'imagecaptioner_tpu' not in sys.modules"],
         check=True, timeout=120, cwd=REPO)
