@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (H100).
 
     python3 chip_smoke.py             # the whole run
-    python3 chip_smoke.py --mutation  # only: does the backward check catch a fault?
+    python3 chip_smoke.py --mutation  # only: do the checks catch a planted fault?
 
 Imports nothing of JAX.  In order it:
   1. prints the card and its power limit, and exits non-zero without a card;
@@ -33,16 +33,33 @@ Imports nothing of JAX.  In order it:
      step on the CPU with the plain versions (dropout off, augmentation off,
      B=4).  Each path's launch counts are set to 0 just before it and read
      just after;
-  9. prints kernel, plain and library times (CUDA events, median after
+  9. holds the two beam-step attention kernels against their plain versions
+     at the teacher's full width (N=16 and 32 images, K=5 beams, 8 heads,
+     S=21 cache positions, L=197 memory tokens), float32 and bf16, random
+     ancestry, pos 0, 7 and 20, q as a column block of a packed projection;
+ 10. drives teacher beam serving: a ViT-S/16 teacher from a numpy seed with
+     its cross-attention scaled up and its END bias raised (so that beams
+     finish at different lengths), written as a JAX-format checkpoint,
+     loaded through the serve path's loader, captions 8 batches of 16 seeded
+     uint8 224x224 images through ``make_beam_captioner`` (K=5, max_length
+     20) in float32, then in bf16; the float32 card path is held against the
+     all-plain CPU path on 4 images, the bf16 kernel path against the
+     all-plain path on the card; packs of 8, 16 and 32 images and the cost of
+     the early-exit read are timed;
+ 11. prints kernel, plain and library times (CUDA events, median after
      warm-up), each kernel's bound, and the end-to-end rates;
- 10. prints the kernels JSON line, the nvidia-smi line, and last
+ 12. prints the kernels JSON line, the nvidia-smi line, and last
      ``{"ok": true, "device": {...}}``.
-Any failed check exits non-zero before the last line.
+Any failed check exits non-zero before the last line.  ``--mutation`` builds
+two faulty copies (a scan backward without its dropout mask, a beam
+self-attention that ignores the ancestry table) and expects both checks to
+fail.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 import shutil
@@ -63,18 +80,20 @@ from imagecaptioner_tpu_torch.core.config import (DistillConfig,
 from imagecaptioner_tpu_torch.data import transforms as T
 from imagecaptioner_tpu_torch.data.synthetic import make_grid_loaders
 from imagecaptioner_tpu_torch.data.vocabulary import (END, PAD, SPECIALS,
-                                                      Vocabulary)
+                                                      START, Vocabulary)
 from imagecaptioner_tpu_torch.eval import serve
 from imagecaptioner_tpu_torch.distill.projector import (
     create_feature_projectors, make_projectors)
 from imagecaptioner_tpu_torch.models import lstm as L
 from imagecaptioner_tpu_torch.models.student import Student, student_init
+from imagecaptioner_tpu_torch.models import transformer as TD
 from imagecaptioner_tpu_torch.models.teacher import teacher_init
 from imagecaptioner_tpu_torch.ops import _build
 from imagecaptioner_tpu_torch.ops import attention as A
+from imagecaptioner_tpu_torch.ops import beam_attn as BA
+from imagecaptioner_tpu_torch.ops import decode as D
 from imagecaptioner_tpu_torch.ops import greedy as G
 from imagecaptioner_tpu_torch.ops import lstm_scan as S
-from imagecaptioner_tpu_torch.ops.decode import tokens_to_caption
 from imagecaptioner_tpu_torch.train import common, steps
 from imagecaptioner_tpu_torch.train import train_student_kd as TK
 from imagecaptioner_tpu_torch.utils import convert as CV
@@ -102,6 +121,13 @@ KD_A, KD_B, KD_T, KD_IMAGES, KD_STEPS = 2, 16, 47, 96, 3
 SCAN_LIMIT = {torch.float32: 1e-4, torch.bfloat16: 1e-4}
 SCAN_FWD_BF16_LIMIT = 2e-2
 
+# teacher beam serving (TeacherConfig defaults; the serve CLI's batch)
+BEAM_B, BEAM_BATCHES, BEAM_K = 16, 8, 5
+BEAM_S, BEAM_L, BEAM_H = MAX_LEN + 1, 197, 8
+BEAM_LIMIT = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# see sharpen_teacher: cross-attention in- and out-projection gains, END bias
+BEAM_CROSS_IN_GAIN, BEAM_CROSS_GAIN, BEAM_END_BIAS = 8.0, 4.0, 1.2
+
 # published peaks of one H100 SXM: HBM bytes/s; dense FLOP/s by operand type
 HBM_BPS = 3.35e12
 PEAK = {"bf16": 989e12, "f32": 67e12}
@@ -127,6 +153,26 @@ def median_ms(fn, iters: int = 50, warmup: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def queued_ms(fn, n: int = 40) -> float:
+    """Device time of one call when the stream never runs dry: a long matrix
+    product is queued first, the ``n`` calls are enqueued while it runs, and
+    the events bracket the calls alone.  For kernels of a few microseconds
+    ``median_ms`` reads the host's time to enqueue one call (the wrapper's
+    checks, ctypes, the launch); this reads what the card spends."""
+    fn()
+    blocker = torch.empty((8192, 8192), device="cuda")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.mm(blocker, blocker)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
 
 
 def check_attention(dev, gen):
@@ -442,6 +488,328 @@ def scan_bounds(kept):
                      T_ * B * (3 * 2 * macs + 3 * attn), "f32"))
 
 
+def beam_operands(dev, N, dtype, pos, seed):
+    """One beam step's attention operands at the teacher's full width from a
+    numpy seed: q as the first column block of a packed (R, 1, 3E)
+    projection (how ``decoder_step_cached`` hands it over), a random cache
+    and memory, a random ancestry table with the identity at ``pos``."""
+    rng = np.random.default_rng(seed)
+    K, H, S, L = BEAM_K, BEAM_H, BEAM_S, BEAM_L
+    R, E = N * K, BEAM_H * 64
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                                ).to(dev).to(dtype)
+
+    anc = rng.integers(0, K, (N, K, S)).astype(np.int32)
+    anc[:, :, pos] = np.arange(K, dtype=np.int32)[None]
+    return dict(q=t(R, 1, 3 * E).chunk(3, dim=-1)[0],
+                kv={"k": t(R, H, S, 64), "v": t(R, H, S, 64)},
+                mem_kv={"k": t(N, H, L, 64), "v": t(N, H, L, 64)},
+                anc=torch.from_numpy(anc).to(dev), pos=pos)
+
+
+def check_beam_attention(dev):
+    """The two beam-step kernels against their plain versions at full width.
+    Returns the largest errors of the main path's case (N=16, float32)."""
+    main_err = {"self": 0.0, "cross": 0.0}
+    for N in (BEAM_B, 2 * BEAM_B):
+        for dtype in (torch.float32, torch.bfloat16):
+            for pos in (0, 7, BEAM_S - 1):
+                o = beam_operands(dev, N, dtype, pos, SEED + 20 + pos)
+                got_s = BA.beam_self_attention_cuda(
+                    o["q"], o["kv"], o["anc"], pos, num_heads=BEAM_H)
+                ref_s = BA.beam_self_attention_plain(
+                    o["q"], o["kv"], o["anc"], pos, num_heads=BEAM_H)
+                got_c = BA.beam_cross_attention_cuda(
+                    o["q"], o["mem_kv"], mem_group=BEAM_K, num_heads=BEAM_H)
+                ref_c = BA.beam_cross_attention_plain(
+                    o["q"], o["mem_kv"], mem_group=BEAM_K, num_heads=BEAM_H)
+                torch.cuda.synchronize()
+                for what, got, ref in (("self", got_s, ref_s),
+                                       ("cross", got_c, ref_c)):
+                    if got.dtype != dtype or got.shape != (N * BEAM_K, 1, 512):
+                        fail(f"beam {what} attention: dtype/shape contract")
+                    err = (got.float() - ref.float()).abs().max().item()
+                    top = ref.float().abs().max().item()
+                    ok = err <= BEAM_LIMIT[dtype] and top > 0.1
+                    print(f"beam_{what}_attention N={N} {str(dtype)[6:]} "
+                          f"pos={pos}: max_abs_err {err:.3e} (limit "
+                          f"{BEAM_LIMIT[dtype]:g}), largest value {top:.3e} "
+                          f"{'ok' if ok else 'FAIL'}", flush=True)
+                    if not ok:
+                        fail(f"the beam {what}-attention kernel disagrees "
+                             "with its plain version")
+                    if N == BEAM_B and dtype == torch.float32:
+                        main_err[what] = max(main_err[what], err)
+    return main_err
+
+
+def beam_bounds(o):
+    """Bounds of the two beam kernels from one step's operands.  Self: q,
+    out and the live part of the ancestry table once, plus the rows of k and
+    v that this table names (a row shared by several beams counts once);
+    operations are the two products over positions 0..pos.  Cross: q, out
+    and the whole memory K and V once."""
+    q, anc, pos = o["q"], o["anc"], o["pos"]
+    R, E, H, item = q.shape[0], q.shape[2], BEAM_H, q.element_size()
+    kind = "f32" if q.dtype == torch.float32 else "bf16"
+    live = anc[:, :, :pos + 1].sort(dim=1).values
+    rows = int((live[:, 1:] != live[:, :-1]).sum()) + live.shape[0] * (pos + 1)
+    self_bytes = 2 * R * E * item + live.numel() * 4 + 2 * rows * H * 64 * item
+    cross_bytes = 2 * R * E * item + nbytes(*o["mem_kv"].values())
+    return dict(
+        self=bound_ms(self_bytes, 4 * R * H * (pos + 1) * 64, kind),
+        cross=bound_ms(cross_bytes, 4 * R * H * BEAM_L * 64, kind))
+
+
+def time_beam_attention(dev):
+    """CUDA-event medians of the two kernels, their plain versions and, for
+    the cross kernel, ``scaled_dot_product_attention`` on the same operands
+    (a yardstick: the port never calls it), at N=16 and the loop's last
+    position; float32 is the main path's dtype, bf16 is timed beside it."""
+    out = {}
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        o = beam_operands(dev, BEAM_B, dtype, MAX_LEN - 1, SEED + 30)
+        q, kv, mkv, anc, pos = (o[k] for k in ("q", "kv", "mem_kv", "anc",
+                                               "pos"))
+        qh = q.reshape(BEAM_B, BEAM_K, BEAM_H, 64).transpose(1, 2).contiguous()
+        out[tag] = dict(
+            self_ms=median_ms(lambda: BA.beam_self_attention_cuda(
+                q, kv, anc, pos, num_heads=BEAM_H), 200),
+            self_plain_ms=median_ms(lambda: BA.beam_self_attention_plain(
+                q, kv, anc, pos, num_heads=BEAM_H), 50),
+            cross_ms=median_ms(lambda: BA.beam_cross_attention_cuda(
+                q, mkv, mem_group=BEAM_K, num_heads=BEAM_H), 200),
+            cross_plain_ms=median_ms(lambda: BA.beam_cross_attention_plain(
+                q, mkv, mem_group=BEAM_K, num_heads=BEAM_H), 50),
+            cross_sdpa_ms=median_ms(lambda: F.scaled_dot_product_attention(
+                qh, mkv["k"], mkv["v"], scale=0.125), 200),
+            self_queued_ms=queued_ms(lambda: BA.beam_self_attention_cuda(
+                q, kv, anc, pos, num_heads=BEAM_H)),
+            cross_queued_ms=queued_ms(lambda: BA.beam_cross_attention_cuda(
+                q, mkv, mem_group=BEAM_K, num_heads=BEAM_H)),
+            cross_sdpa_queued_ms=queued_ms(
+                lambda: F.scaled_dot_product_attention(
+                    qh, mkv["k"], mkv["v"], scale=0.125)),
+            bounds=beam_bounds(o))
+    return out
+
+
+def sharpen_teacher(params: dict) -> None:
+    """Scale a random teacher in place so that beam search does all of its
+    work.  At its default init the decoder barely reads the image and never
+    ranks END high: no hypothesis finishes, no beam shrinks, and equal
+    tokens check little.  The cross-attention's projections are scaled up
+    (sharper weights over the memory tokens and a larger share of the
+    residual stream: the images matter) and END gets a bias (some beams
+    finish, at different steps)."""
+    for layer in params["decoder"]:
+        layer["multihead_attn"]["in_proj_weight"] *= BEAM_CROSS_IN_GAIN
+        layer["multihead_attn"]["out_proj"]["weight"] *= BEAM_CROSS_GAIN
+    params["fc_out"]["bias"][END] += BEAM_END_BIAS
+
+
+def beam_images(n_batches: int, seed: int):
+    """Seeded uint8 batches (BEAM_B, 224, 224, 3): every 16x16 patch a flat
+    random colour plus a little noise, so that images differ from each other
+    in every ViT token (a random ViT maps plain noise images to nearly one
+    memory)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n_batches):
+        blocks = rng.integers(0, 256, (BEAM_B, 14, 14, 3))
+        img = np.repeat(np.repeat(blocks, 16, axis=1), 16, axis=2)
+        img = img + rng.integers(-8, 9, img.shape)
+        out.append(np.clip(img, 0, 255).astype(np.uint8))
+    return out
+
+
+def write_beam_teacher(path: str) -> None:
+    """A full-width teacher from the numpy seed, sharpened, as a JAX-format
+    checkpoint."""
+    cfg = TeacherConfig(vocab_size=VOCAB)
+    params = teacher_init(SEED + 3, cfg)
+    sharpen_teacher(params)
+    mc = dataclasses.asdict(cfg)
+    mc.pop("vocab_size")
+    save_checkpoint(path, {"model_state_dict": {"params": params},
+                           "vocab_size": VOCAB, "model_config": mc})
+
+
+def beam_outcomes(scores: np.ndarray, lens: np.ndarray) -> dict:
+    """What a run of beam search did, read from its outputs: images where no
+    hypothesis finished, images that ran out of live beams before the last
+    step, and the lengths at which hypotheses finished."""
+    fin = np.isfinite(scores)
+    return dict(
+        never=int((lens == BEAM_S).all(1).sum()),
+        ran_out=int((fin.all(1) & (lens.max(1) < BEAM_S)).sum()),
+        finished_lens=sorted(set(lens[fin & (lens < BEAM_S)].tolist())))
+
+
+def check_beam_contract(seqs, scores, lens, n):
+    K, S = BEAM_K, BEAM_S
+    if seqs.shape != (n, K, S) or seqs.dtype != np.int32 \
+            or scores.shape != (n, K) or scores.dtype != np.float32 \
+            or lens.shape != (n, K) or lens.dtype != np.int32:
+        fail(f"beam outputs out of contract: {seqs.shape} {seqs.dtype}, "
+             f"{scores.shape} {scores.dtype}, {lens.shape} {lens.dtype}")
+    fin = np.isfinite(scores)
+    if seqs.min() < 0 or seqs.max() >= VOCAB or np.isnan(scores).any() \
+            or not fin[:, 0].all() or not (seqs[fin][:, 0] == START).all():
+        fail("beam tokens or scores out of range")
+    ranked = np.where(fin, scores, -np.inf)
+    if (ranked[:, 1:] > ranked[:, :-1]).any():
+        fail("beam scores are not sorted")
+    if (lens[fin] < 2).any() or (lens[fin] > S).any() or (lens[~fin] != 0).any():
+        fail("beam lengths out of range")
+
+
+def run_beam_batches(caption, batches):
+    """Per-batch host-clock seconds (each call ends in device-to-host
+    copies) and the concatenated outputs."""
+    caption(batches[0])                                    # warm-up
+    torch.cuda.synchronize()
+    A.launches = BA.launches_self = BA.launches_cross = 0
+    outs, secs = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        outs.append(caption(b))
+        secs.append(time.perf_counter() - t0)
+    launches = {"attention_core": A.launches,
+                "beam_self_attention": BA.launches_self,
+                "beam_cross_attention": BA.launches_cross}
+    return secs, tuple(np.concatenate(x) for x in zip(*outs)), launches
+
+
+def top_rows_identical(a, b) -> int:
+    """Images whose best hypothesis has the same tokens in both results."""
+    return int((np.asarray(a[0])[:, 0] == np.asarray(b[0])[:, 0]).all(1).sum())
+
+
+@torch.inference_mode()
+def plain_beam_on_card(teacher, memory, acc_dtype):
+    """The packed beam with the two attention cores replaced by their plain
+    versions on the same device, summing in ``acc_dtype``."""
+    real = TD.beam_self_attention, TD.beam_cross_attention
+    TD.beam_self_attention = functools.partial(
+        BA.beam_self_attention_plain, acc_dtype=acc_dtype)
+    TD.beam_cross_attention = functools.partial(
+        BA.beam_cross_attention_plain, acc_dtype=acc_dtype)
+    try:
+        out = D.beam_search_teacher_packed(teacher, memory, max_length=MAX_LEN,
+                                           beam_size=BEAM_K)
+    finally:
+        TD.beam_self_attention, TD.beam_cross_attention = real
+    return tuple(t.cpu().numpy() for t in out)
+
+
+def wall_ms(fn, n: int = 5):
+    """Median host-clock ms of ``fn()`` between synchronisations."""
+    fn()
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def run_beam(dev, tmp):
+    """Teacher beam serving at full width; returns the launch counts of the
+    float32 run and the rates."""
+    ckpt = os.path.join(tmp, "beam_teacher.npz")
+    write_beam_teacher(ckpt)
+    t32, cfg = serve.load_teacher(ckpt, dev)
+    t16, _ = serve.load_teacher(ckpt, dev, torch.bfloat16)
+    t_cpu, _ = serve.load_teacher(ckpt, "cpu")
+    batches = beam_images(BEAM_BATCHES, SEED + 11)
+    kw = dict(max_length=MAX_LEN, beam_size=BEAM_K)
+    n = BEAM_B * BEAM_BATCHES
+    rates = {}
+    for tag, teacher in (("float32", t32), ("bf16", t16)):
+        caption = serve.make_beam_captioner(teacher, cfg, dev, **kw)
+        secs, (seqs, scores, lens), launched = run_beam_batches(caption, batches)
+        check_beam_contract(seqs, scores, lens, n)
+        o = beam_outcomes(scores, lens)
+        rates[tag] = n / sum(secs)
+        print(f"beam path {tag}: launches {launched}; of {n} images {o['never']} "
+              f"never finish, {o['ran_out']} run out of live beams early; "
+              f"hypotheses finish at lengths {o['finished_lens']}; "
+              f"{len({tuple(r) for r in seqs[:, 0].tolist()})} distinct best "
+              f"captions", flush=True)
+        print(f"beam end-to-end {tag}: {rates[tag]:.1f} images/s (B={BEAM_B} x "
+              f"{BEAM_BATCHES} batches, K={BEAM_K}, T={MAX_LEN}, host clock "
+              f"incl. H2D/D2H); per batch ms: median "
+              f"{1e3 * statistics.median(secs):.3f}, min {1e3 * min(secs):.3f}, "
+              f"max {1e3 * max(secs):.3f}", flush=True)
+        if min(launched.values()) < 1:
+            fail(f"a kernel of the beam path was not launched: {launched}")
+        if o["never"] < 1 or o["ran_out"] < 1 or len(o["finished_lens"]) < 3:
+            fail(f"the beam run has no power: {o}")
+        if tag == "float32":
+            launches = launched
+
+    # float32 on the card (kernels) against the all-plain CPU path
+    small = batches[1][:4]
+    got = serve.make_beam_captioner(t32, cfg, dev, **kw)(small)
+    ref = serve.make_beam_captioner(t_cpu, cfg, "cpu", **kw)(small)
+    rows = top_rows_identical(got, ref)
+    same = (got[0][:, 0] == ref[0][:, 0]).all(1)
+    score_err = float(np.abs(got[1][:, 0] - ref[1][:, 0])[same].max()) \
+        if same.any() else float("inf")
+    ok = rows >= 3 and score_err <= 1e-4
+    print(f"fp32 beam card vs CPU on 4 images: best hypothesis identical in "
+          f"{rows}/4 (need 3), their scores differ by {score_err:.3e} (limit "
+          f"1e-4) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail("the card's float32 beam path disagrees with the CPU reference")
+
+    # bf16 on the card: kernels against the all-plain path, and the floor:
+    # what the plain path moves when it only sums in float64
+    with torch.inference_mode():
+        x = torch.from_numpy(batches[2]).to(dev)
+        mem16 = t16.encode_image(T.normalize(x, dtype=torch.bfloat16))
+        mem32 = t32.encode_image(T.normalize(x))
+        ker = tuple(t.cpu().numpy() for t in D.beam_search_teacher_packed(
+            t16, mem16, **kw))
+    p32 = plain_beam_on_card(t16, mem16, torch.float32)
+    p64 = plain_beam_on_card(t16, mem16, torch.float64)
+    rows, floor = top_rows_identical(ker, p32), top_rows_identical(p64, p32)
+    need = BEAM_B - 4       # near-tied beams swap at bf16; the floor says how many
+    print(f"bf16 beam kernels vs plain on the card: best hypothesis identical "
+          f"in {rows}/{BEAM_B} (need {need}); plain f64-vs-f32 sums agree on "
+          f"{floor}/{BEAM_B} {'ok' if rows >= need else 'FAIL'}", flush=True)
+    if rows < need:
+        fail("the bf16 beam kernels disagree with the plain path")
+
+    # where a batch's time goes, pack widths, and the early-exit read
+    with torch.inference_mode():
+        images = T.normalize(torch.from_numpy(
+            np.concatenate(batches[:2])).to(dev))
+        mem_big = t32.encode_image(images)
+        split = dict(
+            encode_ms=wall_ms(lambda: t32.encode_image(images[:BEAM_B])),
+            decode_ms=wall_ms(lambda: D.beam_search_teacher_packed(
+                t32, mem32, **kw)),
+            decode_no_exit_ms=wall_ms(lambda: D.beam_search_teacher_packed(
+                t32, mem32, early_exit=False, **kw)))
+        for pack in (8, 16, 32):
+            split[f"pack{pack}_ms"] = wall_ms(
+                lambda: D.beam_search_teacher_pipelined(t32, mem_big, pack=pack,
+                                                        **kw), 3)
+    print(f"beam batch float32 B={BEAM_B}: encode {split['encode_ms']:.3f} ms, "
+          f"memory K/V + decode loop {split['decode_ms']:.3f} ms (without the "
+          f"early-exit read {split['decode_no_exit_ms']:.3f} ms); 32 images "
+          f"decoded in packs of 8 / 16 / 32: {split['pack8_ms']:.3f} / "
+          f"{split['pack16_ms']:.3f} / {split['pack32_ms']:.3f} ms (host "
+          f"clock, synchronised, medians)", flush=True)
+    return launches, rates, split
+
+
 def pad_vocabulary(vocab, size):
     """Fill the grid vocabulary up to the serving point's size."""
     for i in range(len(vocab), size):
@@ -590,35 +958,54 @@ CARD_CPU_LOSS_LIMIT = 1e-4
 CARD_CPU_GNORM_LIMIT = 1e-3
 
 
-def run_mutation(dev) -> int:
-    """Build a copy of the backward kernel that leaves out the dropout mask
-    on layer 1's input gradient (``dh0 = dh0_c + (dgp1·W_ih1ᵀ) · mask``) and
-    run the backward check on it: the check must fail.  The copy lives in a
+def mutant_caught(source: str, good: str, bad: str, check, what: str) -> bool:
+    """Build a copy of ``csrc/`` in which one line of ``source`` is replaced
+    and run ``check`` on it: the check must fail.  The copy lives in a
     temporary directory; the repository's sources are not touched."""
     tmp = tempfile.mkdtemp(prefix="ic_mutant_")
+    real = _build.CSRC
     try:
-        for f in _build.CSRC.glob("*.cu*"):
+        for f in real.glob("*.cu*"):
             shutil.copy(f, tmp)
-        path = os.path.join(tmp, "decoder_scan_bwd.cu")
+        path = os.path.join(tmp, source)
         src = open(path).read()
-        good = "const float dh0 = dh0_s[j] + ta_s[j] * m;"
         if src.count(good) != 1:
-            fail("the line to mutate was not found in decoder_scan_bwd.cu")
-        open(path, "w").write(src.replace(good,
-                                          "const float dh0 = dh0_s[j] + ta_s[j];"))
-        _build.CSRC = type(_build.CSRC)(tmp)
-        decoder = make_decoder(dev)
+            fail(f"the line to mutate was not found in {source}")
+        open(path, "w").write(src.replace(good, bad))
+        _build.CSRC = type(real)(tmp)
         try:
-            check_scan(decoder, dev, mutant=True)
+            check()
         except SystemExit:
-            print("mutation run: the backward check caught the mutant "
-                  "(no dropout mask on d(h0)): ok", flush=True)
-            return 0
-        print("mutation run: the mutant PASSED the backward check: the check "
+            print(f"mutation run: the check caught the mutant ({what}): ok",
+                  flush=True)
+            return True
+        print(f"mutation run: the mutant ({what}) PASSED its check: the check "
               "has no power", file=sys.stderr, flush=True)
-        return 1
+        return False
     finally:
+        _build.CSRC = real
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def run_mutation(dev) -> int:
+    """Two planted faults, each of which its check must catch: the scan
+    backward without the dropout mask on layer 1's input gradient (``dh0 =
+    dh0_c + (dgp1·W_ih1ᵀ) · mask``), and a beam self-attention that reads
+    its own slot's cache row instead of ``anc[n, i, s]``."""
+    decoder = make_decoder(dev)
+    caught = [
+        mutant_caught("decoder_scan_bwd.cu",
+                      "const float dh0 = dh0_s[j] + ta_s[j] * m;",
+                      "const float dh0 = dh0_s[j] + ta_s[j];",
+                      lambda: check_scan(decoder, dev, mutant=True),
+                      "no dropout mask on d(h0)"),
+        mutant_caught("beam_attention.cu",
+                      "rows[s] = n * K + anc[(size_t)r * S + s];",
+                      "rows[s] = r;",
+                      lambda: check_beam_attention(dev),
+                      "beam self-attention ignores anc"),
+    ]
+    return 0 if all(caught) else 1
 
 
 def make_decoder(dev):
@@ -720,7 +1107,7 @@ def main() -> int:
     if toks.shape != (BATCH * N_BATCHES, MAX_LEN) or toks.dtype != np.int32 \
             or toks.min() < 0 or toks.max() >= VOCAB:
         fail(f"tokens out of contract: {toks.shape} {toks.dtype}")
-    captions = [tokens_to_caption(t, vocab) for t in toks]
+    captions = [D.tokens_to_caption(t, vocab) for t in toks]
     print(f"captioned {len(captions)} images, {len(set(captions))} distinct "
           f"captions; longest: {max(captions, key=len)!r}")
     imgs_per_s = BATCH * N_BATCHES / sum(batch_s)
@@ -769,7 +1156,15 @@ def main() -> int:
         if not ok:
             fail("the card's float32 KD step disagrees with the CPU's")
 
-    # --- 9./10. timings, bounds and the result lines -----------------------
+    # --- 9. beam-step attention kernels vs plain, at the teacher's width ----
+    beam_err = check_beam_attention(dev)
+    beam_t = time_beam_attention(dev)
+
+    # --- 10. teacher beam serving: serve loader -> beam captioner ----------
+    with tempfile.TemporaryDirectory() as tmp:
+        beam_launches, beam_rates, beam_split = run_beam(dev, tmp)
+
+    # --- 11./12. timings, bounds and the result lines ----------------------
     print(f"attention_core (32,4,49,64) bf16: kernel {attn_ms:.4f} ms, "
           f"plain {attn_plain_ms:.4f} ms, SDPA {attn_sdpa_ms:.4f} ms")
     print(f"greedy_decode B=32 T=20 bf16: kernel {greedy_ms:.4f} ms, "
@@ -802,13 +1197,25 @@ def main() -> int:
                     max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound[0],
                     bound_by=bound[1], library_ms=library, **more)
 
-    lstm = "pallas_lstm.py"
+    for tag, t in beam_t.items():
+        print(f"beam attention N={BEAM_B} K={BEAM_K} pos={MAX_LEN - 1} {tag}: "
+              f"self kernel {t['self_ms']:.4f} ms (plain "
+              f"{t['self_plain_ms']:.4f}, bound {t['bounds']['self'][0]:.5f} by "
+              f"{t['bounds']['self'][1]}); cross kernel {t['cross_ms']:.4f} ms "
+              f"(plain {t['cross_plain_ms']:.4f}, SDPA {t['cross_sdpa_ms']:.4f}"
+              f", bound {t['bounds']['cross'][0]:.5f} by "
+              f"{t['bounds']['cross'][1]}); with the stream kept full: self "
+              f"{t['self_queued_ms']:.4f} ms, cross {t['cross_queued_ms']:.4f}"
+              f" ms, SDPA {t['cross_sdpa_queued_ms']:.4f} ms")
+    lstm, bt = "pallas_lstm.py", beam_t["f32"]
     kernels = [
         entry("attention_core", "attention_core.cu", "pallas_attention.py:198",
-              launches["attention_core"] + kd_launches["attention_core"],
+              launches["attention_core"] + kd_launches["attention_core"]
+              + beam_launches["attention_core"],
               attn_err, attn_ms, attn_plain_ms, attn_bound, attn_sdpa_ms,
               launches_serving=launches["attention_core"],
-              launches_kd=kd_launches["attention_core"]),
+              launches_kd=kd_launches["attention_core"],
+              launches_beam=beam_launches["attention_core"]),
         entry("greedy_decode", "greedy_decode.cu", "pallas_greedy.py:258",
               launches["greedy_decode"], greedy_diff, greedy_ms,
               greedy_plain_ms, greedy_bound,
@@ -824,12 +1231,28 @@ def main() -> int:
               scan_t["bwd_ms"], scan_t["plain_bwd_ms"], scan_b["bwd"],
               steps_ms=scan_t["bwd_steps_ms"],
               weights_ms=scan_t["bwd_weights_ms"]),
+        entry("beam_self_attention", "beam_attention.cu",
+              "pallas_beam_attn.py:166", beam_launches["beam_self_attention"],
+              beam_err["self"], bt["self_ms"], bt["self_plain_ms"],
+              bt["bounds"]["self"], queued_ms=bt["self_queued_ms"],
+              bf16_ms=beam_t["bf16"]["self_ms"],
+              bf16_queued_ms=beam_t["bf16"]["self_queued_ms"]),
+        entry("beam_cross_attention", "beam_attention.cu",
+              "pallas_beam_attn.py:249", beam_launches["beam_cross_attention"],
+              beam_err["cross"], bt["cross_ms"], bt["cross_plain_ms"],
+              bt["bounds"]["cross"], bt["cross_sdpa_ms"],
+              queued_ms=bt["cross_queued_ms"],
+              library_queued_ms=bt["cross_sdpa_queued_ms"],
+              bf16_ms=beam_t["bf16"]["cross_ms"],
+              bf16_queued_ms=beam_t["bf16"]["cross_queued_ms"]),
     ]
     for k in kernels:
         print(f"{k['name']}: {k['ms']:.4f} ms, bound {k['bound_ms']:.5f} ms "
               f"by {k['bound_by']}, {k['launches']} launches on its path")
     print(json.dumps({"kernels": kernels, "images_per_s": imgs_per_s,
-                      "kd_images_per_s": kd_imgs_per_s}))
+                      "kd_images_per_s": kd_imgs_per_s,
+                      "beam_images_per_s": beam_rates,
+                      "beam_batch_ms": beam_split}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -20,41 +20,19 @@
 // owns one query row at a time: a lane scores keys lane, lane+32, ...,
 // the warp reduces max and sum with shuffles, and the lanes then split the
 // 64 output columns.  The score matrix never reaches device memory.
-// No library kernel (cuBLAS, cuDNN, SDPA) is called.
+// No library kernel (cuBLAS, cuDNN, SDPA) is called.  The staging and the
+// per-row work live in attention.cuh, shared with beam_attention.cu.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
+#include "attention.cuh"
 
 namespace {
 
-constexpr int D = 64;
+using namespace attn;
+
 constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
 constexpr int ROWS_PER_WARP = 2;
 constexpr int ROWS = WARPS * ROWS_PER_WARP;  // query rows per block
-constexpr int KSTRIDE = D + 1;               // padded K row in shared memory
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
 
 template <typename TQ, typename TV>
 __global__ void __launch_bounds__(THREADS)
@@ -62,71 +40,24 @@ attention_kernel(const TQ* __restrict__ q, const TQ* __restrict__ k,
                  const TV* __restrict__ v, TV* __restrict__ out, int Lq, int Lk,
                  float scale, int causal) {
   extern __shared__ float smem[];
-  float* k_s = smem;                    // Lk * KSTRIDE
-  float* v_s = k_s + Lk * KSTRIDE;      // Lk * D
-  float* q_s = v_s + Lk * D;            // WARPS * D
-  float* p_s = q_s + WARPS * D;         // WARPS * Lk
-
+  const Smem s(smem, Lk, WARPS);
   const size_t bh = blockIdx.x;
-  const TQ* kh = k + bh * Lk * D;
-  const TV* vh = v + bh * Lk * D;
-  for (int i = threadIdx.x; i < Lk * D; i += THREADS) {
-    k_s[(i / D) * KSTRIDE + (i % D)] = to_f(kh[i]);
-    v_s[i] = to_f(vh[i]);
-  }
-  __syncthreads();
+  stage_kv(k + bh * Lk * D, v + bh * Lk * D, Lk, s);
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* qw = q_s + warp * D;
-  float* pw = p_s + warp * Lk;
   for (int rr = 0; rr < ROWS_PER_WARP; ++rr) {
     const int row = blockIdx.y * ROWS + rr * WARPS + warp;
     if (row >= Lq) break;  // uniform across the warp
-    const TQ* qr = q + (bh * Lq + row) * D;
-    qw[lane] = to_f(qr[lane]);
-    qw[lane + 32] = to_f(qr[lane + 32]);
-    __syncwarp();
-
-    float m = -INFINITY;
-    for (int j = lane; j < Lk; j += 32) {
-      const float* kr = k_s + j * KSTRIDE;
-      float s = 0.f;
-#pragma unroll
-      for (int d = 0; d < D; ++d) s = fmaf(qw[d], kr[d], s);
-      s *= scale;
-      if (causal && j > row) s = -INFINITY;
-      pw[j] = s;
-      m = fmaxf(m, s);
-    }
-    m = warp_max(m);
-    float sum = 0.f;
-    for (int j = lane; j < Lk; j += 32) {
-      const float e = expf(pw[j] - m);
-      pw[j] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    for (int j = lane; j < Lk; j += 32) pw[j] = to_f(from_f<TV>(pw[j] / sum));
-    __syncwarp();
-
-    float a0 = 0.f, a1 = 0.f;
-    for (int j = 0; j < Lk; ++j) {
-      const float p = pw[j];
-      a0 = fmaf(p, v_s[j * D + lane], a0);
-      a1 = fmaf(p, v_s[j * D + lane + 32], a1);
-    }
-    TV* orow = out + (bh * Lq + row) * D;
-    orow[lane] = from_f<TV>(a0);
-    orow[lane + 32] = from_f<TV>(a1);
-    __syncwarp();  // qw and pw are reused by the next row
+    attend_row(q + (bh * Lq + row) * D, out + (bh * Lq + row) * D, s,
+               s.q + warp * D, s.p + warp * Lk, Lk, causal ? row : Lk, scale,
+               lane);
   }
 }
 
 template <typename TQ, typename TV>
 int launch(const void* q, const void* k, const void* v, void* out, int BH,
            int Lq, int Lk, float scale, int causal, cudaStream_t stream) {
-  const size_t smem =
-      (size_t)(Lk * KSTRIDE + Lk * D + WARPS * D + WARPS * Lk) * sizeof(float);
+  const size_t smem = smem_floats(Lk, WARPS) * sizeof(float);
   auto kern = attention_kernel<TQ, TV>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

@@ -1,12 +1,13 @@
 """Batch captioning CLI of the port: a directory of images -> captions JSONL.
 
-The ``--model student`` path of ``imagecaptioner_tpu/eval/serve.py`` with
-the same flags; the flags whose paths are not ported yet (the teacher,
-int8, data-parallel) exit with an error that says so.  Images are decoded
-with PIL, imported only here, so ``make_greedy_captioner`` (which takes
-uint8 arrays) runs on a machine without PIL.  Runs on ``--device`` (default
-``cuda``): without a card it raises, and only ``--device cpu`` runs on the
-CPU.
+``imagecaptioner_tpu/eval/serve.py`` with the same flags: ``--model
+student`` captions by greedy decode, ``--model teacher`` by packed beam
+search in the parameters' dtype as loaded (float32).  The flags whose paths
+are not ported yet (int8, data-parallel) exit with an error that says so.
+Images are decoded with PIL, imported only here, so ``make_greedy_captioner``
+and ``make_beam_captioner`` (which take uint8 arrays) run on a machine
+without PIL.  Runs on ``--device`` (default ``cuda``): without a card it
+raises, and only ``--device cpu`` runs on the CPU.
 
 Usage:
   python -m imagecaptioner_tpu_torch.eval.serve \\
@@ -14,6 +15,8 @@ Usage:
       --vocab saved_models/vocab.json --images data/flickr8k/Images \\
       --out captions.jsonl [--batch 16] [--max-length 20] [--temperature 1.0] \\
       [--device cuda|cpu]
+  python -m imagecaptioner_tpu_torch.eval.serve --model teacher \\
+      --checkpoint saved_models/best_teacher_model.npz [...] [--beam-size 5]
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ import json
 import os
 import sys
 import time
-from typing import Callable, List
+from typing import Callable, List, Tuple
 
 import numpy as np
 import torch
@@ -34,7 +37,10 @@ from imagecaptioner_tpu_torch.core.modules import cast_parameters
 from imagecaptioner_tpu_torch.data import transforms as T
 from imagecaptioner_tpu_torch.data.vocabulary import Vocabulary
 from imagecaptioner_tpu_torch.models.student import Student
-from imagecaptioner_tpu_torch.ops.decode import (best_greedy_decode_student,
+from imagecaptioner_tpu_torch.models.teacher import Teacher, load_teacher
+from imagecaptioner_tpu_torch.ops.decode import (beam_result_to_captions,
+                                                 beam_search_teacher_packed,
+                                                 best_greedy_decode_student,
                                                  tokens_to_caption)
 from imagecaptioner_tpu_torch.utils.checkpoint import load_student_checkpoint
 from imagecaptioner_tpu_torch.utils.convert import jax_student_to_state_dict
@@ -86,6 +92,29 @@ def make_greedy_captioner(student: Student, cfg: StudentConfig, device, *,
     return caption
 
 
+def make_beam_captioner(teacher: Teacher, cfg, device, *, max_length: int = 20,
+                        beam_size: int = 5
+                        ) -> Callable[[np.ndarray],
+                                      Tuple[np.ndarray, np.ndarray, np.ndarray]]:
+    """uint8 images (B, H, W, 3) -> ``(seqs (B, K, max_length + 1) int32
+    incl. START, scores (B, K) sorted descending with -inf padding, lens
+    (B, K) int32)``, by the packed beam search over ``encode_image``.
+
+    Computes in the dtype of the teacher's parameters (``load_teacher``:
+    float32, as the JAX CLI serves it)."""
+    dtype = next(teacher.parameters()).dtype
+
+    @torch.inference_mode()
+    def caption(images_u8: np.ndarray):
+        x = torch.from_numpy(np.ascontiguousarray(images_u8)).to(device)
+        memory = teacher.encode_image(T.normalize(x, dtype=dtype))
+        out = beam_search_teacher_packed(
+            teacher, memory, max_length=max_length, beam_size=beam_size)
+        return tuple(t.cpu().numpy() for t in out)
+
+    return caption
+
+
 def _not_ported(what: str, item: str) -> SystemExit:
     return SystemExit(f"{what} is not ported yet (ROADMAP Queue 1 {item}); "
                       "use python -m imagecaptioner_tpu.eval.serve")
@@ -113,8 +142,6 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
     args = ap.parse_args(argv)
-    if args.model == "teacher":
-        raise _not_ported("teacher beam serving", "item 5")
     if args.int8 or args.int8_full or args.int8_calibrate:
         raise _not_ported("int8 serving", "item 12")
     if args.data_parallel:
@@ -129,10 +156,25 @@ def main(argv=None):
     if not files:
         print(f"no images found under {args.images}")
         return 1
-    student, cfg = load_student(args.checkpoint, device)
-    caption_fn = make_greedy_captioner(
-        student, cfg, device, max_length=args.max_length,
-        temperature=args.temperature, seed=args.seed)
+    if args.model == "teacher":
+        teacher, cfg = load_teacher(args.checkpoint, device)
+        beam_fn = make_beam_captioner(teacher, cfg, device,
+                                      max_length=args.max_length,
+                                      beam_size=args.beam_size)
+
+        def caption_batch(arr: np.ndarray) -> List[str]:
+            seqs, scores, _ = beam_fn(arr)
+            return [beam_result_to_captions(seqs[i], scores[i], vocab, 1)[0]
+                    for i in range(len(arr))]
+    else:
+        student, cfg = load_student(args.checkpoint, device)
+        greedy_fn = make_greedy_captioner(
+            student, cfg, device, max_length=args.max_length,
+            temperature=args.temperature, seed=args.seed)
+
+        def caption_batch(arr: np.ndarray) -> List[str]:
+            return [tokens_to_caption(t, vocab) for t in greedy_fn(arr)]
+
     size = cfg.image_size
 
     def load(path):
@@ -150,11 +192,10 @@ def main(argv=None):
             if len(chunk) < B:  # keep one batch shape for the whole run
                 arr = np.concatenate(
                     [arr, np.repeat(arr[-1:], B - len(chunk), axis=0)])
-            toks = caption_fn(arr)[:len(chunk)]
-            for p, t in zip(chunk, toks):
+            caps = caption_batch(arr)[:len(chunk)]
+            for p, c in zip(chunk, caps):
                 out.write(json.dumps({"image": os.path.basename(p),
-                                      "caption": tokens_to_caption(t, vocab)})
-                          + "\n")
+                                      "caption": c}) + "\n")
             n_done += len(chunk)
     dt = time.perf_counter() - t0
     print(f"captioned {n_done} images -> {args.out} on {device} "

@@ -4,8 +4,9 @@ sinusoidal PE, causal post-LN transformer decoder, pre-output LayerNorm and
 the output head.  images (B, 3, S, S) + captions (T, B) time-major ->
 logits (T, B, V).
 
-The KD step runs it frozen in eval mode.  Beam-search decoding and teacher
-training are ROADMAP Queue 1 items 5 and 6.
+The KD step runs it frozen in eval mode; ``ops/decode.py`` decodes from it
+(greedy and beam search over ``encode_image``'s memory).  Teacher training
+is ROADMAP Queue 1 item 6.
 """
 
 from __future__ import annotations
@@ -21,12 +22,15 @@ from imagecaptioner_tpu_torch.core.modules import (Embedding, LayerNorm,
                                                    Linear, dropout,
                                                    embedding_init,
                                                    layer_norm_init,
+                                                   cast_parameters,
                                                    linear_init,
                                                    sinusoidal_positional_encoding,
                                                    xavier_uniform)
 from imagecaptioner_tpu_torch.models.transformer import (DecoderLayer,
                                                          decoder_apply)
 from imagecaptioner_tpu_torch.models.vit import ViT
+from imagecaptioner_tpu_torch.utils.checkpoint import load_checkpoint
+from imagecaptioner_tpu_torch.utils.convert import jax_teacher_to_state_dict
 
 
 class Teacher(nn.Module):
@@ -99,3 +103,18 @@ def teacher_init(seed: int, cfg: TeacherConfig) -> dict:
     if cfg.encoder_dim != e:
         p["encoder_projection"] = linear_init(rng, cfg.encoder_dim, e)
     return p
+
+
+def load_teacher(path: str, device, dtype: torch.dtype = torch.float32):
+    """A teacher checkpoint written by the teacher trainer -> ``(Teacher in
+    eval mode on device, cfg)``.  Its ``vocab_size`` and ``model_config``
+    rebuild the architecture; parameters in ``dtype``."""
+    ckpt = load_checkpoint(path)
+    cfg = TeacherConfig(vocab_size=int(ckpt["vocab_size"]),
+                        **dict(ckpt.get("model_config", {})))
+    teacher = Teacher(cfg)
+    teacher.load_state_dict(
+        jax_teacher_to_state_dict(ckpt["model_state_dict"]["params"]),
+        strict=True)
+    cast_parameters(teacher, dtype)
+    return teacher.to(device).eval(), cfg

@@ -31,11 +31,14 @@ launches = 0  # kernel launches by attention_core_cuda
 
 
 def attention_core_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                         causal: bool = False, scale: float = 1.0
+                         causal: bool = False, scale: float = 1.0,
+                         acc_dtype: torch.dtype = torch.float32
                          ) -> torch.Tensor:
-    """Plain PyTorch version (``attention_core_xla``)."""
+    """Plain PyTorch version (``attention_core_xla``).  ``acc_dtype`` is the
+    type the sums run in (float64 shows what summation order alone moves)."""
     qk = torch.promote_types(q.dtype, k.dtype)
-    s = torch.matmul(q.to(qk).float(), k.to(qk).float().transpose(-1, -2))
+    s = torch.matmul(q.to(qk).to(acc_dtype),
+                     k.to(qk).to(acc_dtype).transpose(-1, -2))
     s = s * scale
     if causal:
         lq, lk = s.shape[-2], s.shape[-1]
@@ -43,7 +46,7 @@ def attention_core_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         col = torch.arange(lk, device=s.device)[None, :]
         s = s.masked_fill(col > row, float("-inf"))
     p = torch.softmax(s, dim=-1).to(v.dtype)
-    return torch.matmul(p.float(), v.float()).to(v.dtype)
+    return torch.matmul(p.to(acc_dtype), v.to(acc_dtype)).to(v.dtype)
 
 
 def attention_core_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

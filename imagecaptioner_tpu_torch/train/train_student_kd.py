@@ -38,7 +38,7 @@ import numpy as np
 import torch
 
 from imagecaptioner_tpu_torch.core.config import (DistillConfig,
-                                                  KDTrainConfig, TeacherConfig,
+                                                  KDTrainConfig,
                                                   full_student_config)
 from imagecaptioner_tpu_torch.core.device import resolve_device
 from imagecaptioner_tpu_torch.core.precision import as_dtype
@@ -47,7 +47,7 @@ from imagecaptioner_tpu_torch.distill.projector import (
     create_feature_projectors, make_projectors)
 from imagecaptioner_tpu_torch.distill.validate import validate_distillation_setup
 from imagecaptioner_tpu_torch.models.student import Student, student_init
-from imagecaptioner_tpu_torch.models.teacher import Teacher
+from imagecaptioner_tpu_torch.models import teacher as TM
 from imagecaptioner_tpu_torch.train import common, steps
 from imagecaptioner_tpu_torch.utils import checkpoint as CKPT
 from imagecaptioner_tpu_torch.utils import convert as CV
@@ -59,20 +59,13 @@ def not_ported(what: str, item: str) -> SystemExit:
 
 
 def load_teacher(teacher_checkpoint: str, vocab_size: int, device):
-    """A teacher checkpoint written by the teacher trainer -> ``(Teacher in
-    eval mode on device, cfg)``; its ``model_config`` rebuilds the
-    architecture."""
-    ckpt = CKPT.load_checkpoint(teacher_checkpoint)
-    cfg = TeacherConfig(vocab_size=int(ckpt["vocab_size"]),
-                        **dict(ckpt.get("model_config", {})))
+    """``models.teacher.load_teacher`` for the KD step: float32, and the
+    checkpoint's vocabulary must be the data's."""
+    teacher, cfg = TM.load_teacher(teacher_checkpoint, device)
     if cfg.vocab_size != vocab_size:
         raise ValueError(f"teacher vocabulary {cfg.vocab_size} != data "
                          f"vocabulary {vocab_size}")
-    teacher = Teacher(cfg)
-    teacher.load_state_dict(
-        CV.jax_teacher_to_state_dict(ckpt["model_state_dict"]["params"]),
-        strict=True)
-    return teacher.to(device).eval(), cfg
+    return teacher, cfg
 
 
 def validate_student(eval_step, state, val_loader, vocab, device, *,

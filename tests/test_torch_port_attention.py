@@ -121,11 +121,11 @@ def test_build_module_imports_without_nvcc():
     code = ("import os, shutil, sys\n"
             "os.environ['PATH'] = ''\n"
             "os.environ['CUDA_HOME'] = '/nonexistent'\n"
-            "from imagecaptioner_tpu_torch.ops import (_build, attention, greedy,\n"
-            "                                          lstm_scan)\n"
+            "from imagecaptioner_tpu_torch.ops import (_build, attention,\n"
+            "    beam_attn, greedy, lstm_scan)\n"
             "assert shutil.which('nvcc') is None\n"
             "assert set(_build.SOURCES) == {'attention_core', 'greedy_decode',\n"
-            "    'decoder_scan', 'decoder_scan_bwd'}\n"
+            "    'decoder_scan', 'decoder_scan_bwd', 'beam_attention'}\n"
             "assert all((_build.CSRC / (s + '.cu')).is_file()"
             " for s in _build.SOURCES)\n")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120,

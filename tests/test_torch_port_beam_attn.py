@@ -1,0 +1,149 @@
+"""The port's beam-step attention cores (``ops/beam_attn.py``) against the JAX
+package's: the Pallas kernels in interpret mode and the XLA forms
+(``_attend_anc``, grouped ``_attend_hm``), on one random cache, ancestry
+table and memory from a numpy seed.  On the CPU the port's dispatchers take
+their plain versions.
+
+float32 atol 1e-5: the same float32 arithmetic summed in another order.
+bfloat16 atol 2e-2: one rounding step of the weights and of the output on
+values of order 1."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from imagecaptioner_tpu.models import transformer as JTD
+from imagecaptioner_tpu.ops import pallas_beam_attn as JBA
+from imagecaptioner_tpu_torch.ops import beam_attn as BA
+
+N, K, H, S, HD, L = 2, 3, 4, 9, 8, 7
+E, R = H * HD, N * K
+ATOL = {"float32": 1e-5, "bfloat16": 2e-2}
+
+
+def _operands(k=K, seed=0):
+    rng = np.random.default_rng(seed)
+    r = N * k
+    f = lambda *shape: rng.standard_normal(shape).astype(np.float32)  # noqa: E731
+    return dict(q=f(r, 1, E), k=f(r, H, S, HD), v=f(r, H, S, HD),
+                mk=f(N, H, L, HD), mv=f(N, H, L, HD),
+                anc=rng.integers(0, k, (N, k, S)).astype(np.int32))
+
+
+def _anc_at(anc, pos):
+    """The caller's contract: identity at ``pos``."""
+    anc = anc.copy()
+    anc[:, :, pos] = np.arange(anc.shape[1], dtype=np.int32)[None]
+    return anc
+
+
+def _j(x, dtype):
+    return jnp.asarray(x).astype(dtype)
+
+
+def _t(x, dtype):
+    return torch.from_numpy(x).to(getattr(torch, dtype))
+
+
+def _np(t):
+    return t.float().numpy()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("pos", [0, 5, S - 1])
+@pytest.mark.parametrize("k", [3, 5])
+def test_self_attention_plain_matches_pallas_and_xla(k, pos, dtype):
+    o = _operands(k)
+    anc = _anc_at(o["anc"], pos)
+    jkv = {"k": _j(o["k"], dtype), "v": _j(o["v"], dtype)}
+    ker = JBA.fused_beam_self_attention(
+        _j(o["q"], dtype), jkv, jnp.asarray(anc), jnp.int32(pos), num_heads=H,
+        interpret=True)
+    causal = jnp.arange(S)[None, None, None, :] > pos
+    xla = JTD._attend_anc(_j(o["q"], dtype), jkv["k"], jkv["v"],
+                          jax.nn.one_hot(jnp.asarray(anc), k, dtype=dtype), H,
+                          causal)
+    got = BA.beam_self_attention(
+        _t(o["q"], dtype), {"k": _t(o["k"], dtype), "v": _t(o["v"], dtype)},
+        torch.from_numpy(anc), pos, num_heads=H)
+    assert got.shape == (N * k, 1, E) and got.dtype == getattr(torch, dtype)
+    for ref in (ker, xla):
+        np.testing.assert_allclose(
+            _np(got), np.asarray(ref.astype(jnp.float32)), atol=ATOL[dtype],
+            rtol=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k", [3, 5])
+def test_cross_attention_plain_matches_pallas_and_xla(k, dtype):
+    o = _operands(k, seed=1)
+    jmkv = {"k": _j(o["mk"], dtype), "v": _j(o["mv"], dtype)}
+    ker = JBA.fused_beam_cross_attention(
+        _j(o["q"], dtype), jmkv, mem_group=k, num_heads=H, interpret=True)
+    xla = JTD._attend_hm(_j(o["q"], dtype).reshape(N, k, E), jmkv["k"],
+                         jmkv["v"], H).reshape(N * k, 1, E)
+    got = BA.beam_cross_attention(
+        _t(o["q"], dtype), {"k": _t(o["mk"], dtype), "v": _t(o["mv"], dtype)},
+        mem_group=k, num_heads=H)
+    assert got.shape == (N * k, 1, E) and got.dtype == getattr(torch, dtype)
+    for ref in (ker, xla):
+        np.testing.assert_allclose(
+            _np(got), np.asarray(ref.astype(jnp.float32)), atol=ATOL[dtype],
+            rtol=0)
+
+
+def test_q_may_be_a_column_block_of_a_packed_projection():
+    """The dispatchers take q as ``dense(...).chunk(3)[0]`` hands it over."""
+    o = _operands(seed=2)
+    anc = _anc_at(o["anc"], 4)
+    kv = {"k": _t(o["k"], "float32"), "v": _t(o["v"], "float32")}
+    packed = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (R, 1, 3 * E)).astype(np.float32))
+    q = packed.chunk(3, dim=-1)[0]
+    assert not q.is_contiguous()
+    a = BA.beam_self_attention(q, kv, torch.from_numpy(anc), 4, num_heads=H)
+    b = BA.beam_self_attention(q.contiguous(), kv, torch.from_numpy(anc), 4,
+                               num_heads=H)
+    assert torch.equal(a, b)
+
+
+def test_the_check_has_power_against_a_version_that_ignores_anc():
+    """A self-attention that reads its own slot instead of ``anc[n, i, s]``
+    is far outside the tolerance, as is one that reads past ``pos``."""
+    o = _operands(seed=4)
+    pos = 6
+    anc = _anc_at(o["anc"], pos)
+    kv = {"k": _t(o["k"], "float32"), "v": _t(o["v"], "float32")}
+    q = _t(o["q"], "float32")
+    good = BA.beam_self_attention_plain(q, kv, torch.from_numpy(anc), pos,
+                                        num_heads=H)
+    own_slot = np.broadcast_to(np.arange(K, dtype=np.int32)[None, :, None],
+                               anc.shape).copy()
+    assert (anc != own_slot).any()
+    ignores = BA.beam_self_attention_plain(q, kv, torch.from_numpy(own_slot),
+                                           pos, num_heads=H)
+    late = BA.beam_self_attention_plain(q, kv, torch.from_numpy(anc), pos + 1,
+                                        num_heads=H)
+    assert (good - ignores).abs().max() > 100 * ATOL["float32"]
+    assert (good - late).abs().max() > 100 * ATOL["float32"]
+
+
+def test_wrappers_raise_on_what_the_kernels_do_not_take():
+    """The CUDA wrappers check before they build or launch anything, and a
+    tensor on another device than the CPU or a card is refused."""
+    o = _operands(seed=5)
+    q = _t(o["q"], "float32")
+    kv = {"k": _t(o["k"], "float32"), "v": _t(o["v"], "float32")}
+    anc = torch.from_numpy(o["anc"])
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        BA.beam_self_attention_cuda(q, kv, anc, 0, num_heads=H)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        BA.beam_cross_attention_cuda(q, {"k": kv["k"][:N], "v": kv["v"][:N]},
+                                     mem_group=K, num_heads=H)
+    with pytest.raises(ValueError, match="unsupported device"):
+        BA.beam_self_attention(q.to("meta"), kv, anc, 0, num_heads=H)
+    with pytest.raises(ValueError, match="unsupported device"):
+        BA.beam_cross_attention(q.to("meta"), kv, mem_group=K, num_heads=H)
+    assert BA.launches_self == 0 and BA.launches_cross == 0

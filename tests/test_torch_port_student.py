@@ -161,7 +161,8 @@ def test_unported_variants_and_flags_raise(tmp_path):
         PCKPT.load_student_checkpoint(path)
     base = ["--checkpoint", "c", "--vocab", "v", "--images", "i",
             "--device", "cpu"]
-    for extra in (["--model", "teacher"], ["--model", "student", "--int8"],
+    for extra in (["--model", "teacher", "--int8-full"],
+                  ["--model", "student", "--int8"],
                   ["--model", "student", "--data-parallel"]):
         with pytest.raises(SystemExit, match="not ported yet"):
             serve.main(base + extra)
