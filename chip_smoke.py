@@ -46,13 +46,32 @@ Imports nothing of JAX.  In order it:
      all-plain CPU path on 4 images, the bf16 kernel path against the
      all-plain path on the card; packs of 8, 16 and 32 images and the cost of
      the early-exit read are timed;
- 11. prints kernel, plain and library times (CUDA events, median after
+ 11. the compact student (MobileNetV2, E=H=256, L=49): holds the attention
+     kernel against plain at the enhanced refinement's shape (B=16, 8 heads,
+     64x64, hd=48); the compact scan kernel against plain at T=47, B=16 (h,
+     attn, c; float32 and bf16) and, under autograd, its gradients; serves 8
+     batches of 32 images in bf16 through ``make_greedy_captioner`` (the
+     compact greedy kernel) and holds float32 card against CPU on 4 images;
+     holds the compact greedy kernel against plain at B=32, T=20 (float32
+     token-identical, bf16 31 of 32 rows); runs ``train_student_with_kd
+     (student_variant="compact")`` for 3 optimizer steps, times 4 more, and
+     compares one float32 step card against CPU;
+ 12. the enhanced student (EfficientNet-B3, E=384, H=768, L=64): holds the
+     enhanced scan kernel against plain at T=47, B=16 with and without
+     dropout multipliers (rates 0.1 and 0.15), all eight outputs, float32 and
+     bf16, and its gradients under autograd; serves 8 batches of 32 images in
+     bf16 through the plain step loop (which launches the attention kernel in
+     the refinement) and holds float32 card against CPU, on 4 images and on
+     the loop alone with features drawn per row; runs the KD trainer for 3
+     steps, times 4 more, compares one float32 step card against CPU;
+ 13. prints kernel, plain and library times (CUDA events, median after
      warm-up), each kernel's bound, and the end-to-end rates;
- 12. prints the kernels JSON line, the nvidia-smi line, and last
+ 14. prints the kernels JSON line, the nvidia-smi line, and last
      ``{"ok": true, "device": {...}}``.
 Any failed check exits non-zero before the last line.  ``--mutation`` builds
-two faulty copies (a scan backward without its dropout mask, a beam
-self-attention that ignores the ancestry table) and expects both checks to
+three faulty copies (a scan backward without its dropout mask, a beam
+self-attention that ignores the ancestry table, an enhanced scan whose
+attention ignores its dropout multiplier) and expects all three checks to
 fail.
 """
 
@@ -74,8 +93,11 @@ import torch
 import torch.nn.functional as F
 
 from imagecaptioner_tpu_torch.core import modules as M
-from imagecaptioner_tpu_torch.core.config import (DistillConfig,
+from imagecaptioner_tpu_torch.core.config import (STUDENT_CONFIGS,
+                                                  DistillConfig,
                                                   KDTrainConfig, TeacherConfig,
+                                                  compact_student_config,
+                                                  enhanced_student_config,
                                                   full_student_config)
 from imagecaptioner_tpu_torch.data import transforms as T
 from imagecaptioner_tpu_torch.data.synthetic import make_grid_loaders
@@ -85,6 +107,7 @@ from imagecaptioner_tpu_torch.eval import serve
 from imagecaptioner_tpu_torch.distill.projector import (
     create_feature_projectors, make_projectors)
 from imagecaptioner_tpu_torch.models import lstm as L
+from imagecaptioner_tpu_torch.models import student_enhanced as SE
 from imagecaptioner_tpu_torch.models.student import Student, student_init
 from imagecaptioner_tpu_torch.models import transformer as TD
 from imagecaptioner_tpu_torch.models.teacher import teacher_init
@@ -92,6 +115,7 @@ from imagecaptioner_tpu_torch.ops import _build
 from imagecaptioner_tpu_torch.ops import attention as A
 from imagecaptioner_tpu_torch.ops import beam_attn as BA
 from imagecaptioner_tpu_torch.ops import decode as D
+from imagecaptioner_tpu_torch.ops import enhanced_scan as ES
 from imagecaptioner_tpu_torch.ops import greedy as G
 from imagecaptioner_tpu_torch.ops import lstm_scan as S
 from imagecaptioner_tpu_torch.train import common, steps
@@ -242,11 +266,7 @@ def check_greedy(model32, feats32):
             ref = G.greedy_decode_plain(w, feats, f_proj, max_length=MAX_LEN,
                                         temperature=temp)
             torch.cuda.synchronize()
-            distinct = len({tuple(r) for r in ref.tolist()})
-            ended = int((ref == PAD).any(dim=1).sum())
-            if distinct < B // 2 or not 0 < ended < B:
-                fail(f"greedy check has no power: {distinct} distinct rows, "
-                     f"{ended} of {B} rows end")
+            distinct, ended = token_power(ref, B, "greedy")
             rows = int((got == ref).all(dim=1).sum())
             diff = int((got.long() - ref.long()).abs().max())
             need = B if dtype == torch.float32 else B - 1
@@ -367,25 +387,35 @@ def decoder_cfg():
     return full_student_config(VOCAB, dropout=KDTrainConfig().dropout)
 
 
-def rel_errs(names, got, ref):
-    """[(name, max abs error, max abs of the reference)] per output."""
+def rel_errs(names, got, ref, mean=False):
+    """[(name, max abs error, max abs of the reference)] per output; with
+    ``mean`` the mean abs error and the mean abs of the reference."""
     out = []
     for n, g, r in zip(names, got, ref):
-        out.append((n, (g.float() - r.float()).abs().max().item(),
-                    r.float().abs().max().item()))
+        d, a = (g.float() - r.float()).abs(), r.float().abs()
+        out.append((n, (d.mean() if mean else d.max()).item(),
+                    (a.mean() if mean else a.max()).item()))
     return out
 
 
-def report(what, rows, limit, floor=None):
+def report(what, rows, limit, floor=None, mean=False, brief=False):
+    """Print and judge each row (name, error, scale); with ``brief`` only
+    the row with the largest relative error is printed when all pass."""
     worst = 0.0
+    err_name, top_name = ("mean_abs_err", "mean abs value") if mean \
+        else ("max_abs_err", "largest value")
+    rels = [err / top if top > 0 else float("inf") for _, err, top in rows]
+    show = {rels.index(max(rels))} if brief and max(rels) <= limit else None
     for i, (n, err, top) in enumerate(rows):
-        rel = err / top if top > 0 else float("inf")
+        rel = rels[i]
         extra = "" if floor is None else \
             f"; plain f64-vs-f32 sums differ by {floor[i][1]:.3e}"
         ok = top > 0 and rel <= limit
-        print(f"{what} {n}: max_abs_err {err:.3e}, largest value {top:.3e}, "
-              f"relative {rel:.3e} (limit {limit:g}){extra} "
-              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if show is None or i in show:
+            lead = f"{what} (worst of {len(rows)})" if show else what
+            print(f"{lead} {n}: {err_name} {err:.3e}, {top_name} {top:.3e}, "
+                  f"relative {rel:.3e} (limit {limit:g}){extra} "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
         if top <= 0:
             fail(f"{what} {n} is degenerate (all zero): the check has no power")
         if not ok:
@@ -818,7 +848,28 @@ def pad_vocabulary(vocab, size):
     return vocab
 
 
-def run_kd(dev, tmp):
+def kd_counters(variant):
+    """The launch counts of a variant's KD path, by kernel name."""
+    counts = {"attention_core": A.launches}
+    if variant == "full":
+        counts.update(decoder_scan=S.launches_eval,
+                      decoder_scan_train=S.launches_train,
+                      decoder_scan_bwd=S.launches_bwd)
+    elif variant == "compact":
+        counts.update(compact_scan=S.launches_compact)
+    else:
+        counts.update(enhanced_scan=ES.launches)
+    return counts
+
+
+def zero_counters():
+    A.launches = G.launches = G.launches_compact = ES.launches = 0
+    S.launches_eval = S.launches_train = S.launches_bwd = 0
+    S.launches_compact = 0
+    BA.launches_self = BA.launches_cross = 0
+
+
+def run_kd(dev, tmp, variant="full"):
     """The training path at full width through ``train_student_with_kd``;
     returns (launch counts, trained state, student config, teacher
     checkpoint path, train loader)."""
@@ -833,20 +884,18 @@ def run_kd(dev, tmp):
     save_checkpoint(ckpt, {
         "model_state_dict": {"params": teacher_init(SEED + 3, t_cfg)},
         "vocab_size": VOCAB, "model_config": mc})
-    out = os.path.join(tmp, "kd_out")
+    out = os.path.join(tmp, f"kd_out_{variant}")
     torch.cuda.synchronize()
-    A.launches = S.launches_eval = S.launches_train = S.launches_bwd = 0
+    zero_counters()
     t0 = time.perf_counter()
     state, s_cfg, _ = TK.train_student_with_kd(
         train_loader, val_loader, vocab, ckpt, out, num_epochs=1,
-        compute_dtype=torch.bfloat16, seed=SEED, device=dev, verbose=False)
+        compute_dtype=torch.bfloat16, seed=SEED, device=dev, verbose=False,
+        student_variant=variant)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"attention_core": A.launches,
-                "decoder_scan": S.launches_eval,
-                "decoder_scan_train": S.launches_train,
-                "decoder_scan_bwd": S.launches_bwd}
-    print(f"KD path launches: {launches} ({wall:.1f} s for the preflight, "
+    launches = kd_counters(variant)
+    print(f"KD path ({variant}) launches: {launches} ({wall:.1f} s for the preflight, "
           f"{KD_STEPS} optimizer steps of {KD_A} x {KD_B} images, the "
           f"validation pass and two checkpoints)", flush=True)
     if min(launches.values()) < 1:
@@ -858,7 +907,7 @@ def run_kd(dev, tmp):
     hist = json.load(open(os.path.join(out, "student_training_history.json")))
     numbers = [*hist["train_losses"], *hist["val_losses"],
                *(v for vs in hist["loss_components"].values() for v in vs)]
-    print(f"KD history: train loss {hist['train_losses']}, val loss "
+    print(f"KD history ({variant}): train loss {hist['train_losses']}, val loss "
           f"{hist['val_losses']}, components "
           f"{ {k: v[0] for k, v in hist['loss_components'].items()} }")
     if not numbers or not np.isfinite(numbers).all():
@@ -866,23 +915,30 @@ def run_kd(dev, tmp):
     if int(final["optimizer_state_dict"]["step"]) != KD_STEPS:
         fail("the final checkpoint does not carry the optimizer step")
 
-    # parameters of all three groups moved, frozen ones did not
+    # parameters of every group the variant has moved, frozen ones did not
+    # (the compact student has no refinement: its "others" are the projectors)
     p0, s0 = student_init(SEED, s_cfg)
     start = CV.jax_student_to_state_dict(p0, s0, s_cfg)
-    moved = {"encoder": 0, "decoder": 0, "others": 0}
+    moved, frozen = {"encoder": 0, "decoder": 0}, 0
     for name, q in state.student.named_parameters():
         same = torch.equal(q.detach().cpu(), start[name])
         if not q.requires_grad:
+            frozen += 1
             if not same:
                 fail(f"frozen parameter {name} moved")
             continue
         group = name.split(".")[0]
-        moved[group if group in moved else "others"] += int(not same)
+        group = group if group in moved else "others"
+        moved[group] = moved.get(group, 0) + int(not same)
+    first_bn = next(n for n, _ in state.student.named_buffers()
+                    if n.endswith("running_mean"))
     stats_moved = not torch.equal(
-        state.student.encoder.resnet.bn1.running_mean.cpu(),
-        start["encoder.resnet.bn1.running_mean"])
-    print(f"KD parameters moved per group: {moved}; frozen ones did not; "
-          f"frozen batch-norm statistics updated: {stats_moved}", flush=True)
+        dict(state.student.named_buffers())[first_bn].cpu(), start[first_bn])
+    print(f"KD parameters moved per group: {moved}; {frozen} frozen ones did "
+          f"not; frozen batch-norm statistics ({first_bn}) updated: "
+          f"{stats_moved}", flush=True)
+    if frozen < 1:
+        fail("no parameter of the backbone is frozen")
     if min(moved.values()) < 1 or not stats_moved:
         fail("a parameter group did not move")
     return launches, state, s_cfg, ckpt, train_loader
@@ -915,18 +971,20 @@ def card_vs_cpu_step(dev, s_cfg, ckpt, train_loader):
     cfg0 = dataclasses.replace(s_cfg, dropout=0.0)
     p0, s0 = student_init(SEED, cfg0)
     proj, _ = create_feature_projectors(
-        SEED + 1, teacher_embed=512, student_embed=cfg0.embed_size,
-        student_hidden=cfg0.hidden_size)
+        SEED + 1, teacher_embed=TeacherConfig().embed_size,
+        student_embed=cfg0.embed_size, student_hidden=cfg0.hidden_size)
     stacked = next(iter(common.stacked_batches(train_loader, 1)))
     small = {"images": stacked["images"][:, :4],
              "captions": stacked["captions"][:, :, :4],
              "lengths": stacked["lengths"][:, :4]}
     results = {}
+    t_embed = TeacherConfig().embed_size
     for where in (dev, torch.device("cpu")):
         student = Student(cfg0)
         student.load_state_dict(CV.jax_student_to_state_dict(p0, s0, cfg0),
                                 strict=True)
-        projectors = make_projectors(512, cfg0.embed_size, cfg0.hidden_size)
+        projectors = make_projectors(t_embed, cfg0.embed_size,
+                                     cfg0.hidden_size)
         projectors.load_state_dict(CV.jax_projectors_to_state_dict(proj),
                                    strict=True)
         teacher, t_cfg = TK.load_teacher(ckpt, VOCAB, where)
@@ -935,16 +993,17 @@ def card_vs_cpu_step(dev, s_cfg, ckpt, train_loader):
         step = steps.make_kd_train_step(
             teacher, t_cfg, cfg0, DistillConfig(), KDTrainConfig(dropout=0.0),
             aug=T.AugmentConfig(), compute_dtype=torch.float32)
-        before = (A.launches, S.launches_train, S.launches_bwd)
+        before = kd_counters(s_cfg.variant)
+        before.pop("decoder_scan", None)   # the eval form: not in a train step
         with M.no_dropout():
             metrics = step(state, steps.batch_to_device(small, where), 0.0,
                            None)
         results[where.type] = {k: float(v) for k, v in metrics.items()}
-        after = (A.launches, S.launches_train, S.launches_bwd)
-        launched = tuple(y - x for x, y in zip(before, after))
-        if where.type == "cuda" and min(launched) < 1:
+        after = kd_counters(s_cfg.variant)
+        launched = {k: after[k] - n for k, n in before.items()}
+        if where.type == "cuda" and min(launched.values()) < 1:
             fail(f"the float32 card step missed a kernel: {launched}")
-        if where.type == "cpu" and launched != (0, 0, 0):
+        if where.type == "cpu" and any(launched.values()):
             fail("the CPU step launched a kernel")
     return results
 
@@ -956,6 +1015,489 @@ def card_vs_cpu_step(dev, s_cfg, ckpt, train_loader):
 # at random weights, which amplifies float32 noise far more than the forward.
 CARD_CPU_LOSS_LIMIT = 1e-4
 CARD_CPU_GNORM_LIMIT = 1e-3
+
+
+# ---------------------------------------------------------------------------
+# The compact and the enhanced student
+# ---------------------------------------------------------------------------
+
+ENH_L, ENH_NH = 64, SE.NUM_HEADS
+# Limits of the enhanced scan.  Its three LayerNorms re-scale whatever
+# rounding the state carries, so the recurrence drifts faster than the other
+# two: at float32 the plain version itself moves 3e-5 of the largest value
+# when it only sums in float64, and at bf16, where three layers' h are
+# rounded to 8 bits at every step, its largest deviation grows from 0.016
+# at step 1 to 0.2 at step 46 (5% of the largest value) while the mean stays
+# under 1%.  So the float32 limit is on the largest error, and the bf16
+# limits are on the mean absolute error over the mean absolute value, each
+# printed beside the plain version's own float64-against-float32 floor.
+ENH_F32_LIMIT = 5e-4
+ENH_BF16_MEAN_LIMIT = 2e-2
+ENH_BF16_GRAD_MEAN_LIMIT = 5e-2
+
+
+def sharpen_compact_decoder(dec: dict) -> None:
+    """``sharpen_decoder`` for the compact decoder (dot attention, a linear
+    head on h).  With the head scaled up and features drawn per row, 29 rows
+    of 32 decode to their own tokens and 5 end within two steps, so END ->
+    PAD and the frozen token run; two plain bf16 decodes that differ only in
+    summation precision agree on all 32 rows.  An LSTM gain of 2 as well
+    puts bf16 into chaos (28 of 32)."""
+    dec["output_projection"]["weight"] *= 32.0
+    dec["output_projection"]["bias"][END] += 1.5
+
+
+def sharpen_enhanced_decoder(dec: dict) -> None:
+    """``sharpen_decoder`` for the enhanced decoder: with features drawn per
+    row every row decodes to its own tokens and rows end at different
+    steps."""
+    for layer in dec["lstm"]:
+        layer["weight_ih"] *= 2.0
+        layer["weight_hh"] *= 2.0
+    for fc in ("fc1", "fc2"):
+        dec["output_projection"][fc]["weight"] *= 4.0
+    dec["output_projection"]["fc2"]["bias"][END] += 4.0
+
+
+SHARPEN = {"full": sharpen_decoder, "compact": sharpen_compact_decoder,
+           "enhanced": sharpen_enhanced_decoder}
+
+
+def token_power(ref, B, what):
+    """A token comparison only has power if rows differ and END occurs."""
+    distinct = len({tuple(r) for r in ref.tolist()})
+    ended = int((ref == PAD).any(dim=1).sum())
+    if distinct < B // 2 or not 0 < ended < B:
+        fail(f"{what} check has no power: {distinct} distinct rows, "
+             f"{ended} of {B} rows end")
+    return distinct, ended
+
+
+def check_greedy_compact(model32, feats32):
+    """Kernel #3 against its plain version at full width (B=32, L=49,
+    E=H=256, V=2994, T=20): float32 token-identical, bf16 in 31 of 32 rows
+    (the floor, two plain decodes that differ in summation precision, is
+    printed beside it).  Returns (max |token diff| at float32, bf16 rows
+    identical, kernel ms, plain ms, the bf16 operands)."""
+    B = feats32.shape[0]
+    max_diff, bf16_rows = 0, B
+    for dtype in (torch.float32, torch.bfloat16):
+        feats = feats32.to(dtype).contiguous()
+        w = G.greedy_compact_operands(model32.decoder, dtype)
+        for temp in (1.0, 2.0):
+            kw = dict(max_length=MAX_LEN, temperature=temp)
+            got = G.greedy_decode_compact_cuda(w, feats, **kw)
+            ref = G.greedy_decode_compact_plain(w, feats, **kw)
+            ref64 = G.greedy_decode_compact_plain(w, feats, **kw,
+                                                  acc_dtype=torch.float64)
+            torch.cuda.synchronize()
+            distinct, ended = token_power(ref, B, "compact greedy")
+            rows = int((got == ref).all(dim=1).sum())
+            floor = int((ref64 == ref).all(dim=1).sum())
+            need = B if dtype == torch.float32 else B - 1
+            print(f"greedy_decode_compact B={B} {str(dtype)[6:]} T={temp}: "
+                  f"{rows}/{B} rows identical (need {need}; plain f64-vs-f32 "
+                  f"sums agree on {floor}); reference has {distinct} distinct "
+                  f"rows, {ended} ending {'ok' if rows >= need else 'FAIL'}",
+                  flush=True)
+            if rows < need:
+                fail("compact greedy kernel disagrees with its plain version")
+            if dtype == torch.float32:
+                max_diff = max(max_diff,
+                               int((got.long() - ref.long()).abs().max()))
+            else:
+                bf16_rows = min(bf16_rows, rows)
+    kms = median_ms(lambda: G.greedy_decode_compact_cuda(
+        w, feats, max_length=MAX_LEN), 20, 3)
+    pms = median_ms(lambda: G.greedy_decode_compact_plain(
+        w, feats, max_length=MAX_LEN), 10, 2)
+    return max_diff, bf16_rows, kms, pms, (w, feats)
+
+
+def greedy_compact_bound(w, feats):
+    B, Lt, E = feats.shape
+    H, V = w["w_hh"].shape[1], w["emb"].shape[0]
+    macs = E * H + 4 * H * (E + H) + V * H + 2 * Lt * E
+    return bound_ms(nbytes(feats, *w.values()) + B * MAX_LEN * 4,
+                    2 * macs * B * MAX_LEN, "bf16")
+
+
+def seeded(rng, shape, dev, dtype=torch.float32, scale=1.0):
+    return torch.from_numpy((rng.standard_normal(shape) * scale).astype(
+        np.float32)).to(dev).to(dtype)
+
+
+def function_grads(fn, ops, cots, skip=()):
+    """Gradients that ``fn`` gives its floating operands (those at ``skip``
+    excepted) for the cotangents ``cots`` on its first outputs."""
+    leaves = [o.detach().clone().requires_grad_(True)
+              if o is not None and o.is_floating_point() and i not in skip
+              else o for i, o in enumerate(ops)]
+    outs = fn(*leaves)[:len(cots)]
+    sum((o.float() * c.float()).sum() for o, c in zip(outs, cots)).backward()
+    return [(i, x.grad) for i, x in enumerate(leaves)
+            if x is not None and x.requires_grad]
+
+
+def check_gradients(what, dtype, fn, plain, bwd_plain, ops, ref, ref64, n_out,
+                    dev, skip=(), limits=None, mean=False):
+    """The gradients of ``fn`` (a forward kernel under autograd, its
+    backward the plain reverse-time loop over the kernel's residuals), for
+    random cotangents on its first ``n_out`` outputs.  At float32 against
+    autograd through ``plain``, the plain forward: both sides are float32
+    arithmetic in another order.  At bf16 autograd rounds the gradient to 8
+    bits wherever the forward rounds h, which the float32 reverse-time loop
+    does not, so there the reference is the same loop over the plain
+    forward's residuals ``ref`` (``bwd_plain(ops + ref, *cots)``), beside
+    the floor: that loop over ``ref64``, the plain forward summed in
+    float64."""
+    rng = np.random.default_rng(SEED + 8)
+    cots = [seeded(rng, r.shape, dev, r.dtype) for r in ref[:n_out]]
+    got = function_grads(fn, ops, cots, skip)
+    pick = lambda gs: [(i, g) for i, g in enumerate(gs) if g is not None]  # noqa: E731
+    floor = None
+    if dtype == torch.float32:
+        want = function_grads(plain, ops, cots, skip)
+    else:
+        with torch.no_grad():
+            want = pick(bwd_plain(ops + tuple(ref), *cots))
+            low = pick(bwd_plain(ops + tuple(x.to(r.dtype) for x, r in
+                                             zip(ref64, ref)), *cots))
+        floor = rel_errs(range(len(want)), [g for _, g in low],
+                         [g for _, g in want], mean)
+    torch.cuda.synchronize()
+    if [i for i, _ in got] != [i for i, _ in want]:
+        fail(f"{what}: gradients for other operands than the reference's")
+    rows = rel_errs([f"operand {i}" for i, _ in want], [g for _, g in got],
+                    [g for _, g in want], mean)
+    limits = limits or {torch.float32: SCAN_LIMIT[torch.float32],
+                        torch.bfloat16: SCAN_FWD_BF16_LIMIT}
+    return report(what, rows, limits[dtype], floor, mean, brief=True)
+
+
+def compact_scan_operands(decoder, dev, dtype, seed):
+    """The seven operands of the compact scan at the KD shapes, prepared as
+    ``compact_decoder_apply`` prepares them."""
+    rng = np.random.default_rng(seed)
+    cfg = compact_student_config(VOCAB)
+    feats = seeded(rng, (KD_B, cfg.feature_tokens, cfg.embed_size), dev, dtype,
+                   0.3)
+    caps = torch.from_numpy(rng.integers(0, VOCAB, (KD_T, KD_B))).to(dev)
+    with torch.no_grad():
+        emb = decoder.embedding(caps).to(dtype).contiguous()
+        weights = L.compact_scan_weights(decoder, dtype)
+    return (emb, feats.contiguous()) + tuple(w.detach() for w in weights)
+
+
+def check_compact_scan(decoder, dev):
+    """Kernel #7 against its plain version at the KD shapes (T=47, B=16,
+    L=49, E=H=256): h, attn and c, float32 and bf16; then the kernel under
+    autograd (plain reverse-time backward over the kernel's residuals)
+    against autograd through the plain forward."""
+    names = ("hs", "attn", "cs")
+    kept = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype)[6:]
+        ops = compact_scan_operands(decoder, dev, dtype, SEED + 12)
+        with torch.no_grad():
+            got = S.compact_scan_cuda(*ops)
+            ref = S.compact_scan_plain(*ops)
+            ref64 = S.compact_scan_plain(*ops, acc_dtype=torch.float64)
+        torch.cuda.synchronize()
+        limit = SCAN_LIMIT[dtype] if dtype == torch.float32 \
+            else SCAN_FWD_BF16_LIMIT
+        err = report(f"compact_scan {tag}", rel_errs(names, got, ref), limit,
+                     rel_errs(names, ref64, ref))
+        before = S.launches_compact
+        check_gradients(
+            f"compact_scan {tag} gradient", dtype, S._CompactScan.apply,
+            S.compact_scan_plain, S.compact_scan_bwd_plain, ops, ref, ref64,
+            2, dev)
+        if S.launches_compact != before + 1:
+            fail("the compact scan under autograd did not launch its kernel")
+        if dtype == torch.bfloat16:
+            kept = dict(ops=ops, err=err)
+    ops = kept["ops"]
+    with torch.no_grad():
+        kept["ms"] = median_ms(lambda: S.compact_scan_cuda(*ops), 20, 3)
+        kept["plain_ms"] = median_ms(lambda: S.compact_scan_plain(*ops), 5, 2)
+        res = ops + S.compact_scan_cuda(*ops)
+        dh, da = torch.ones_like(res[7]), torch.ones_like(res[8])
+        kept["bwd_plain_ms"] = median_ms(
+            lambda: S.compact_scan_bwd_plain(res, dh, da), 3, 1)
+    T_, B, E = ops[0].shape
+    Lt, H = ops[1].shape[1], ops[5].shape[1]
+    outs = T_ * B * (H * ops[0].element_size() + 4 * H + 4 * Lt)
+    kept["bound"] = bound_ms(
+        nbytes(*ops) + outs,
+        T_ * B * (2 * (E * H + 4 * H * (E + H)) + 4 * Lt * E), "bf16")
+    return kept
+
+
+def make_variant_decoder(variant, dev):
+    """A full-width decoder of a variant at its default init from the numpy
+    seed."""
+    cfg = STUDENT_CONFIGS[variant](VOCAB)
+    cls = {"compact": L.CompactDecoder, "enhanced": SE.EnhancedDecoder}[variant]
+    decoder = cls(cfg)
+    decoder.load_state_dict(CV.tree_to_state_dict(
+        cls.init(np.random.default_rng(SEED + 4), cfg)), strict=True)
+    return decoder.to(dev)
+
+
+def enhanced_scan_operands(decoder, dev, dtype, seed, masked):
+    """The 29 operands of the enhanced scan at the KD shapes (T=47, B=16,
+    L=64, E=384, H=768), as ``enhanced_decoder_apply`` prepares them, with
+    seeded dropout multipliers (rates 0.1 and 0.15) or none."""
+    rng = np.random.default_rng(seed)
+    cfg = enhanced_student_config(VOCAB)
+    feats = seeded(rng, (KD_B, ENH_L, cfg.embed_size), dev, dtype)
+    caps = torch.from_numpy(rng.integers(0, VOCAB, (KD_T, KD_B))).to(dev)
+    masks = None
+    if masked:
+        ka, kl = 1.0 - SE.ATTN_DROPOUT, 1.0 - cfg.dropout
+        masks = {
+            "attn": torch.from_numpy(
+                (rng.random((KD_T, KD_B, ENH_NH, ENH_L)) < ka) / ka).float(
+                ).to(dev),
+            "lstm": torch.from_numpy(
+                (rng.random((3, KD_T, KD_B, cfg.hidden_size)) < kl) / kl
+                ).float().to(dev),
+            "proj": torch.ones(KD_T, KD_B, cfg.embed_size, dtype=torch.bool,
+                               device=dev)}
+    seen = {}
+    real = ES.enhanced_decoder_scan
+    ES.enhanced_decoder_scan = lambda *ops: seen.update(ops=ops) or \
+        ES.enhanced_scan_plain(*ops)[:3]
+    try:
+        with torch.no_grad():
+            SE.enhanced_decoder_apply(decoder, feats, caps, cfg,
+                                      train=masked, masks=masks)
+    finally:
+        ES.enhanced_decoder_scan = real
+    return tuple(None if o is None else o.detach() for o in seen["ops"])
+
+
+def check_enhanced_scan(decoder, dev, mutant=False):
+    """Kernel #8 against its plain version at the KD shapes, with and
+    without dropout multipliers, float32 and bf16, all eight outputs; then
+    the kernel under autograd (plain reverse-time backward over the kernel's
+    residuals) against autograd through the plain forward, masked."""
+    kept = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype)[6:]
+        mean = dtype == torch.bfloat16
+        limit = ENH_BF16_MEAN_LIMIT if mean else ENH_F32_LIMIT
+        for masked in (True, False):
+            ops = enhanced_scan_operands(decoder, dev, dtype, SEED + 13, masked)
+            with torch.no_grad():
+                got = ES.enhanced_scan_cuda(*ops)
+                ref = ES.enhanced_scan_plain(*ops)
+                ref64 = ES.enhanced_scan_plain(*ops, acc_dtype=torch.float64)
+            torch.cuda.synchronize()
+            report(f"enhanced_scan {tag} "
+                   f"{'with' if masked else 'without'} masks",
+                   rel_errs(ES.OUTPUTS, got, ref, mean), limit,
+                   rel_errs(ES.OUTPUTS, ref64, ref, mean), mean)
+            worst = lambda a, b: max(  # noqa: E731
+                e for _, e, _ in rel_errs(ES.OUTPUTS, a, b))
+            if masked and not mean:
+                f32_err = worst(got, ref)
+            if masked and mean:
+                kept = dict(ops=ops, err=worst(got, ref), f32_err=f32_err,
+                            floor=worst(ref64, ref))
+            if masked and not mutant:
+                before = ES.launches
+                check_gradients(
+                    f"enhanced_scan {tag} gradient", dtype,
+                    ES._EnhancedScan.apply, ES.enhanced_scan_plain,
+                    ES.enhanced_scan_bwd_plain, ops, ref, ref64, 3, dev,
+                    skip=(4, 5), mean=mean,
+                    limits={torch.float32: ENH_F32_LIMIT,
+                            torch.bfloat16: ENH_BF16_GRAD_MEAN_LIMIT})
+                if ES.launches != before + 1:
+                    fail("the enhanced scan under autograd did not launch "
+                         "its kernel")
+    return kept
+
+
+def time_enhanced_scan(kept):
+    ops = kept["ops"]
+    with torch.no_grad():
+        kept["ms"] = median_ms(lambda: ES.enhanced_scan_cuda(*ops), 10, 2)
+        kept["plain_ms"] = median_ms(lambda: ES.enhanced_scan_plain(*ops), 3, 1)
+        res = ops + ES.enhanced_scan_cuda(*ops)
+        cots = [torch.ones_like(res[29 + i]) for i in range(3)]
+        kept["bwd_plain_ms"] = median_ms(
+            lambda: ES.enhanced_scan_bwd_plain(res, *cots), 3, 1)
+    T_, B, E = ops[0].shape
+    H = ops[6 + ES.WEIGHTS.index("whh0")].shape[1]
+    item = ops[0].element_size()
+    outs = T_ * B * (4 * H * item + 3 * H * 4 + ENH_L * 4)
+    macs = sum(o.numel() for o, n in zip(ops[6:], ES.WEIGHTS)
+               if n not in ES._FLOAT32_WEIGHTS) + 2 * ENH_L * E
+    kept["bound"] = bound_ms(nbytes(*ops) + outs, 2 * macs * T_ * B, "bf16")
+    return kept
+
+
+def check_attention_48(dev, gen):
+    """Kernel #2 at the enhanced cross refinement's shape (B=16, 8 heads,
+    Lq = Lk = 64, hd = 384 / 8 = 48), against plain, SDPA timed beside it."""
+    shape, out = (KD_B, ENH_NH, ENH_L, 48), {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (torch.randn(shape, device=dev, generator=gen).to(dtype)
+                   for _ in range(3))
+        scale = 48 ** -0.5
+        got = A.attention_core_cuda(q, k, v, scale=scale)
+        ref = A.attention_core_plain(q, k, v, scale=scale)
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs().max().item()
+        ok = err <= ATTN_LIMIT[dtype] and got.dtype == dtype
+        print(f"attention_core {shape} {str(dtype)[6:]}: max_abs_err {err:.3e}"
+              f" (limit {ATTN_LIMIT[dtype]:g}) {'ok' if ok else 'FAIL'}",
+              flush=True)
+        if not ok:
+            fail("attention kernel disagrees with its plain version at hd=48")
+    out["err"] = err
+    out["ms"] = median_ms(lambda: A.attention_core_cuda(q, k, v, scale=scale),
+                          200)
+    out["plain_ms"] = median_ms(
+        lambda: A.attention_core_plain(q, k, v, scale=scale), 200)
+    out["sdpa_ms"] = median_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, scale=scale), 200)
+    try:
+        A.attention_core_cuda(q[..., :40].contiguous(), k[..., :40].contiguous(),
+                              v[..., :40].contiguous(), scale=scale)
+    except ValueError:
+        pass
+    else:
+        fail("the attention wrapper took a head dimension it has no kernel for")
+    return out
+
+
+def write_student(tmp, variant, vocab_path=None):
+    """A full-width student of ``variant`` from the numpy seed, its decoder
+    sharpened, as a JAX-format checkpoint; returns the path."""
+    cfg = STUDENT_CONFIGS[variant](VOCAB)
+    params, state = student_init(SEED, cfg)
+    SHARPEN[variant](params["decoder"])
+    path = os.path.join(tmp, f"student_{variant}.npz")
+    save_checkpoint(path, {
+        "student_state_dict": {"params": params, "model_state": state},
+        "vocab_size": VOCAB,
+        "model_config": dict(
+            embed_size=cfg.embed_size, hidden_size=cfg.hidden_size,
+            num_layers=cfg.num_layers, dropout=cfg.dropout,
+            use_attention_refinement=cfg.use_attention_refinement,
+            model_type=variant)})
+    return path
+
+
+def serve_variant(dev, ckpt, batches, variant, counters):
+    """The serving path of a variant at full width in bf16: the serve
+    loader, ``make_greedy_captioner`` over 8 batches of 32 images; then the
+    float32 card path against the all-plain CPU path on 4 images.
+    ``counters()`` reads the launch counts the path must raise.  Returns
+    (launch counts, images/s, per-batch seconds, the float32 model)."""
+    model32, _ = serve.load_student(ckpt, dev, torch.float32)
+    model16, cfg = serve.load_student(ckpt, dev, torch.bfloat16)
+    model_cpu, _ = serve.load_student(ckpt, "cpu", torch.float32)
+    if cfg.variant != variant:
+        fail(f"the checkpoint loaded as {cfg.variant}, not {variant}")
+    caption = serve.make_greedy_captioner(model16, cfg, dev, max_length=MAX_LEN)
+    caption(batches[0])                                   # warm-up
+    torch.cuda.synchronize()
+    zero_counters()
+    tokens, batch_s = [], []
+    for b in batches:      # each call ends in a device-to-host copy
+        t0 = time.perf_counter()
+        tokens.append(caption(b))
+        batch_s.append(time.perf_counter() - t0)
+    launches = counters()
+    print(f"{variant} serving path launches: {launches}", flush=True)
+    if min(launches.values()) < 1:
+        fail(f"a kernel of the {variant} serving path was not launched: "
+             f"{launches}")
+    toks = np.concatenate(tokens)
+    if toks.shape != (BATCH * len(batches), MAX_LEN) or toks.dtype != np.int32 \
+            or toks.min() < 0 or toks.max() >= VOCAB:
+        fail(f"{variant} tokens out of contract: {toks.shape} {toks.dtype}")
+    rate = BATCH * len(batches) / sum(batch_s)
+    print(f"{variant} end-to-end: {rate:.1f} images/s (bf16, B={BATCH} x "
+          f"{len(batches)} batches, T={MAX_LEN}, host clock incl. H2D/D2H); "
+          f"per batch ms: median {1e3 * statistics.median(batch_s):.3f}, "
+          f"min {1e3 * min(batch_s):.3f}, max {1e3 * max(batch_s):.3f}",
+          flush=True)
+
+    small = batches[1][:4]
+    with torch.inference_mode():
+        fg = model32.encode_image(T.normalize(torch.from_numpy(small).to(dev))
+                                  )[1].cpu()
+        fc = model_cpu.encode_image(T.normalize(torch.from_numpy(small)))[1]
+    feat_err = (fg - fc).abs().max().item()
+    tg = serve.make_greedy_captioner(model32, cfg, dev)(small)
+    tc = serve.make_greedy_captioner(model_cpu, cfg, "cpu")(small)
+    rows = int((tg == tc).all(axis=1).sum())
+    ok = np.isfinite(fg.numpy()).all() and feat_err <= 1e-3 and rows >= 3
+    print(f"{variant} fp32 card vs CPU on 4 images: refined max_abs_err "
+          f"{feat_err:.3e} (limit 1e-3), {rows}/4 caption rows identical "
+          f"(need 3) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail(f"the card's float32 {variant} path disagrees with the CPU "
+             "reference")
+    return launches, rate, batch_s, model32
+
+
+def check_enhanced_loop(model32, dev):
+    """The enhanced student's serving loop has no kernel of its own, so its
+    check with power is the loop itself: float32 on the card against the
+    CPU on features drawn per row (every row its own tokens, rows ending at
+    different steps)."""
+    cfg = model32.cfg
+    feats = seeded(np.random.default_rng(SEED + 2), (BATCH, ENH_L,
+                                                     cfg.embed_size), "cpu")
+    cpu = Student(cfg)
+    cpu.load_state_dict({k: v.cpu() for k, v in model32.state_dict().items()})
+    ref = D.greedy_decode_student(cpu.eval(), feats, cfg, max_length=MAX_LEN)
+    got = D.best_greedy_decode_student(model32, feats.to(dev), cfg,
+                                       max_length=MAX_LEN).cpu()
+    distinct, ended = token_power(ref, BATCH, "enhanced greedy loop")
+    rows = int((got == ref).all(dim=1).sum())
+    print(f"enhanced greedy loop fp32 card vs CPU B={BATCH}: {rows}/{BATCH} "
+          f"rows identical (need {BATCH - 1}); reference has {distinct} "
+          f"distinct rows, {ended} ending "
+          f"{'ok' if rows >= BATCH - 1 else 'FAIL'}", flush=True)
+    if rows < BATCH - 1:
+        fail("the enhanced greedy loop on the card disagrees with the CPU")
+
+
+def run_variant_kd(dev, tmp, variant):
+    """3 optimizer steps of ``train_student_with_kd`` at full width, a few
+    timed steps, and one float32 step card against CPU, for a variant.
+    Returns (launch counts, images/s, per-step seconds)."""
+    launches, state, s_cfg, ckpt, loader = run_kd(dev, tmp, variant)
+    step_s = time_kd_steps(dev, state, s_cfg, ckpt, loader)
+    rate = KD_A * KD_B / statistics.median(step_s)
+    print(f"KD step ({variant}): {rate:.1f} images/s (bf16 compute, float32 "
+          f"teacher, A={KD_A} x B={KD_B}, T={KD_T}, host clock incl. H2D); "
+          f"per step ms: median {1e3 * statistics.median(step_s):.3f}, min "
+          f"{1e3 * min(step_s):.3f}, max {1e3 * max(step_s):.3f}", flush=True)
+    compare_card_cpu(card_vs_cpu_step(dev, s_cfg, ckpt, loader), variant)
+    return launches, rate, step_s
+
+
+def compare_card_cpu(both, variant):
+    for k in common.LOSS_NAMES + ("grad_norm",):
+        g, c = both["cuda"][k], both["cpu"][k]
+        rel = abs(g - c) / max(abs(c), 1e-12) if c else abs(g)
+        limit = CARD_CPU_GNORM_LIMIT if k == "grad_norm" else CARD_CPU_LOSS_LIMIT
+        ok = np.isfinite(g) and rel <= limit
+        print(f"fp32 KD step ({variant}) card vs CPU {k}: {g:.7g} vs {c:.7g}, "
+              f"relative {rel:.3e} (limit {limit:g}) {'ok' if ok else 'FAIL'}",
+              flush=True)
+        if not ok:
+            fail(f"the card's float32 {variant} KD step disagrees with the "
+                 "CPU's")
 
 
 def mutant_caught(source: str, good: str, bad: str, check, what: str) -> bool:
@@ -988,10 +1530,11 @@ def mutant_caught(source: str, good: str, bad: str, check, what: str) -> bool:
 
 
 def run_mutation(dev) -> int:
-    """Two planted faults, each of which its check must catch: the scan
+    """Three planted faults, each of which its check must catch: the scan
     backward without the dropout mask on layer 1's input gradient (``dh0 =
-    dh0_c + (dgp1·W_ih1ᵀ) · mask``), and a beam self-attention that reads
-    its own slot's cache row instead of ``anc[n, i, s]``."""
+    dh0_c + (dgp1·W_ih1ᵀ) · mask``), a beam self-attention that reads its
+    own slot's cache row instead of ``anc[n, i, s]``, and an enhanced scan
+    whose attention heads ignore their dropout multiplier ``amask``."""
     decoder = make_decoder(dev)
     caught = [
         mutant_caught("decoder_scan_bwd.cu",
@@ -1004,6 +1547,13 @@ def run_mutation(dev) -> int:
                       "rows[s] = r;",
                       lambda: check_beam_attention(dev),
                       "beam self-attention ignores anc"),
+        mutant_caught("enhanced_scan.cu",
+                      "sc[l] = sc[l] / sum * (am ? am[l] : 1.f);",
+                      "sc[l] = sc[l] / sum;",
+                      lambda: check_enhanced_scan(
+                          make_variant_decoder("enhanced", dev), dev,
+                          mutant=True),
+                      "enhanced scan ignores amask"),
     ]
     return 0 if all(caught) else 1
 
@@ -1145,16 +1695,7 @@ def main() -> int:
           f"teacher, A={KD_A} x B={KD_B}, T={KD_T}, host clock incl. H2D); "
           f"per step ms: median {1e3 * statistics.median(step_s):.3f}, min "
           f"{1e3 * min(step_s):.3f}, max {1e3 * max(step_s):.3f}", flush=True)
-    for k in common.LOSS_NAMES + ("grad_norm",):
-        g, c = both["cuda"][k], both["cpu"][k]
-        rel = abs(g - c) / max(abs(c), 1e-12) if c else abs(g)
-        limit = CARD_CPU_GNORM_LIMIT if k == "grad_norm" else CARD_CPU_LOSS_LIMIT
-        ok = np.isfinite(g) and rel <= limit
-        print(f"fp32 KD step card vs CPU {k}: {g:.7g} vs {c:.7g}, relative "
-              f"{rel:.3e} (limit {limit:g}) {'ok' if ok else 'FAIL'}",
-              flush=True)
-        if not ok:
-            fail("the card's float32 KD step disagrees with the CPU's")
+    compare_card_cpu(both, "full")
 
     # --- 9. beam-step attention kernels vs plain, at the teacher's width ----
     beam_err = check_beam_attention(dev)
@@ -1164,7 +1705,34 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         beam_launches, beam_rates, beam_split = run_beam(dev, tmp)
 
-    # --- 11./12. timings, bounds and the result lines ----------------------
+    # --- 11. the compact student: kernels #3 and #7, serving, KD ------------
+    attn48 = check_attention_48(dev, gen)
+    cscan = check_compact_scan(make_variant_decoder("compact", dev), dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = write_student(tmp, "compact")
+        c_launches, c_rate, _, c_model32 = serve_variant(
+            dev, ckpt, batches, "compact",
+            lambda: {"greedy_decode_compact": G.launches_compact})
+        c_feats32 = seeded(np.random.default_rng(SEED + 2),
+                           (BATCH, 49, c_model32.cfg.embed_size), dev)
+        with torch.inference_mode():
+            cg_diff, cg_rows, cg_ms, cg_plain_ms, cg_ops = check_greedy_compact(
+                c_model32, c_feats32)
+        ckd_launches, ckd_rate, _ = run_variant_kd(dev, tmp, "compact")
+
+    # --- 12. the enhanced student: kernel #8, serving, KD ---------------------
+    escan = time_enhanced_scan(check_enhanced_scan(
+        make_variant_decoder("enhanced", dev), dev))
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = write_student(tmp, "enhanced")
+        e_launches, e_rate, _, e_model32 = serve_variant(
+            dev, ckpt, batches, "enhanced",
+            lambda: {"attention_core": A.launches})
+        check_enhanced_loop(e_model32, dev)
+        ekd_launches, ekd_rate, _ = run_variant_kd(dev, tmp, "enhanced")
+    del c_model32, e_model32
+
+    # --- 13./14. timings, bounds and the result lines ----------------------
     print(f"attention_core (32,4,49,64) bf16: kernel {attn_ms:.4f} ms, "
           f"plain {attn_plain_ms:.4f} ms, SDPA {attn_sdpa_ms:.4f} ms")
     print(f"greedy_decode B=32 T=20 bf16: kernel {greedy_ms:.4f} ms, "
@@ -1207,15 +1775,45 @@ def main() -> int:
               f"{t['bounds']['cross'][1]}); with the stream kept full: self "
               f"{t['self_queued_ms']:.4f} ms, cross {t['cross_queued_ms']:.4f}"
               f" ms, SDPA {t['cross_sdpa_queued_ms']:.4f} ms")
+    print(f"attention_core (16,8,64,48) bf16: kernel {attn48['ms']:.4f} ms, "
+          f"plain {attn48['plain_ms']:.4f} ms, SDPA {attn48['sdpa_ms']:.4f} ms")
+    print(f"greedy_decode_compact B=32 T=20 bf16: kernel {cg_ms:.4f} ms, "
+          f"plain {cg_plain_ms:.4f} ms")
+    print(f"compact_scan T={KD_T} B={KD_B} bf16: kernel {cscan['ms']:.4f} ms, "
+          f"plain {cscan['plain_ms']:.4f} ms; its plain backward "
+          f"{cscan['bwd_plain_ms']:.4f} ms")
+    print(f"enhanced_scan T={KD_T} B={KD_B} bf16 with masks: kernel "
+          f"{escan['ms']:.4f} ms, plain {escan['plain_ms']:.4f} ms; its plain "
+          f"backward {escan['bwd_plain_ms']:.4f} ms")
     lstm, bt = "pallas_lstm.py", beam_t["f32"]
+    attn_by_path = dict(
+        launches_serving=launches["attention_core"],
+        launches_kd=kd_launches["attention_core"],
+        launches_beam=beam_launches["attention_core"],
+        launches_compact_kd=ckd_launches["attention_core"],
+        launches_enhanced_serving=e_launches["attention_core"],
+        launches_enhanced_kd=ekd_launches["attention_core"])
     kernels = [
         entry("attention_core", "attention_core.cu", "pallas_attention.py:198",
-              launches["attention_core"] + kd_launches["attention_core"]
-              + beam_launches["attention_core"],
+              sum(attn_by_path.values()),
               attn_err, attn_ms, attn_plain_ms, attn_bound, attn_sdpa_ms,
-              launches_serving=launches["attention_core"],
-              launches_kd=kd_launches["attention_core"],
-              launches_beam=beam_launches["attention_core"]),
+              hd48_ms=attn48["ms"], hd48_plain_ms=attn48["plain_ms"],
+              hd48_library_ms=attn48["sdpa_ms"], hd48_max_abs_err=attn48["err"],
+              **attn_by_path),
+        entry("greedy_decode_compact", "greedy_decode_compact.cu",
+              "pallas_greedy.py:214", c_launches["greedy_decode_compact"],
+              cg_diff, cg_ms, cg_plain_ms, greedy_compact_bound(*cg_ops),
+              bf16_rows_identical=f"{cg_rows}/{BATCH}"),
+        entry("compact_scan", "compact_scan.cu", f"{lstm}:680",
+              ckd_launches["compact_scan"], cscan["err"], cscan["ms"],
+              cscan["plain_ms"], cscan["bound"],
+              plain_backward_ms=cscan["bwd_plain_ms"]),
+        entry("enhanced_scan", "enhanced_scan.cu", "pallas_enhanced.py:219",
+              ekd_launches["enhanced_scan"], escan["err"], escan["ms"],
+              escan["plain_ms"], escan["bound"],
+              plain_backward_ms=escan["bwd_plain_ms"],
+              float32_max_abs_err=escan["f32_err"],
+              plain_f64_vs_f32_max_abs_err=escan["floor"]),
         entry("greedy_decode", "greedy_decode.cu", "pallas_greedy.py:258",
               launches["greedy_decode"], greedy_diff, greedy_ms,
               greedy_plain_ms, greedy_bound,
@@ -1251,6 +1849,10 @@ def main() -> int:
               f"by {k['bound_by']}, {k['launches']} launches on its path")
     print(json.dumps({"kernels": kernels, "images_per_s": imgs_per_s,
                       "kd_images_per_s": kd_imgs_per_s,
+                      "compact_images_per_s": c_rate,
+                      "compact_kd_images_per_s": ckd_rate,
+                      "enhanced_images_per_s": e_rate,
+                      "enhanced_kd_images_per_s": ekd_rate,
                       "beam_images_per_s": beam_rates,
                       "beam_batch_ms": beam_split}))
     print(smi)

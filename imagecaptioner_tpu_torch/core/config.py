@@ -59,8 +59,7 @@ class TeacherConfig:
 
 @dataclass(frozen=True)
 class StudentConfig:
-    """CNN-LSTM students. ``variant`` selects full / compact / enhanced; the
-    port serves and trains ``full`` only so far."""
+    """CNN-LSTM students. ``variant`` selects full / compact / enhanced."""
 
     vocab_size: int = 5000
     variant: str = "full"            # full | compact | enhanced
@@ -69,7 +68,7 @@ class StudentConfig:
     num_layers: int = 2
     dropout: float = 0.2
     use_attention_refinement: bool = True
-    feature_tokens: int = 49         # 7x7 spatial locations
+    feature_tokens: int = 49         # 7x7 spatial locations (8x8=64 for enhanced)
     image_size: int = 224
     decoder_impl: str = "scan"
     freeze_backbone: bool = True
@@ -80,6 +79,28 @@ def full_student_config(vocab_size: int, **over) -> StudentConfig:
         vocab_size=vocab_size, variant="full", embed_size=256, hidden_size=512,
         num_layers=2, dropout=0.2, use_attention_refinement=True,
         feature_tokens=49), **over})
+
+
+def compact_student_config(vocab_size: int, **over) -> StudentConfig:
+    """Compact defaults: MobileNetV2, 256/256, one LSTM layer, no refinement."""
+    return StudentConfig(**{**dict(
+        vocab_size=vocab_size, variant="compact", embed_size=256,
+        hidden_size=256, num_layers=1, dropout=0.1,
+        use_attention_refinement=False, feature_tokens=49), **over})
+
+
+def enhanced_student_config(vocab_size: int, **over) -> StudentConfig:
+    """Enhanced defaults: EfficientNet-B3, 384/768, three LSTM layers, 8x8=64
+    tokens."""
+    return StudentConfig(**{**dict(
+        vocab_size=vocab_size, variant="enhanced", embed_size=384,
+        hidden_size=768, num_layers=3, dropout=0.15,
+        use_attention_refinement=True, feature_tokens=64), **over})
+
+
+STUDENT_CONFIGS = {"full": full_student_config,
+                   "compact": compact_student_config,
+                   "enhanced": enhanced_student_config}
 
 
 @dataclass(frozen=True)

@@ -63,10 +63,11 @@ def embedding(weight: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 
 def conv2d(x: torch.Tensor, weight: torch.Tensor,
            bias: Optional[torch.Tensor] = None, *, stride: int = 1,
-           padding: int = 0) -> torch.Tensor:
-    """NCHW conv with an OIHW weight; weight and bias ride in ``x.dtype``."""
+           padding: int = 0, groups: int = 1) -> torch.Tensor:
+    """NCHW conv with an (O, I/groups, kH, kW) weight; weight and bias ride
+    in ``x.dtype``."""
     b = None if bias is None else bias.to(x.dtype)
-    return F.conv2d(x, weight.to(x.dtype), b, stride, padding)
+    return F.conv2d(x, weight.to(x.dtype), b, stride, padding, 1, groups)
 
 
 def batch_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -135,6 +136,14 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x)
 
 
+def relu6(x: torch.Tensor) -> torch.Tensor:
+    return F.relu6(x)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    return F.silu(x)
+
+
 def sinusoidal_positional_encoding(max_len: int, d_model: int) -> np.ndarray:
     """Standard sinusoidal table (max_len, d_model), float32 numpy."""
     position = np.arange(max_len, dtype=np.float32)[:, None]
@@ -194,13 +203,15 @@ def multi_head_attention(p: "MultiheadAttention", query: torch.Tensor,
                          key: torch.Tensor, value: torch.Tensor, *,
                          num_heads: int, causal: bool = False,
                          dropout_rate: float = 0.0, train: bool = False,
-                         generator: Optional[torch.Generator] = None
-                         ) -> torch.Tensor:
+                         generator: Optional[torch.Generator] = None,
+                         need_weights: bool = False):
     """nn.MultiheadAttention forward semantics (batch first): the packed
     ``in_proj`` split into q/k/v, heads split as ``modules._split_heads``,
     the ported attention core, ``out_proj``.  With dropout on the attention
     weights (train mode, rate > 0) the function is a different one than the
-    kernel computes, and runs as plain tensor code, as in the JAX package."""
+    kernel computes, and runs as plain tensor code, as in the JAX package;
+    so does ``need_weights``, which returns ``(output, weights (B, Lq, Lk))``
+    with the weights averaged over the heads *after* their dropout."""
     e = query.shape[-1]
     w_q, w_k, w_v = p.in_proj_weight.chunk(3, dim=0)
     b_q, b_k, b_v = p.in_proj_bias.chunk(3, dim=0)
@@ -208,7 +219,8 @@ def multi_head_attention(p: "MultiheadAttention", query: torch.Tensor,
     k = _split_heads(dense(key, w_k, b_k), num_heads)
     v = _split_heads(dense(value, w_v, b_v), num_heads)
     scale = 1.0 / math.sqrt(e // num_heads)
-    if dropout_on(dropout_rate, train):
+    weights = None
+    if need_weights or dropout_on(dropout_rate, train):
         s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
         if causal:
             lq, lk = s.shape[-2], s.shape[-1]
@@ -217,11 +229,12 @@ def multi_head_attention(p: "MultiheadAttention", query: torch.Tensor,
             s = s.masked_fill(~keep, float("-inf"))
         w = dropout(torch.softmax(s, dim=-1), dropout_rate, train, generator)
         out = torch.matmul(w.to(v.dtype).float(), v.float()).to(v.dtype)
+        weights = w.mean(dim=1)
     else:
         out = attention_core(q, k, v, causal=causal, scale=scale)
     b, h, lq, d = out.shape
-    out = out.transpose(1, 2).reshape(b, lq, h * d)
-    return p.out_proj(out)
+    out = p.out_proj(out.transpose(1, 2).reshape(b, lq, h * d))
+    return (out, weights) if need_weights else out
 
 
 # ---------------------------------------------------------------------------
@@ -263,15 +276,16 @@ class Conv2d(nn.Module):
     ViT's patch embedding does)."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int, *,
-                 stride: int = 1, padding: int = 0, bias: bool = False):
+                 stride: int = 1, padding: int = 0, bias: bool = False,
+                 groups: int = 1):
         super().__init__()
-        self.weight = _param(out_ch, in_ch, kernel_size, kernel_size)
+        self.weight = _param(out_ch, in_ch // groups, kernel_size, kernel_size)
         self.bias = _param(out_ch) if bias else None
-        self.stride, self.padding = stride, padding
+        self.stride, self.padding, self.groups = stride, padding, groups
 
     def forward(self, x):
         return conv2d(x, self.weight, self.bias, stride=self.stride,
-                      padding=self.padding)
+                      padding=self.padding, groups=self.groups)
 
 
 class BatchNorm2d(nn.Module):
@@ -302,11 +316,12 @@ class MultiheadAttention(nn.Module):
 
     def forward(self, query, key, value, *, causal: bool = False,
                 dropout_rate: float = 0.0,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                need_weights: bool = False):
         return multi_head_attention(
             self, query, key, value, num_heads=self.num_heads, causal=causal,
             dropout_rate=dropout_rate, train=self.training,
-            generator=generator)
+            generator=generator, need_weights=need_weights)
 
 
 # ---------------------------------------------------------------------------
@@ -341,11 +356,11 @@ def linear_init(rng: np.random.Generator, in_features: int,
 
 
 def conv2d_init(rng: np.random.Generator, in_ch: int, out_ch: int,
-                kernel_size: int, bias: bool = False) -> dict:
-    fan_in = in_ch * kernel_size * kernel_size
+                kernel_size: int, bias: bool = False, groups: int = 1) -> dict:
+    fan_in = (in_ch // groups) * kernel_size * kernel_size
     bound = 1.0 / math.sqrt(fan_in)
     p = {"weight": uniform_init(
-        rng, (out_ch, in_ch, kernel_size, kernel_size), bound)}
+        rng, (out_ch, in_ch // groups, kernel_size, kernel_size), bound)}
     if bias:
         p["bias"] = uniform_init(rng, (out_ch,), bound)
     return p

@@ -16,8 +16,9 @@
 
 namespace attn {
 
-constexpr int D = 64;           // head dimension
-constexpr int KSTRIDE = D + 1;  // padded K row: per-lane key rows fall in distinct banks
+// The head dimension D is a template parameter (64, or 48 for the enhanced
+// student's 384 / 8); a staged K row is padded to D + 1 words so that the
+// per-lane key rows fall in distinct banks.
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -41,13 +42,16 @@ __device__ __forceinline__ float warp_sum(float x) {
 }
 
 // Floats of shared memory for one staged head and `warps` row workers.
+template <int D>
 __host__ __device__ inline size_t smem_floats(int Lk, int warps) {
-  return (size_t)Lk * KSTRIDE + (size_t)Lk * D + (size_t)warps * D + (size_t)warps * Lk;
+  return (size_t)Lk * (D + 1) + (size_t)Lk * D + (size_t)warps * D + (size_t)warps * Lk;
 }
 
-// Carve the block's shared memory: K (Lk x KSTRIDE), V (Lk x D), then one
+// Carve the block's shared memory: K (Lk x (D + 1)), V (Lk x D), then one
 // query row and one probability row per warp.
+template <int D>
 struct Smem {
+  static constexpr int KSTRIDE = D + 1;
   float *k, *v, *q, *p;
   __device__ Smem(float* base, int Lk, int warps)
       : k(base), v(k + Lk * KSTRIDE), q(v + Lk * D), p(q + warps * D) {}
@@ -55,12 +59,12 @@ struct Smem {
 
 // All threads of the block copy one head's K and V (Lk x D, contiguous)
 // into shared memory as float.  Ends with a block barrier.
-template <typename TK, typename TV>
+template <int D, typename TK, typename TV>
 __device__ __forceinline__ void stage_kv(const TK* __restrict__ kh,
                                          const TV* __restrict__ vh, int Lk,
-                                         const Smem& s) {
+                                         const Smem<D>& s) {
   for (int i = threadIdx.x; i < Lk * D; i += blockDim.x) {
-    s.k[(i / D) * KSTRIDE + (i % D)] = to_f(kh[i]);
+    s.k[(i / D) * Smem<D>::KSTRIDE + (i % D)] = to_f(kh[i]);
     s.v[i] = to_f(vh[i]);
   }
   __syncthreads();
@@ -69,21 +73,24 @@ __device__ __forceinline__ void stage_kv(const TK* __restrict__ kh,
 // One warp, one query row: qr points at the row's D values, orow at its D
 // outputs.  Keys with index > last_key are masked to -inf (pass Lk for no
 // mask).  A lane scores keys lane, lane+32, ...; the warp reduces max and
-// sum with shuffles; the lanes then split the 64 output columns.  qw (D
-// floats) and pw (Lk floats) are this warp's scratch rows.
-template <typename TQ, typename TV>
+// sum with shuffles; the lanes then split the D output columns (lane and
+// lane + 32; 32 < D <= 64).  qw (D floats) and pw (Lk floats) are this
+// warp's scratch rows.
+template <int D, typename TQ, typename TV>
 __device__ __forceinline__ void attend_row(const TQ* __restrict__ qr,
                                            TV* __restrict__ orow,
-                                           const Smem& s, float* qw, float* pw,
+                                           const Smem<D>& s, float* qw, float* pw,
                                            int Lk, int last_key, float scale,
                                            int lane) {
+  static_assert(D > 32 && D <= 64, "a lane owns columns lane and lane + 32");
+  const bool second = lane + 32 < D;
   qw[lane] = to_f(qr[lane]);
-  qw[lane + 32] = to_f(qr[lane + 32]);
+  if (second) qw[lane + 32] = to_f(qr[lane + 32]);
   __syncwarp();
 
   float m = -INFINITY;
   for (int j = lane; j < Lk; j += 32) {
-    const float* kr = s.k + j * KSTRIDE;
+    const float* kr = s.k + j * Smem<D>::KSTRIDE;
     float sc = 0.f;
 #pragma unroll
     for (int d = 0; d < D; ++d) sc = fmaf(qw[d], kr[d], sc);
@@ -107,10 +114,10 @@ __device__ __forceinline__ void attend_row(const TQ* __restrict__ qr,
   for (int j = 0; j < Lk; ++j) {
     const float p = pw[j];
     a0 = fmaf(p, s.v[j * D + lane], a0);
-    a1 = fmaf(p, s.v[j * D + lane + 32], a1);
+    if (second) a1 = fmaf(p, s.v[j * D + lane + 32], a1);
   }
   orow[lane] = from_f<TV>(a0);
-  orow[lane + 32] = from_f<TV>(a1);
+  if (second) orow[lane + 32] = from_f<TV>(a1);
   __syncwarp();  // qw and pw are reused by the warp's next row
 }
 

@@ -4,7 +4,8 @@
 // `fused_attention_core` (`_make_kernel`, `_kernel_call`): one program per
 // (batch, head) with the (Lq, Lk) score matrix kept on chip.
 //
-// Layout: q (BH, Lq, 64), k and v (BH, Lk, 64), contiguous; Lk <= 256.
+// Layout: q (BH, Lq, D), k and v (BH, Lk, D), contiguous; D = 64, or 48 (the
+// enhanced student's cross refinement, 384 / 8); Lk <= 256.
 // Numerics follow the JAX core: scores accumulate in float32, the causal
 // mask sets col > row to -inf, softmax runs in float32 as exp(s - max) /
 // sum, the probabilities are rounded to v's type before the product with v,
@@ -34,13 +35,13 @@ constexpr int THREADS = WARPS * 32;
 constexpr int ROWS_PER_WARP = 2;
 constexpr int ROWS = WARPS * ROWS_PER_WARP;  // query rows per block
 
-template <typename TQ, typename TV>
+template <int D, typename TQ, typename TV>
 __global__ void __launch_bounds__(THREADS)
 attention_kernel(const TQ* __restrict__ q, const TQ* __restrict__ k,
                  const TV* __restrict__ v, TV* __restrict__ out, int Lq, int Lk,
                  float scale, int causal) {
   extern __shared__ float smem[];
-  const Smem s(smem, Lk, WARPS);
+  const Smem<D> s(smem, Lk, WARPS);
   const size_t bh = blockIdx.x;
   stage_kv(k + bh * Lk * D, v + bh * Lk * D, Lk, s);
 
@@ -48,17 +49,17 @@ attention_kernel(const TQ* __restrict__ q, const TQ* __restrict__ k,
   for (int rr = 0; rr < ROWS_PER_WARP; ++rr) {
     const int row = blockIdx.y * ROWS + rr * WARPS + warp;
     if (row >= Lq) break;  // uniform across the warp
-    attend_row(q + (bh * Lq + row) * D, out + (bh * Lq + row) * D, s,
-               s.q + warp * D, s.p + warp * Lk, Lk, causal ? row : Lk, scale,
-               lane);
+    attend_row<D>(q + (bh * Lq + row) * D, out + (bh * Lq + row) * D, s,
+                  s.q + warp * D, s.p + warp * Lk, Lk, causal ? row : Lk, scale,
+                  lane);
   }
 }
 
-template <typename TQ, typename TV>
+template <int D, typename TQ, typename TV>
 int launch(const void* q, const void* k, const void* v, void* out, int BH,
            int Lq, int Lk, float scale, int causal, cudaStream_t stream) {
-  const size_t smem = smem_floats(Lk, WARPS) * sizeof(float);
-  auto kern = attention_kernel<TQ, TV>;
+  const size_t smem = smem_floats<D>(Lk, WARPS) * sizeof(float);
+  auto kern = attention_kernel<D, TQ, TV>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -69,22 +70,34 @@ int launch(const void* q, const void* k, const void* v, void* out, int BH,
   return (int)cudaGetLastError();
 }
 
+template <int D>
+int dispatch(int qk_dtype, int v_dtype, const void* q, const void* k,
+             const void* v, void* out, int BH, int Lq, int Lk, float scale,
+             int causal, cudaStream_t s) {
+  if (qk_dtype == 0 && v_dtype == 0)
+    return launch<D, float, float>(q, k, v, out, BH, Lq, Lk, scale, causal, s);
+  if (qk_dtype == 1 && v_dtype == 1)
+    return launch<D, __nv_bfloat16, __nv_bfloat16>(q, k, v, out, BH, Lq, Lk, scale, causal, s);
+  if (qk_dtype == 0 && v_dtype == 1)
+    return launch<D, float, __nv_bfloat16>(q, k, v, out, BH, Lq, Lk, scale, causal, s);
+  if (qk_dtype == 1 && v_dtype == 0)
+    return launch<D, __nv_bfloat16, float>(q, k, v, out, BH, Lq, Lk, scale, causal, s);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16.  Returns a cudaError_t.
+// dtype codes: 0 = float32, 1 = bfloat16; D is 64 or 48.  Returns a
+// cudaError_t.
 extern "C" int ic_attention_core(int qk_dtype, int v_dtype, const void* q,
                                  const void* k, const void* v, void* out, int BH,
-                                 int Lq, int Lk, float scale, int causal,
+                                 int Lq, int Lk, int D, float scale, int causal,
                                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (qk_dtype == 0 && v_dtype == 0)
-    return launch<float, float>(q, k, v, out, BH, Lq, Lk, scale, causal, s);
-  if (qk_dtype == 1 && v_dtype == 1)
-    return launch<__nv_bfloat16, __nv_bfloat16>(q, k, v, out, BH, Lq, Lk, scale, causal, s);
-  if (qk_dtype == 0 && v_dtype == 1)
-    return launch<float, __nv_bfloat16>(q, k, v, out, BH, Lq, Lk, scale, causal, s);
-  if (qk_dtype == 1 && v_dtype == 0)
-    return launch<__nv_bfloat16, float>(q, k, v, out, BH, Lq, Lk, scale, causal, s);
+  if (D == 64)
+    return dispatch<64>(qk_dtype, v_dtype, q, k, v, out, BH, Lq, Lk, scale, causal, s);
+  if (D == 48)
+    return dispatch<48>(qk_dtype, v_dtype, q, k, v, out, BH, Lq, Lk, scale, causal, s);
   return (int)cudaErrorInvalidValue;
 }
 

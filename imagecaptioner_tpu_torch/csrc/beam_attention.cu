@@ -41,6 +41,7 @@ namespace {
 
 using namespace attn;
 
+constexpr int D = 64;      // the teacher's head dimension
 constexpr int MAX_S = 64;  // cache positions the self kernel takes
 constexpr int SELF_WARPS = 4;
 constexpr int CROSS_WARPS = 8;
@@ -118,7 +119,7 @@ beam_cross_kernel(const T* __restrict__ q, int q_stride, const T* __restrict__ m
                   const T* __restrict__ mv, T* __restrict__ out, int out_stride,
                   int K, int H, int L, float scale) {
   extern __shared__ float smem[];
-  const Smem s(smem, L, CROSS_WARPS);
+  const Smem<D> s(smem, L, CROSS_WARPS);
   const size_t nh = blockIdx.x;  // (image, head)
   const int n = nh / H, h = nh % H;
   stage_kv(mk + nh * L * D, mv + nh * L * D, L, s);
@@ -126,8 +127,8 @@ beam_cross_kernel(const T* __restrict__ q, int q_stride, const T* __restrict__ m
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int i = warp; i < K; i += CROSS_WARPS) {
     const size_t r = (size_t)n * K + i;
-    attend_row(q + r * q_stride + h * D, out + r * out_stride + h * D, s,
-               s.q + warp * D, s.p + warp * L, L, L, scale, lane);
+    attend_row<D>(q + r * q_stride + h * D, out + r * out_stride + h * D, s,
+                  s.q + warp * D, s.p + warp * L, L, L, scale, lane);
   }
 }
 
@@ -148,7 +149,7 @@ template <typename T>
 int launch_cross(const void* q, int q_stride, const void* mk, const void* mv,
                  void* out, int out_stride, int N, int K, int H, int L,
                  float scale, cudaStream_t stream) {
-  const size_t smem = smem_floats(L, CROSS_WARPS) * sizeof(float);
+  const size_t smem = smem_floats<D>(L, CROSS_WARPS) * sizeof(float);
   auto kern = beam_cross_kernel<T>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

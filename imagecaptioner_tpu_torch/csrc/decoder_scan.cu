@@ -108,25 +108,7 @@ __global__ void __launch_bounds__(THREADS) scan_kernel(const Args<T> a) {
     }
     __syncthreads();
 
-    // softmax over L in warp 0
-    if (warp == 0) {
-      float m = -INFINITY;
-      for (int l = lane; l < L; l += 32) m = fmaxf(m, attn_s[l]);
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-      float sum = 0.f;
-      for (int l = lane; l < L; l += 32) {
-        const float e = expf(attn_s[l] - m);
-        attn_s[l] = e;
-        sum += e;
-      }
-      sum = warp_sum(sum);
-      for (int l = lane; l < L; l += 32) {
-        const float w = attn_s[l] / sum;
-        attn_s[l] = w;
-        a.attn[tb * L + l] = w;
-      }
-    }
+    warp0_softmax<true>(attn_s, L, a.attn + tb * L);
     __syncthreads();
 
     // context, rounded to the weight dtype for the combine

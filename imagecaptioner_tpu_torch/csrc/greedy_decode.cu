@@ -33,16 +33,6 @@
 
 namespace {
 
-constexpr int PAD = 0, START = 1, END = 2;
-
-// (value, index) a beats (value, index) b under jnp.argmax: NaN is the
-// largest value, and the lower index wins a tie.
-__device__ __forceinline__ bool beats(float a, int ia, float b, int ib) {
-  if (isnan(a)) return !isnan(b) || ia < ib;
-  if (isnan(b)) return false;
-  return a > b || (a == b && ia < ib);
-}
-
 template <typename T>
 struct Args {
   const T* emb;      // (V, E)
@@ -103,7 +93,7 @@ __global__ void __launch_bounds__(THREADS) greedy_kernel(const Args<T> a) {
   }
   for (int i = tid; i < H; i += THREADS) hr0_s[i] = hr1_s[i] = c0_s[i] = c1_s[i] = 0.f;
   if (tid == 0) {
-    tok_s = START;
+    tok_s = TOK_START;
     done_s = 0;
   }
   __syncthreads();
@@ -124,21 +114,7 @@ __global__ void __launch_bounds__(THREADS) greedy_kernel(const Args<T> a) {
     }
     __syncthreads();
 
-    // softmax over L in warp 0
-    if (warp == 0) {
-      float m = -INFINITY;
-      for (int l = lane; l < L; l += 32) m = fmaxf(m, attn_s[l]);
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-      float sum = 0.f;
-      for (int l = lane; l < L; l += 32) {
-        const float e = expf(attn_s[l] - m);
-        attn_s[l] = e;
-        sum += e;
-      }
-      sum = warp_sum(sum);
-      for (int l = lane; l < L; l += 32) attn_s[l] = attn_s[l] / sum;
-    }
+    warp0_softmax<false>(attn_s, L, nullptr);
     __syncthreads();
 
     // context, rounded to the weight dtype for the combine
@@ -186,43 +162,8 @@ __global__ void __launch_bounds__(THREADS) greedy_kernel(const Args<T> a) {
     __syncthreads();
 
     // argmax of logits / temperature
-    float best = -INFINITY;
-    int bi = V;
-    for (int v = tid; v < V; v += THREADS) {
-      float x = logits_s[v];
-      if (a.temperature != 1.f) x = x / a.temperature;
-      if (beats(x, v, best, bi)) {
-        best = x;
-        bi = v;
-      }
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      const float ov = __shfl_xor_sync(0xffffffffu, best, o);
-      const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
-      if (beats(ov, oi, best, bi)) {
-        best = ov;
-        bi = oi;
-      }
-    }
-    if (lane == 0) {
-      red_v[warp] = best;
-      red_i[warp] = bi;
-    }
-    __syncthreads();
-    if (tid == 0) {
-      best = red_v[0];
-      bi = red_i[0];
-      for (int w = 1; w < WARPS; ++w)
-        if (beats(red_v[w], red_i[w], best, bi)) {
-          best = red_v[w];
-          bi = red_i[w];
-        }
-      const int is_end = bi == END;
-      a.out[(size_t)b * a.steps + t] = (done_s || is_end) ? PAD : bi;
-      done_s = done_s || is_end;
-      if (!done_s) tok_s = bi;
-    }
+    const int next = block_argmax(logits_s, V, a.temperature, red_v, red_i);
+    if (tid == 0) emit_token(next, a.out + (size_t)b * a.steps + t, &tok_s, &done_s);
     __syncthreads();
   }
 }

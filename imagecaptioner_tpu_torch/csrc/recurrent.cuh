@@ -1,5 +1,6 @@
 // Device helpers shared by the recurrent kernels (greedy_decode.cu,
-// decoder_scan.cu, decoder_scan_bwd.cu): one block of THREADS threads owns
+// greedy_decode_compact.cu, decoder_scan.cu, decoder_scan_bwd.cu,
+// compact_scan.cu, enhanced_scan.cu): one block of THREADS threads owns
 // one batch row; weights are read in their torch (out, in) layout, one warp
 // per output row with 16-byte loads, ROWS rows in flight per warp, against
 // a float32 vector in shared memory.
@@ -101,5 +102,94 @@ __device__ void gemv(const T* __restrict__ W1, int ld1, int K1,
 }
 
 __host__ __device__ constexpr int round4(int n) { return (n + 3) / 4 * 4; }
+
+// Warp 0 turns the L scores in s into softmax weights in place, in float32
+// as exp(x - max) / sum, and with WRITE also stores them to `out`.  The
+// caller synchronises the block before and after.
+template <bool WRITE>
+__device__ __forceinline__ void warp0_softmax(float* s, int L, float* out) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp == 0) {
+    float m = -INFINITY;
+    for (int l = lane; l < L; l += 32) m = fmaxf(m, s[l]);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    float sum = 0.f;
+    for (int l = lane; l < L; l += 32) {
+      const float e = expf(s[l] - m);
+      s[l] = e;
+      sum += e;
+    }
+    sum = warp_sum(sum);
+    for (int l = lane; l < L; l += 32) {
+      const float w = s[l] / sum;
+      s[l] = w;
+      if (WRITE) out[l] = w;
+    }
+  }
+}
+
+// (value, index) a beats (value, index) b under jnp.argmax: NaN is the
+// largest value, and the lower index wins a tie.
+__device__ __forceinline__ bool beats(float a, int ia, float b, int ib) {
+  if (isnan(a)) return !isnan(b) || ia < ib;
+  if (isnan(b)) return false;
+  return a > b || (a == b && ia < ib);
+}
+
+// Index of the largest of logits[0..V) / temperature over the block, valid in
+// thread 0 only.  red_v and red_i hold WARPS values each; the caller
+// synchronises the block before reusing them or logits.
+__device__ __forceinline__ int block_argmax(const float* logits, int V,
+                                            float temperature, float* red_v,
+                                            int* red_i) {
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  float best = -INFINITY;
+  int bi = V;
+  for (int v = tid; v < V; v += THREADS) {
+    float x = logits[v];
+    if (temperature != 1.f) x = x / temperature;
+    if (beats(x, v, best, bi)) {
+      best = x;
+      bi = v;
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const float ov = __shfl_xor_sync(0xffffffffu, best, o);
+    const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
+    if (beats(ov, oi, best, bi)) {
+      best = ov;
+      bi = oi;
+    }
+  }
+  if (lane == 0) {
+    red_v[warp] = best;
+    red_i[warp] = bi;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    best = red_v[0];
+    bi = red_i[0];
+    for (int w = 1; w < WARPS; ++w)
+      if (beats(red_v[w], red_i[w], best, bi)) {
+        best = red_v[w];
+        bi = red_i[w];
+      }
+  }
+  return bi;
+}
+
+constexpr int TOK_PAD = 0, TOK_START = 1, TOK_END = 2;
+
+// Thread 0 records step t's token for its row: END and everything after it
+// become PAD, and a finished row keeps feeding its last real token.
+__device__ __forceinline__ void emit_token(int next, int32_t* out_t, int* tok,
+                                           int* done) {
+  const int is_end = next == TOK_END;
+  *out_t = (*done || is_end) ? TOK_PAD : next;
+  *done = *done || is_end;
+  if (!*done) *tok = next;
+}
 
 }  // namespace

@@ -1,7 +1,8 @@
 """Batch captioning CLI of the port: a directory of images -> captions JSONL.
 
 ``imagecaptioner_tpu/eval/serve.py`` with the same flags: ``--model
-student`` captions by greedy decode, ``--model teacher`` by packed beam
+student`` captions by greedy decode (the full, compact or enhanced student,
+as the checkpoint's ``model_type`` says), ``--model teacher`` by packed beam
 search in the parameters' dtype as loaded (float32).  The flags whose paths
 are not ported yet (int8, data-parallel) exit with an error that says so.
 Images are decoded with PIL, imported only here, so ``make_greedy_captioner``

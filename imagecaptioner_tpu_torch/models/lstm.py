@@ -1,11 +1,12 @@
-"""Full-student LSTM decoder (``imagecaptioner_tpu/models/lstm.py``).
+"""Full- and compact-student LSTM decoders
+(``imagecaptioner_tpu/models/lstm.py``).
 
 Torch LSTM semantics: gate order (i, f, g, o), two bias vectors.  The
 step functions follow the JAX scan path's numerics (h and c rounded to the
-activation dtype after every step); the serving loop itself is
-``ops/greedy.py`` and the teacher-forced training forward
-(``full_decoder_apply``) runs on ``ops/lstm_scan.py``; both keep h and c in
-float32 as the fused kernels do.
+activation dtype after every step); the serving loops are ``ops/greedy.py``
+and the teacher-forced training forwards (``full_decoder_apply``,
+``compact_decoder_apply``) run on ``ops/lstm_scan.py``; those keep h and c
+in float32 as the fused kernels do.
 """
 
 from __future__ import annotations
@@ -24,7 +25,8 @@ from imagecaptioner_tpu_torch.core.modules import (Embedding, Linear, _param,
                                                    embedding_init,
                                                    linear_init, orthogonal,
                                                    xavier_uniform)
-from imagecaptioner_tpu_torch.ops.lstm_scan import decoder_scan
+from imagecaptioner_tpu_torch.ops.lstm_scan import (compact_decoder_scan,
+                                                    decoder_scan)
 
 
 class LSTMCell(nn.Module):
@@ -61,13 +63,7 @@ class FullDecoder(nn.Module):
         """Random parameter tree in the layout of ``lstm.full_decoder_init``
         (xavier w_ih, orthogonal w_hh, zero biases)."""
         e, h, v = cfg.embed_size, cfg.hidden_size, cfg.vocab_size
-        lstm = []
-        for i in range(cfg.num_layers):
-            lstm.append({
-                "weight_ih": xavier_uniform(rng, (4 * h, e if i == 0 else h)),
-                "weight_hh": orthogonal(rng, (4 * h, h)),
-                "bias_ih": np.zeros(4 * h, np.float32),
-                "bias_hh": np.zeros(4 * h, np.float32)})
+        lstm = lstm_stack_init(rng, e, h, cfg.num_layers)  # drawn first
         return {
             "embedding": embedding_init(rng, v, e),
             "attention": linear_init(rng, h + e, e),
@@ -76,6 +72,23 @@ class FullDecoder(nn.Module):
             "output_projection": {"fc1": linear_init(rng, h, e),
                                   "fc2": linear_init(rng, e, v)},
         }
+
+
+def lstm_stack_init(rng: np.random.Generator, input_size: int,
+                    hidden_size: int, num_layers: int) -> list:
+    """``lstm.lstm_stack_init``: xavier w_ih, orthogonal w_hh, zero biases."""
+    h = hidden_size
+    return [{"weight_ih": xavier_uniform(rng, (4 * h, input_size if i == 0
+                                               else h)),
+             "weight_hh": orthogonal(rng, (4 * h, h)),
+             "bias_ih": np.zeros(4 * h, np.float32),
+             "bias_hh": np.zeros(4 * h, np.float32)}
+            for i in range(num_layers)]
+
+
+def init_hidden(num_layers: int, batch: int, hidden: int, dtype, device):
+    z = torch.zeros((num_layers, batch, hidden), dtype=dtype, device=device)
+    return z, z
 
 
 def lstm_cell(p: LSTMCell, x: torch.Tensor, h: torch.Tensor, c: torch.Tensor
@@ -187,3 +200,81 @@ def full_decoder_apply(p: FullDecoder, image_features: torch.Tensor,
                                train=train, generator=generator,
                                mask=masks.get("proj"))
     return logits, h_tops, attn
+
+
+# ---------------------------------------------------------------------------
+# Compact-student decoder: dot attention, additive fusion, a plain Linear
+# head, no dropout anywhere
+# ---------------------------------------------------------------------------
+
+
+class CompactDecoder(nn.Module):
+    def __init__(self, cfg: StudentConfig):
+        super().__init__()
+        e, h, v = cfg.embed_size, cfg.hidden_size, cfg.vocab_size
+        self.embedding = Embedding(v, e)
+        self.attention = Linear(h, e)
+        self.lstm = nn.ModuleList(
+            LSTMCell(e if i == 0 else h, h) for i in range(cfg.num_layers))
+        self.output_projection = Linear(h, v)
+
+    @staticmethod
+    def init(rng: np.random.Generator, cfg: StudentConfig) -> dict:
+        """Random parameter tree in the layout of
+        ``lstm.compact_decoder_init``."""
+        e, h, v = cfg.embed_size, cfg.hidden_size, cfg.vocab_size
+        return {"embedding": embedding_init(rng, v, e),
+                "attention": linear_init(rng, h, e),
+                "lstm": lstm_stack_init(rng, e, h, cfg.num_layers),
+                "output_projection": linear_init(rng, h, v)}
+
+
+def dot_attention(p: Linear, h_top: torch.Tensor, feats: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dot-product attention: scores = (W h + b) . feats, softmax over the L
+    tokens.  h_top (B, H), feats (B, L, E) -> context (B, E), weights (B, L)."""
+    h_proj = p(h_top)
+    scores = torch.einsum("be,ble->bl", h_proj.float(), feats.float())
+    weights = torch.softmax(scores, dim=1).to(feats.dtype)
+    context = torch.einsum("bl,ble->be", weights.float(), feats.float())
+    return context.to(feats.dtype), weights
+
+
+def compact_decoder_step(p: CompactDecoder, word_emb: torch.Tensor, hc,
+                         feats: torch.Tensor):
+    """One recurrence step without the vocab projection; h and c are
+    (layers, B, H).  Returns (h_top, (h, c), attn_w)."""
+    h, c = hc
+    context, attn_w = dot_attention(p.attention, h[-1], feats)
+    inp = word_emb + context
+    new_h, new_c = [], []
+    for li, cell in enumerate(p.lstm):
+        hi, ci = lstm_cell(cell, inp, h[li], c[li])
+        new_h.append(hi)
+        new_c.append(ci)
+        inp = hi
+    return inp, (torch.stack(new_h), torch.stack(new_c)), attn_w
+
+
+def compact_scan_weights(p: CompactDecoder, dt: torch.dtype):
+    """The five weight operands of ``ops.lstm_scan.compact_decoder_scan``
+    from the decoder's parameters; differentiable back to them."""
+    if len(p.lstm) != 1:
+        raise ValueError("the fused compact recurrence takes the 1-layer "
+                         "decoder")
+    l0 = p.lstm[0]
+    return (p.attention.weight.to(dt).contiguous(), p.attention.bias.float(),
+            l0.weight_ih.to(dt).contiguous(), l0.weight_hh.to(dt).contiguous(),
+            (l0.bias_ih + l0.bias_hh).float())
+
+
+def compact_decoder_apply(p: CompactDecoder, image_features: torch.Tensor,
+                          captions: torch.Tensor, cfg: StudentConfig):
+    """Teacher-forced forward on the fused recurrence, as
+    ``pallas_lstm.pallas_compact_decoder_scan_train``.  captions (T, B) ->
+    logits (T, B, V), hidden_states (T, B, H), attn (T, B, L) float32."""
+    dt = image_features.dtype
+    emb = p.embedding(captions).to(dt).contiguous()
+    h_tops, attn = compact_decoder_scan(
+        emb, image_features.contiguous(), *compact_scan_weights(p, dt))
+    return p.output_projection(h_tops), h_tops, attn

@@ -26,7 +26,8 @@ PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
 SOURCES = ("attention_core", "greedy_decode", "decoder_scan",
-           "decoder_scan_bwd", "beam_attention")
+           "decoder_scan_bwd", "beam_attention", "greedy_decode_compact",
+           "compact_scan", "enhanced_scan")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -8,7 +8,7 @@ the output is ``v.dtype`` (``pallas_attention.py:161-168``).
 
 ``attention_core`` dispatches on the device: a CPU tensor takes the plain
 version (differentiable by ordinary autograd), a CUDA tensor the kernel in
-``csrc/attention_core.cu`` (D = 64, Lk <= 256, Lq = Lk when causal), which
+``csrc/attention_core.cu`` (D = 64 or 48, Lk <= 256, Lq = Lk when causal), which
 raises on anything it does not take.  The JAX package has no backward
 kernel for this core: its ``custom_vjp`` recomputes the plain core and
 differentiates that (``pallas_attention.py:_bwd``).  ``_AttentionCore`` does
@@ -23,7 +23,7 @@ import torch
 
 from imagecaptioner_tpu_torch.ops import _build
 
-HEAD_DIM = 64
+HEAD_DIMS = (64, 48)  # 48: the enhanced student's cross refinement, 384 / 8
 MAX_LK = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -66,8 +66,8 @@ def attention_core_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if k.shape != (B, H, Lk, D) or v.shape != k.shape:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
-    if D != HEAD_DIM or not 0 < Lk <= MAX_LK or Lq == 0:
-        raise ValueError(f"kernel takes D={HEAD_DIM}, 0 < Lk <= {MAX_LK}; "
+    if D not in HEAD_DIMS or not 0 < Lk <= MAX_LK or Lq == 0:
+        raise ValueError(f"kernel takes D in {HEAD_DIMS}, 0 < Lk <= {MAX_LK}; "
                          f"got D={D}, Lq={Lq}, Lk={Lk}")
     if causal and Lq != Lk:
         raise ValueError(f"kernel takes a causal mask only for Lq == Lk; "
@@ -82,11 +82,12 @@ def attention_core_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                   ctypes.c_void_p]
     with torch.cuda.device(v.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(_DTYPES[qk], _DTYPES[v.dtype], q.data_ptr(), k.data_ptr(),
-                 v.data_ptr(), out.data_ptr(), B * H, Lq, Lk, float(scale),
+                 v.data_ptr(), out.data_ptr(), B * H, Lq, Lk, D, float(scale),
                  int(causal), stream)
     _build.check(lib, err, "attention_core")
     launches += 1

@@ -1,17 +1,21 @@
 """Caption decoding and detokenization (``imagecaptioner_tpu/ops/decode.py``):
-the full student's greedy decode, and the teacher's KV-cached greedy decode
-and beam searches.
+the students' greedy decode, and the teacher's KV-cached greedy decode and
+beam searches.
 
 ``best_greedy_decode_student`` keeps its JAX name and picks the path by the
-tensor it is given:
+variant and by the tensor it is given.  For the full and the compact student:
 
-* a CUDA tensor with ``rng=None``: the greedy kernel (``ops/greedy.py``);
+* a CUDA tensor with ``rng=None``: the variant's greedy kernel
+  (``ops/greedy.py``);
 * a CPU tensor with ``rng=None``: the kernel's plain version;
 * ``rng`` (a ``torch.Generator``) given: the plain version, sampling from
   softmax(logits / temperature), on either device.  The JAX package has no
   sampling kernel either.
 
-There is no fallback: a kernel that cannot take its inputs raises.
+There is no fallback: a kernel that cannot take its inputs raises.  The
+enhanced student has no greedy kernel in the JAX package, and none here: it
+decodes through ``greedy_decode_student``, the generic step loop over
+``Student.decoder_step``, which takes any variant.
 
 The teacher's loops are Python loops over ``decoder_step_cached``.  The beam
 search is the fixed-width masked emulation of the reference's shrinking beam:
@@ -34,11 +38,40 @@ import torch
 
 from imagecaptioner_tpu_torch.core.config import StudentConfig
 from imagecaptioner_tpu_torch.data.vocabulary import END, PAD, START
+from imagecaptioner_tpu_torch.models import lstm as L
 from imagecaptioner_tpu_torch.models import transformer as TD
 from imagecaptioner_tpu_torch.models.student import check_variant
+from imagecaptioner_tpu_torch.models.student_enhanced import MAX_POS
 from imagecaptioner_tpu_torch.ops import greedy as G
 
 BeamResult = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+@torch.no_grad()
+def greedy_decode_student(student, feats: torch.Tensor, cfg: StudentConfig, *,
+                          max_length: int = 20, temperature: float = 1.0,
+                          rng: Optional[torch.Generator] = None,
+                          early_exit: bool = True) -> torch.Tensor:
+    """The generic greedy (or, with ``rng``, sampled) decode: a Python loop
+    over ``student.decoder_step``, for any variant.  The enhanced student
+    adds its learned position ``t`` (< ``MAX_POS``) to each step's word
+    embedding.  With ``early_exit`` the loop stops once every row has
+    emitted END, which leaves the output unchanged."""
+    B, dev = feats.shape[0], feats.device
+    hc = L.init_hidden(cfg.num_layers, B, cfg.hidden_size, feats.dtype, dev)
+    tok = torch.full((B,), START, dtype=torch.long, device=dev)
+    done = torch.zeros(B, dtype=torch.bool, device=dev)
+    out = torch.full((B, max_length), PAD, dtype=torch.int32, device=dev)
+    for t in range(max_length):
+        if early_exit and bool(done.all()):
+            break
+        emb = student.decoder.embedding(tok).to(feats.dtype)
+        if cfg.variant == "enhanced" and t < MAX_POS:
+            emb = emb + student.decoder.pos_encoding[0, t].to(emb.dtype)
+        logits, hc, _ = student.decoder_step(emb, hc, feats)
+        tok, done = G.next_token(logits, tok, done, out[:, t], temperature,
+                                 rng)
+    return out
 
 
 def best_greedy_decode_student(student, feats: torch.Tensor,
@@ -50,15 +83,22 @@ def best_greedy_decode_student(student, feats: torch.Tensor,
     (B, L, E).  Returns (B, max_length) int32; PAD at and after the first
     END."""
     check_variant(cfg)
+    kw = dict(max_length=max_length, temperature=temperature)
+    if cfg.variant == "enhanced":
+        return greedy_decode_student(student, feats, cfg, rng=rng, **kw)
+    on_kernel = rng is None and feats.is_cuda
+    if rng is None and not feats.is_cuda and feats.device.type != "cpu":
+        raise ValueError(f"greedy decode: unsupported device {feats.device}")
+    if cfg.variant == "compact":
+        w = G.greedy_compact_operands(student.decoder, feats.dtype)
+        if on_kernel:
+            return G.greedy_decode_compact_cuda(w, feats.contiguous(), **kw)
+        return G.greedy_decode_compact_plain(w, feats, generator=rng, **kw)
     w = G.greedy_operands(student.decoder, feats.dtype)
     f_proj = G.attention_feature_projection(w, feats)
-    if rng is None and feats.is_cuda:
-        return G.greedy_decode_cuda(w, feats, f_proj, max_length=max_length,
-                                    temperature=temperature)
-    if rng is None and feats.device.type != "cpu":
-        raise ValueError(f"greedy decode: unsupported device {feats.device}")
-    return G.greedy_decode_plain(w, feats, f_proj, max_length=max_length,
-                                 temperature=temperature, generator=rng)
+    if on_kernel:
+        return G.greedy_decode_cuda(w, feats, f_proj, **kw)
+    return G.greedy_decode_plain(w, feats, f_proj, generator=rng, **kw)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,6 @@
-"""Whole-loop greedy decode of the full student: the port of
-``imagecaptioner_tpu/ops/pallas_greedy.py:pallas_greedy_decode_student``.
+"""Whole-loop greedy decode of the full and the compact student: the port of
+``imagecaptioner_tpu/ops/pallas_greedy.py`` (``pallas_greedy_decode_student``;
+``pallas_greedy_decode_compact`` at the end of this file).
 
 ``greedy_operands`` gathers the decoder weights in their torch (out, in)
 layout, which is also the layout the kernel reads (one warp per output row);
@@ -36,6 +37,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_SMEM_BYTES = 232448  # per block on the H100
 
 launches = 0  # kernel launches by greedy_decode_cuda
+launches_compact = 0  # kernel launches by greedy_decode_compact_cuda
 
 
 def greedy_operands(decoder, dtype: torch.dtype) -> Operands:
@@ -115,18 +117,47 @@ def greedy_decode_plain(w: Operands, feats: torch.Tensor, f_proj: torch.Tensor,
         h1, c1 = cell(rd(h0), rd(h1), c1, 1)
         hid = torch.relu(rd(h1) @ wt["fc1_w"] + w["fc1_b"])
         logits = rd(hid) @ wt["fc2_w"] + w["fc2_b"]
-        if temperature != 1.0:
-            logits = logits / temperature
-        if generator is None:
-            nxt = torch.argmax(logits, dim=-1)
-        else:
-            nxt = torch.multinomial(torch.softmax(logits, dim=-1), 1,
-                                    generator=generator)[:, 0]
-        is_end = nxt == END
-        out[:, t] = torch.where(done | is_end, PAD, nxt).to(torch.int32)
-        done = done | is_end
-        tok = torch.where(done, tok, nxt)
+        tok, done = next_token(logits, tok, done, out[:, t], temperature,
+                               generator)
     return out
+
+
+def next_token(logits, tok, done, out_t, temperature: float,
+               generator: Optional[torch.Generator]):
+    """One step's token choice, shared by the decode loops: argmax of
+    float32 ``logits / temperature`` (the first index wins a tie), or a
+    sample from their softmax when ``generator`` is given.  END and every
+    later step write PAD into ``out_t``; a finished row keeps feeding its
+    last real token.  Returns the new ``(tok, done)``."""
+    logits = logits.float()
+    if temperature != 1.0:
+        logits = logits / temperature
+    if generator is None:
+        nxt = torch.argmax(logits, dim=-1)
+    else:
+        nxt = torch.multinomial(torch.softmax(logits, dim=-1), 1,
+                                generator=generator)[:, 0]
+    done = done | (nxt == END)
+    out_t.copy_(torch.where(done, PAD, nxt).to(torch.int32))
+    return torch.where(done, tok, nxt), done
+
+
+def _check_operands(ops: Operands, order, float32_names, shapes,
+                    feats: torch.Tensor) -> None:
+    """Raise unless every kernel operand has its shape, its dtype (float32
+    for the biases, ``feats.dtype`` otherwise) and ``feats``' device, and is
+    contiguous and 16-byte aligned."""
+    for name in order:
+        t = ops[name]
+        want = torch.float32 if name in float32_names else feats.dtype
+        if tuple(t.shape) != shapes[name]:
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, "
+                             f"expected {shapes[name]}")
+        if t.dtype != want or t.device != feats.device:
+            raise ValueError(f"{name}: {t.dtype} on {t.device}, expected "
+                             f"{want} on {feats.device}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
 def greedy_decode_cuda(w: Operands, feats: torch.Tensor, f_proj: torch.Tensor,
@@ -147,24 +178,13 @@ def greedy_decode_cuda(w: Operands, feats: torch.Tensor, f_proj: torch.Tensor,
         raise ValueError(f"greedy kernel needs E and H divisible by 8, "
                          f"got E={E}, H={H}")
     ops = dict(w, feats=feats, f_proj=f_proj)
-    shapes = {
+    _check_operands(ops, _ORDER, _FLOAT32_OPERANDS, {
         "emb": (V, E), "f_proj": (B, L, E), "feats": (B, L, E),
         "w_attn": (E, H + E), "w_comb": (E, 2 * E), "b_comb": (E,),
         "w_ih0": (4 * H, E), "w_hh0": (4 * H, H), "b0": (4 * H,),
         "w_ih1": (4 * H, H), "w_hh1": (4 * H, H), "b1": (4 * H,),
         "fc1_w": (E, H), "fc1_b": (E,), "fc2_w": (V, E), "fc2_b": (V,),
-    }
-    for name in _ORDER:
-        t = ops[name]
-        want = torch.float32 if name in _FLOAT32_OPERANDS else dt
-        if tuple(t.shape) != shapes[name]:
-            raise ValueError(f"{name}: shape {tuple(t.shape)}, "
-                             f"expected {shapes[name]}")
-        if t.dtype != want or t.device != feats.device:
-            raise ValueError(f"{name}: {t.dtype} on {t.device}, expected "
-                             f"{want} on {feats.device}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    }, feats)
     lib = _build.library("greedy_decode")
     lib.ic_greedy_smem_bytes.restype = ctypes.c_longlong
     lib.ic_greedy_smem_bytes.argtypes = [ctypes.c_int] * 4
@@ -185,4 +205,114 @@ def greedy_decode_cuda(w: Operands, feats: torch.Tensor, f_proj: torch.Tensor,
                  float(temperature), stream)
     _build.check(lib, err, "greedy_decode")
     launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The compact student (1-layer LSTM, dot attention, additive fusion, a plain
+# linear head)
+# ---------------------------------------------------------------------------
+
+# kernel operand order (csrc/greedy_decode_compact.cu, struct Args)
+_COMPACT_ORDER = ("emb", "feats", "w_attn", "b_attn", "w_ih", "w_hh", "b",
+                  "out_w", "out_b")
+_COMPACT_FLOAT32 = ("b_attn", "b", "out_b")
+
+
+def greedy_compact_operands(decoder, dtype: torch.dtype) -> Operands:
+    """Kernel operands from a ``models.lstm.CompactDecoder``: weights in
+    ``dtype`` and torch layout, biases float32."""
+    if len(decoder.lstm) != 1:
+        raise ValueError("the compact greedy kernel takes the 1-layer decoder")
+    l0 = decoder.lstm[0]
+    w = lambda t: t.to(dtype).contiguous()  # noqa: E731
+    f = lambda t: t.float().contiguous()  # noqa: E731
+    return {"emb": w(decoder.embedding.weight),
+            "w_attn": w(decoder.attention.weight),
+            "b_attn": f(decoder.attention.bias),
+            "w_ih": w(l0.weight_ih), "w_hh": w(l0.weight_hh),
+            "b": f(l0.bias_ih + l0.bias_hh),
+            "out_w": w(decoder.output_projection.weight),
+            "out_b": f(decoder.output_projection.bias)}
+
+
+def greedy_decode_compact_plain(w: Operands, feats: torch.Tensor, *,
+                                max_length: int = 20, temperature: float = 1.0,
+                                generator: Optional[torch.Generator] = None,
+                                acc_dtype: torch.dtype = torch.float32
+                                ) -> torch.Tensor:
+    """Plain PyTorch version of the compact kernel.  Returns (B, max_length)
+    int32; PAD at and after the first END.  ``acc_dtype`` is the type the
+    sums run in (float64 shows what summation order alone moves)."""
+    B = feats.shape[0]
+    H = w["w_hh"].shape[1]
+    dt, dev, acc = feats.dtype, feats.device, acc_dtype
+
+    def rd(x):
+        return x.to(dt).to(acc)
+
+    Wa, Wih, Whh, Wout = (w[k].to(dt).to(acc).t()
+                          for k in ("w_attn", "w_ih", "w_hh", "out_w"))
+    ft = feats.to(acc)
+    h = c = torch.zeros(B, H, device=dev, dtype=acc)
+    tok = torch.full((B,), START, dtype=torch.long, device=dev)
+    done = torch.zeros(B, dtype=torch.bool, device=dev)
+    out = torch.full((B, max_length), PAD, dtype=torch.int32, device=dev)
+    for t in range(max_length):
+        hp = rd(h) @ Wa + w["b_attn"]
+        attn = torch.softmax((hp[:, None, :] * ft).sum(-1), dim=-1)
+        ctx = (attn[:, :, None] * ft).sum(1)
+        x0 = rd(w["emb"][tok].to(acc) + ctx)
+        i, f, g, o = (x0 @ Wih + rd(h) @ Whh + w["b"]).chunk(4, dim=-1)
+        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        h = torch.sigmoid(o) * torch.tanh(c)
+        logits = rd(h) @ Wout + w["out_b"]
+        tok, done = next_token(logits, tok, done, out[:, t], temperature,
+                               generator)
+    return out
+
+
+def greedy_decode_compact_cuda(w: Operands, feats: torch.Tensor, *,
+                               max_length: int = 20, temperature: float = 1.0
+                               ) -> torch.Tensor:
+    """Launch ``csrc/greedy_decode_compact.cu`` on the current stream.
+    Returns (B, max_length) int32."""
+    global launches_compact
+    if not feats.is_cuda or feats.dim() != 3:
+        raise ValueError("feats must be a (B, L, E) CUDA tensor")
+    dt = feats.dtype
+    if dt not in _DTYPES:
+        raise TypeError(f"compact greedy kernel: dtype {dt} not supported")
+    B, L, E = feats.shape
+    H, V = w["w_hh"].shape[1], w["emb"].shape[0]
+    if E % 8 or H % 8:
+        raise ValueError(f"compact greedy kernel needs E and H divisible by "
+                         f"8, got E={E}, H={H}")
+    ops = dict(w, feats=feats)
+    _check_operands(ops, _COMPACT_ORDER, _COMPACT_FLOAT32, {
+        "emb": (V, E), "feats": (B, L, E), "w_attn": (E, H), "b_attn": (E,),
+        "w_ih": (4 * H, E), "w_hh": (4 * H, H), "b": (4 * H,),
+        "out_w": (V, H), "out_b": (V,)}, feats)
+    lib = _build.library("greedy_decode_compact")
+    lib.ic_greedy_compact_smem_bytes.restype = ctypes.c_longlong
+    lib.ic_greedy_compact_smem_bytes.argtypes = [ctypes.c_int] * 4
+    smem = lib.ic_greedy_compact_smem_bytes(L, E, H, V)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"compact greedy kernel: {smem} bytes of shared "
+                         f"memory for L={L}, E={E}, H={H}, V={V} exceed "
+                         f"{MAX_SMEM_BYTES}")
+    out = torch.empty((B, max_length), dtype=torch.int32, device=feats.device)
+    ptrs = (ctypes.c_void_p * len(_COMPACT_ORDER))(
+        *[ops[n].data_ptr() for n in _COMPACT_ORDER])
+    fn = lib.ic_greedy_decode_compact
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p] + \
+        [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+    with torch.cuda.device(feats.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(_DTYPES[dt], ctypes.cast(ptrs, ctypes.c_void_p),
+                 out.data_ptr(), B, L, E, H, V, max_length,
+                 float(temperature), stream)
+    _build.check(lib, err, "greedy_decode_compact")
+    launches_compact += 1
     return out

@@ -1,7 +1,10 @@
-"""Teacher-forced recurrence of the full student's decoder and its
-reverse-time backward: the port of the full-student half of
+"""Teacher-forced recurrences of the full and the compact student's decoders
+and their reverse-time backwards: the port of
 ``imagecaptioner_tpu/ops/pallas_lstm.py`` (``pallas_full_decoder_scan``,
-``_fused_core_fwd_call``, ``_fused_core_bwd_pallas_call``, ``_get_fused_core``).
+``_fused_core_fwd_call``, ``_fused_core_bwd_pallas_call``, ``_get_fused_core``;
+for the compact student ``_fused_compact_core_fwd_call``,
+``_fused_compact_core_bwd``, ``_get_fused_compact_core``, at the end of this
+file).  The full student first.
 
 Operands (E embed, H hidden, L tokens, B batch, T steps; ``dt`` the compute
 dtype, float32 or bfloat16):
@@ -43,6 +46,7 @@ MAX_WIDTH = 2048         # widest E or H the transposed product covers
 launches_eval = 0   # forward launches without residuals (the eval form)
 launches_train = 0  # forward launches that write the residuals
 launches_bwd = 0    # backward launches (reverse-time steps + weight gradients)
+launches_compact = 0  # launches of the compact student's forward
 
 # names of the twelve inputs and of the backward's eleven outputs
 INPUTS = ("emb_w", "f_proj", "feats", "mask", "w_h", "w_c", "w_ih0", "w_hh0",
@@ -409,3 +413,187 @@ def decoder_scan(emb_w, f_proj, feats, mask, w_h, w_c, w_ih0, w_hh0, b0, w_ih1,
     if feats.device.type == "cpu":
         return decoder_scan_plain(*ops)
     raise ValueError(f"decoder_scan: unsupported device {feats.device}")
+
+
+# ---------------------------------------------------------------------------
+# The compact student's recurrence (1-layer LSTM, dot attention, additive
+# fusion, no dropout).  Operands:
+#
+#     emb     (T, B, E) dt   word embeddings
+#     feats   (B, L, E) dt
+#     w_attn  (E, H) dt, b_attn (E,) f32
+#     w_ih (4H, E), w_hh (4H, H) dt, b (4H,) f32 = b_ih + b_hh
+#
+# ``compact_decoder_scan`` returns ``(h (T,B,H) dt, attn (T,B,L) f32)``; the
+# kernel always writes the cell trajectory c (T,B,H) f32 too, the residual of
+# the backward.  The JAX package has no backward kernel here (its custom VJP
+# is an XLA reverse scan), so the backward is plain PyTorch on either device.
+# ---------------------------------------------------------------------------
+
+COMPACT_INPUTS = ("emb", "feats", "w_attn", "b_attn", "w_ih", "w_hh", "b")
+
+
+def compact_scan_plain(emb, feats, w_attn, b_attn, w_ih, w_hh, b, *,
+                       acc_dtype: Optional[torch.dtype] = None):
+    """Plain version of the compact forward kernel, differentiable by
+    autograd.  Returns ``(hs, attn, cs)``."""
+    T, B, _ = emb.shape
+    H = w_hh.shape[1]
+    dt = feats.dtype
+    acc = acc_dtype or torch.promote_types(torch.float32, dt)
+
+    def rd(x):
+        return x.to(dt).to(acc)
+
+    Wa, Wih, Whh = (w.to(dt).to(acc).t() for w in (w_attn, w_ih, w_hh))
+    ba, bl = b_attn.to(acc), b.to(acc)
+    ft = feats.to(acc)
+    h = c = torch.zeros(B, H, dtype=acc, device=feats.device)
+    hs, attns, cs = [], [], []
+    for t in range(T):
+        hp = rd(h) @ Wa + ba
+        w = torch.softmax((hp[:, None, :] * ft).sum(-1), dim=-1)
+        ctx = (w[:, :, None] * ft).sum(1)
+        x0 = rd(emb[t].to(acc) + ctx)
+        i, f, g, o = (x0 @ Wih + rd(h) @ Whh + bl).chunk(4, dim=-1)
+        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        h = torch.sigmoid(o) * torch.tanh(c)
+        hs.append(h.to(dt))
+        attns.append(w)
+        cs.append(c)
+    return torch.stack(hs), torch.stack(attns), torch.stack(cs)
+
+
+def compact_scan_bwd_plain(res: Sequence[torch.Tensor],
+                           dhs: Optional[torch.Tensor],
+                           dattns: Optional[torch.Tensor]
+                           ) -> Tuple[torch.Tensor, ...]:
+    """The reverse-time loop of ``pallas_lstm._fused_compact_core_bwd`` over
+    the residuals ``res`` (the seven inputs, then hs, attn, cs).  Returns
+    the gradients of the seven inputs in the accumulation dtype, weights in
+    torch (out, in) layout."""
+    emb, feats, w_attn, b_attn, w_ih, w_hh, b, hs, attns, cs = res
+    T, B, E = emb.shape
+    H = w_hh.shape[1]
+    acc = torch.promote_types(torch.float32, emb.dtype)
+    f = lambda x: x.to(acc)  # noqa: E731
+    ft, Wa, Wih, Whh = f(feats), f(w_attn), f(w_ih), f(w_hh)
+    zeros = lambda *s: torch.zeros(*s, dtype=acc, device=emb.device)  # noqa: E731
+    dh_c, dc_c = zeros(B, H), zeros(B, H)
+    dfeats = torch.zeros_like(ft)
+    keep = {k: [] for k in ("dx0", "dhp", "dg", "x0", "hp")}
+    for t in range(T - 1, -1, -1):
+        hp_t = f(hs[t - 1]) if t > 0 else zeros(B, H)
+        cp_t = f(cs[t - 1]) if t > 0 else zeros(B, H)
+        w_t, c_t = f(attns[t]), f(cs[t])
+        # recompute the forward intermediates of this step
+        ctx = torch.einsum("bl,ble->be", w_t, ft)
+        x0 = f(emb[t]) + ctx
+        g = x0 @ Wih.t() + hp_t @ Whh.t() + f(b)
+        i, fg, gg, o = g.chunk(4, dim=-1)
+        i, fg, gg, o = (torch.sigmoid(i), torch.sigmoid(fg), torch.tanh(gg),
+                        torch.sigmoid(o))
+        hproj = hp_t @ Wa.t() + f(b_attn)
+        # the cell
+        dh = dh_c if dhs is None else dh_c + f(dhs[t])
+        tc = torch.tanh(c_t)
+        dc = dc_c + dh * o * (1 - tc * tc)
+        dg = torch.cat([dc * gg * i * (1 - i), dc * cp_t * fg * (1 - fg),
+                        dc * i * (1 - gg * gg), dh * tc * o * (1 - o)], -1)
+        dx0 = dg @ Wih
+        dc_c = dc * fg
+        # additive fusion and dot attention
+        dw = torch.einsum("be,ble->bl", dx0, ft)
+        if dattns is not None:
+            dw = dw + f(dattns[t])
+        ds = w_t * (dw - (w_t * dw).sum(-1, keepdim=True))
+        dhp = torch.einsum("bl,ble->be", ds, ft)
+        dh_c = dg @ Whh + dhp @ Wa
+        dfeats += w_t[:, :, None] * dx0[:, None, :] \
+            + ds[:, :, None] * hproj[:, None, :]
+        for k, v in (("dx0", dx0), ("dhp", dhp), ("dg", dg), ("x0", x0),
+                     ("hp", hp_t)):
+            keep[k].append(v)
+    # the weight gradients are sums over all (t, b) rows: one product each
+    s = {k: torch.stack(v[::-1]) for k, v in keep.items()}
+    flat = lambda x: x.reshape(T * B, -1)  # noqa: E731
+    return (s["dx0"], dfeats, flat(s["dhp"]).t() @ flat(s["hp"]),
+            flat(s["dhp"]).sum(0), flat(s["dg"]).t() @ flat(s["x0"]),
+            flat(s["dg"]).t() @ flat(s["hp"]), flat(s["dg"]).sum(0))
+
+
+def compact_scan_cuda(emb, feats, w_attn, b_attn, w_ih, w_hh, b):
+    """Launch ``csrc/compact_scan.cu`` on the current stream.  Returns
+    ``(hs, attn, cs)``."""
+    global launches_compact
+    if not feats.is_cuda or feats.dim() != 3 or emb.dim() != 3:
+        raise ValueError("compact scan kernel: feats (B, L, E) and emb "
+                         "(T, B, E) must be CUDA tensors")
+    dt, dev = feats.dtype, feats.device
+    if dt not in _DTYPES:
+        raise TypeError(f"compact scan kernel: dtype {dt} not supported")
+    T, B, E = emb.shape
+    L, H = feats.shape[1], w_hh.shape[1]
+    if E % 8 or H % 8 or T < 1:
+        raise ValueError(f"compact scan kernel needs E and H divisible by 8, "
+                         f"got E={E}, H={H}, T={T}")
+    want = {"emb": ((T, B, E), dt), "feats": ((B, L, E), dt),
+            "w_attn": ((E, H), dt), "b_attn": ((E,), torch.float32),
+            "w_ih": ((4 * H, E), dt), "w_hh": ((4 * H, H), dt),
+            "b": ((4 * H,), torch.float32)}
+    ops = (emb, feats, w_attn, b_attn, w_ih, w_hh, b)
+    for (name, (shape, dtype)), t in zip(want.items(), ops):
+        if tuple(t.shape) != shape or t.dtype != dtype or t.device != dev \
+                or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name}: {tuple(t.shape)} {t.dtype} on "
+                             f"{t.device}, expected contiguous, 16-byte "
+                             f"aligned {shape} {dtype} on {dev}")
+    lib = _build.library("compact_scan")
+    _smem_ok(lib, "ic_compact_scan_smem_bytes", L, E, H)
+    hs = torch.empty((T, B, H), dtype=dt, device=dev)
+    attn = torch.empty((T, B, L), dtype=torch.float32, device=dev)
+    cs = torch.empty((T, B, H), dtype=torch.float32, device=dev)
+    fn = lib.ic_compact_scan
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 5 + \
+        [ctypes.c_void_p]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(_DTYPES[dt], _ptr_array(ops + (hs, attn, cs)), T, B, L, E, H,
+                 stream)
+    _build.check(lib, err, "compact_scan")
+    launches_compact += 1
+    return hs, attn, cs
+
+
+class _CompactScan(torch.autograd.Function):
+    """The forward kernel under autograd with the plain reverse-time
+    backward (``pallas_lstm._get_fused_compact_core``)."""
+
+    @staticmethod
+    def forward(ctx, *ops):
+        hs, attn, cs = compact_scan_cuda(*ops)
+        if any(ctx.needs_input_grad):
+            ctx.save_for_backward(*ops, hs, attn, cs)
+        ctx.set_materialize_grads(False)
+        return hs, attn
+
+    @staticmethod
+    def backward(ctx, dhs, dattns):
+        if dhs is None and dattns is None:
+            return (None,) * 7
+        res = ctx.saved_tensors
+        grads = compact_scan_bwd_plain(res, dhs, dattns)
+        return tuple(g.to(op.dtype) if need else None for g, op, need in
+                     zip(grads, res, ctx.needs_input_grad))
+
+
+def compact_decoder_scan(emb, feats, w_attn, b_attn, w_ih, w_hh, b
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel for CUDA tensors, the plain version for CPU tensors."""
+    ops = (emb, feats, w_attn, b_attn, w_ih, w_hh, b)
+    if feats.is_cuda:
+        return _CompactScan.apply(*ops)
+    if feats.device.type == "cpu":
+        return compact_scan_plain(*ops)[:2]
+    raise ValueError(f"compact_decoder_scan: unsupported device {feats.device}")

@@ -1,11 +1,11 @@
 """KD entry point of the port (``imagecaptioner_tpu/train/train_student_kd.py``).
 
-Trains the full CNN-LSTM student against a frozen teacher checkpoint with
-the multi-level distillation loss.  Reference behaviors preserved: the
-hardcoded defaults (lr 2e-4, batch 16, accumulation 2, ``num_epochs=1``),
-the preflight ``validate_distillation_setup``, three parameter groups
-(encoder x0.1 / decoder / others), clip 1.0 over student and projectors,
-cosine warm restarts stepped fractionally, validation every 2 epochs with
+Trains a CNN-LSTM student (``--student full|compact|enhanced``) against a
+frozen teacher checkpoint with the multi-level distillation loss.
+Reference behaviors preserved: the hardcoded defaults (lr 2e-4, batch 16,
+accumulation 2, ``num_epochs=1``), the preflight
+``validate_distillation_setup``, three parameter groups (encoder x0.1 /
+decoder / others), clip 1.0 over student and projectors, cosine warm restarts stepped fractionally, validation every 2 epochs with
 monitoring BLEU, best and final checkpoints with the reference's logical
 keys (npz files that both packages' ``utils/checkpoint.py`` read), and
 ``student_training_history.json``.
@@ -18,11 +18,15 @@ CLI builds them from the in-memory synthetic grid task:
 
   python -m imagecaptioner_tpu_torch.train.train_student_kd \\
       --synthetic-grid 256 --teacher-checkpoint saved_models/best_teacher_model.npz \\
-      --output-dir saved_models [--epochs 1] [--device cuda|cpu]
+      --output-dir saved_models [--epochs 1] [--student full|compact|enhanced] \\
+      [--device cuda|cpu]
 
 Not ported yet, each exiting with its roadmap item: the CSV/JPEG loader
 (``--data-root``), ``resume_from``, ``data_parallel``, ``device_dataset`` /
-``stream_steps``, ``metrics_jsonl``, and the compact and enhanced students.
+``stream_steps`` and ``metrics_jsonl``.  On the card each variant's
+teacher-forced recurrence is its kernel: the JAX trainer's table of
+per-variant decoder implementations is a TPU measurement and is not carried
+over.
 """
 
 from __future__ import annotations
@@ -37,9 +41,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from imagecaptioner_tpu_torch.core.config import (DistillConfig,
-                                                  KDTrainConfig,
-                                                  full_student_config)
+from imagecaptioner_tpu_torch.core.config import (STUDENT_CONFIGS,
+                                                  DistillConfig,
+                                                  KDTrainConfig)
 from imagecaptioner_tpu_torch.core.device import resolve_device
 from imagecaptioner_tpu_torch.core.precision import as_dtype
 from imagecaptioner_tpu_torch.data import transforms as T
@@ -126,9 +130,8 @@ def train_student_with_kd(
         raise not_ported("the device-resident dataset", "item 11")
     if metrics_jsonl is not None:
         raise not_ported("the per-step metrics log", "item 14")
-    if student_variant != "full":
-        raise not_ported(f"the {student_variant} student",
-                         "items 7 (compact) and 8 (enhanced)")
+    if student_variant not in STUDENT_CONFIGS:
+        raise ValueError(f"unknown student_variant {student_variant!r}")
     device = resolve_device(device)
     compute_dtype = as_dtype(compute_dtype)
     tr = train_cfg or KDTrainConfig()
@@ -140,8 +143,12 @@ def train_student_with_kd(
     teacher, t_cfg = load_teacher(teacher_checkpoint, vocab_size, device)
     refine_kw = ({} if use_attention_refinement is None
                  else {"use_attention_refinement": use_attention_refinement})
-    s_cfg = full_student_config(vocab_size, dropout=tr.dropout,
-                                freeze_backbone=freeze_backbone, **refine_kw)
+    # tr.dropout is the reference trainer's knob for the full student only;
+    # the other variants keep their own defaults
+    if student_variant == "full":
+        refine_kw["dropout"] = tr.dropout
+    s_cfg = STUDENT_CONFIGS[student_variant](
+        vocab_size, freeze_backbone=freeze_backbone, **refine_kw)
     if student_cfg_overrides:
         s_cfg = replace(s_cfg, **student_cfg_overrides)
 

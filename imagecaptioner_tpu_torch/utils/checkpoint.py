@@ -14,7 +14,7 @@ from typing import Any, Dict
 
 import numpy as np
 
-from imagecaptioner_tpu_torch.core.config import StudentConfig, full_student_config
+from imagecaptioner_tpu_torch.core.config import STUDENT_CONFIGS, StudentConfig
 
 _SENTINEL_NONE = "__none__"
 
@@ -84,14 +84,14 @@ def load_checkpoint(path: str) -> Any:
 
 def load_student_checkpoint(path: str):
     """A KD checkpoint -> ``(params, cfg, model_state)`` as numpy trees in
-    the JAX package's layout.  Only ``model_type == "full"`` is ported."""
+    the JAX package's layout; ``model_type`` (full, compact or enhanced)
+    picks the variant's defaults, which ``model_config`` overrides."""
     ckpt = load_checkpoint(path)
     mc = dict(ckpt.get("model_config", {}))
     variant = mc.pop("model_type", "full")
-    if variant != "full":
-        raise NotImplementedError(
-            f"student model_type {variant!r} is not ported yet (ROADMAP "
-            "Queue 1: compact is item 7, enhanced item 8)")
-    cfg: StudentConfig = full_student_config(int(ckpt["vocab_size"]), **mc)
+    if variant not in STUDENT_CONFIGS:
+        raise ValueError(f"unknown student model_type {variant!r}")
+    cfg: StudentConfig = STUDENT_CONFIGS[variant](int(ckpt["vocab_size"]),
+                                                  **mc)
     sd = ckpt["student_state_dict"]
     return sd["params"], cfg, sd["model_state"]

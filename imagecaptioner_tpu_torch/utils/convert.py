@@ -5,9 +5,12 @@ conv OIHW) and the port's submodules are named after the JAX tree, so the
 conversion is a flatten of the parameter tree plus a merge of the separate
 batch-norm state tree into the ``running_mean``/``running_var`` buffers.
 Two naming quirks of the JAX state tree are undone here: its top level is
-``{"resnet": ...}`` (not ``{"encoder": ...}``), and a downsample branch keeps
-its statistics under ``downsample_bn`` while its affine parameters sit in
-``downsample.bn`` (``resnet.py:42-43``).
+the backbone's name (``{"resnet": ...}`` for the full student, ``{"backbone":
+...}`` for the compact and enhanced ones, not ``{"encoder": ...}``), and a
+ResNet downsample branch keeps its statistics under ``downsample_bn`` while
+its affine parameters sit in ``downsample.bn`` (``resnet.py:42-43``).  In the
+MobileNet and EfficientNet state trees each conv-bn pair's statistics sit
+directly under the pair's name, and go to its ``bn`` submodule.
 
 The teacher, the projectors and the AdamW moments flatten the same way; the
 inverse direction (``state_dict_to_tree``, ``student_to_jax_trees``) writes
@@ -51,9 +54,29 @@ def jax_student_to_state_dict(params: Dict, state: Dict, cfg: StudentConfig
     loads with ``strict=True``."""
     check_variant(cfg)
     sd = tree_to_state_dict(params)
-    for k, v in tree_to_state_dict(state["resnet"], "encoder.resnet").items():
-        sd[k.replace(".downsample_bn.", ".downsample.bn.")] = v
+    key = backbone_key(cfg)
+    for k, v in tree_to_state_dict(state[key], f"encoder.{key}").items():
+        sd[_stat_to_buffer(k, key)] = v
     return sd
+
+
+def backbone_key(cfg: StudentConfig) -> str:
+    """Name of the backbone in the encoder and in the JAX state tree."""
+    return "resnet" if cfg.variant == "full" else "backbone"
+
+
+def _stat_to_buffer(k: str, key: str) -> str:
+    if key == "resnet":
+        return k.replace(".downsample_bn.", ".downsample.bn.")
+    head, stat = k.rsplit(".", 1)      # ...depthwise.running_mean
+    return f"{head}.bn.{stat}"
+
+
+def _buffer_to_stat(k: str, key: str) -> str:
+    if key == "resnet":
+        return k.replace(".downsample.bn.", ".downsample_bn.")
+    head, bn, stat = k.rsplit(".", 2)
+    return f"{head}.{stat}"
 
 
 def jax_teacher_to_state_dict(params: Dict) -> Dict[str, torch.Tensor]:
@@ -106,12 +129,11 @@ def state_dict_to_tree(sd: Dict[str, torch.Tensor]) -> Any:
 
 def student_to_jax_trees(model) -> Tuple[Dict, Dict]:
     """A ``Student`` -> ``(params, model_state)`` in the JAX layout: the
-    parameters' tree, and the batch-norm statistics under ``{"resnet":
-    ...}`` with ``downsample_bn``."""
+    parameters' tree, and the batch-norm statistics under the backbone's
+    name, keyed as the JAX state tree keys them."""
     params = state_dict_to_tree(dict(model.named_parameters()))
-    buffers = {k[len("encoder.resnet."):].replace(".downsample.bn.",
-                                                  ".downsample_bn."): v
-               for k, v in model.named_buffers()
-               if k.startswith("encoder.resnet.")
-               and not k.endswith("num_batches_tracked")}
-    return params, {"resnet": state_dict_to_tree(buffers)}
+    key = backbone_key(model.cfg)
+    prefix = f"encoder.{key}."
+    buffers = {_buffer_to_stat(k[len(prefix):], key): v
+               for k, v in model.named_buffers() if k.startswith(prefix)}
+    return params, {key: state_dict_to_tree(buffers)}

@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Where one KD train step of the PyTorch/CUDA port spends its time on the GPU.
 
-    python3 scripts/torch_profile_kd_step.py [--steps 3] [--out kd_profile.json]
+    python3 scripts/torch_profile_kd_step.py [--steps 3] [--out kd_profile.json] \\
+        [--student full|compact|enhanced]
 
-Builds the full student, a ViT-S/16 teacher and the projectors at full width
+Builds the student (the full one by default), a ViT-S/16 teacher and the projectors at full width
 from numpy seeds (random weights), takes warm-up steps on in-memory grid
-data (A=2 x B=16, T=47, V=2994, bf16 compute, float32 teacher, dropout 0.3,
+data (A=2 x B=16, T=47, V=2994, bf16 compute, float32 teacher, the trainer's
+dropout: 0.3 for the full student, the variant's default otherwise;
 KD_TRAIN_AUG), then reports:
 
   * the untraced step's wall time (host clock, synchronised) over ``--steps``;
@@ -32,9 +34,9 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from imagecaptioner_tpu_torch.core.config import (DistillConfig,  # noqa: E402
-                                                  KDTrainConfig, TeacherConfig,
-                                                  full_student_config)
+from imagecaptioner_tpu_torch.core.config import (STUDENT_CONFIGS,  # noqa: E402
+                                                  DistillConfig,
+                                                  KDTrainConfig, TeacherConfig)
 from imagecaptioner_tpu_torch.data import transforms as T  # noqa: E402
 from imagecaptioner_tpu_torch.data.synthetic import make_grid_loaders  # noqa: E402
 from imagecaptioner_tpu_torch.distill import losses as DL  # noqa: E402
@@ -54,6 +56,8 @@ KINDS = [
     ("decoder scan backward (steps)", ("steps_kernel",)),
     ("decoder scan backward (weight grads)", ("weight_grad_kernel",
                                               "bias_grad_kernel")),
+    # the three students' forward recurrences: scan_kernel,
+    # compact_scan_kernel, enhanced_scan_kernel
     ("decoder scan forward", ("scan_kernel",)),
     ("attention kernel", ("attention_kernel",)),
     ("copies", ("memcpy", "memset")),
@@ -76,6 +80,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--out", default="kd_profile.json")
+    ap.add_argument("--student", default="full", choices=sorted(STUDENT_CONFIGS))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("this script runs on a CUDA device", file=sys.stderr)
@@ -84,11 +89,12 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
-    print(f"device: {smi}", flush=True)
+    print(f"device: {smi}; student: {args.student}", flush=True)
     _build.build_all()
 
     tr = KDTrainConfig()
-    s_cfg = full_student_config(VOCAB, dropout=tr.dropout)
+    over = {"dropout": tr.dropout} if args.student == "full" else {}
+    s_cfg = STUDENT_CONFIGS[args.student](VOCAB, **over)
     t_cfg = TeacherConfig(vocab_size=VOCAB)
     p, s = student_init(SEED, s_cfg)
     student = Student(s_cfg)
@@ -192,7 +198,7 @@ def main() -> int:
         print(f"  {k}: {ms:.3f} ms")
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
-        json.dump({"device": smi, "wall_ms": [1e3 * w for w in wall],
+        json.dump({"device": smi, "student": args.student, "wall_ms": [1e3 * w for w in wall],
                    "device_ms_by_kind": by_kind, "phases_ms": phases,
                    "kernel_launches_per_step": n_kernels / args.steps}, f,
                   indent=1)

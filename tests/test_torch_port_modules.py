@@ -78,6 +78,32 @@ def test_conv2d_nchw(stride, padding, k):
     _close(got.permute(0, 2, 3, 1), ref)
 
 
+@pytest.mark.parametrize("groups,k,stride", [(6, 3, 1), (6, 5, 2), (2, 3, 1)])
+def test_conv2d_grouped(groups, k, stride):
+    """Depthwise (groups = channels) and grouped convolutions, as MobileNetV2
+    and EfficientNet-B3 use them."""
+    x = _np(2, 6, 13, 13, seed=8)
+    w = _np(12, 6 // groups, k, k, seed=9, scale=0.2)   # (O, I/groups, kH, kW)
+    ref = JM.conv2d({"weight": jnp.asarray(w)},
+                    jnp.asarray(x.transpose(0, 2, 3, 1)), stride=stride,
+                    padding=k // 2, groups=groups)
+    got = PM.conv2d(_t(x), _t(w), stride=stride, padding=k // 2, groups=groups)
+    _close(got.permute(0, 2, 3, 1), ref)
+    conv = PM.Conv2d(6, 12, k, stride=stride, padding=k // 2, groups=groups)
+    assert conv.weight.shape == w.shape
+    conv.load_state_dict({"weight": _t(w)})
+    _close(conv(_t(x)).permute(0, 2, 3, 1), ref)
+    init = PM.conv2d_init(np.random.default_rng(0), 6, 12, k, groups=groups)
+    assert init["weight"].shape == w.shape
+
+
+def test_relu6_and_silu():
+    from imagecaptioner_tpu.models.mobilenet import relu6 as j_relu6
+    x = _np(4, 9, seed=30, scale=5.0)
+    _close(PM.relu6(_t(x)), j_relu6(jnp.asarray(x)), atol=0)
+    _close(PM.silu(_t(x)), jax.nn.silu(jnp.asarray(x)), atol=1e-6)
+
+
 def test_batch_norm_eval():
     x = _np(2, 8, 5, 5, seed=10)
     w, b = _np(8, seed=11), _np(8, seed=12)
@@ -125,6 +151,45 @@ def test_multi_head_attention(lq, lk, causal):
     _close(mha(_t(q), _t(kv), _t(kv), causal=causal), ref)
 
 
+def test_adaptive_avg_pool2d_to_a_larger_map():
+    """The enhanced encoder pools to 8x8; at a 64x64 image the map is 2x2."""
+    x = _np(2, 5, 2, 2, seed=16)
+    ref = JM.adaptive_avg_pool2d(jnp.asarray(x.transpose(0, 2, 3, 1)), (8, 8))
+    got = PM.adaptive_avg_pool2d(_t(x), (8, 8))
+    assert got.shape == (2, 5, 8, 8)
+    _close(got.permute(0, 2, 3, 1), ref)
+    _close(got, torch.nn.functional.adaptive_avg_pool2d(_t(x), (8, 8)))
+
+
+@pytest.mark.parametrize("lq,lk,heads", [(1, 9, 8), (5, 12, 4)])
+def test_multi_head_attention_need_weights(lq, lk, heads):
+    """``need_weights``: the head-averaged weights beside the output."""
+    E = 32
+    w_in, b_in = _np(3 * E, E, seed=17, scale=0.2), _np(3 * E, seed=18)
+    w_out, b_out = _np(E, E, seed=19, scale=0.2), _np(E, seed=20)
+    q, kv = _np(2, lq, E, seed=21), _np(2, lk, E, seed=22)
+    jp = {"in_proj_weight": jnp.asarray(w_in), "in_proj_bias": jnp.asarray(b_in),
+          "out_proj": {"weight": jnp.asarray(w_out), "bias": jnp.asarray(b_out)}}
+    ref, ref_w = JM.multi_head_attention(
+        jp, jnp.asarray(q), jnp.asarray(kv), jnp.asarray(kv), num_heads=heads,
+        need_weights=True)
+    mha = PM.MultiheadAttention(E, heads)
+    mha.load_state_dict({"in_proj_weight": _t(w_in), "in_proj_bias": _t(b_in),
+                         "out_proj.weight": _t(w_out),
+                         "out_proj.bias": _t(b_out)}, strict=True)
+    out, w = mha(_t(q), _t(kv), _t(kv), need_weights=True)
+    assert w.shape == (2, lq, lk)
+    _close(out, ref)
+    _close(w, ref_w)
+    _close(w.sum(-1), np.ones((2, lq)))
+    _close(mha(_t(q), _t(kv), _t(kv)), ref)
+    # in train mode the returned weights are the dropped ones
+    mha.train()
+    _, wd = mha(_t(q), _t(kv), _t(kv), need_weights=True, dropout_rate=0.5,
+                generator=torch.Generator().manual_seed(0))
+    assert float((wd.sum(-1) - 1).abs().max()) > 1e-3
+
+
 def test_student_config_matches_jax_field_for_field():
     jf = [(f.name, f.default) for f in dataclasses.fields(JC.StudentConfig)]
     pf = [(f.name, f.default) for f in dataclasses.fields(PC.StudentConfig)]
@@ -132,6 +197,11 @@ def test_student_config_matches_jax_field_for_field():
     over = dict(embed_size=16, hidden_size=24)
     assert (dataclasses.asdict(PC.full_student_config(2994, **over))
             == dataclasses.asdict(JC.full_student_config(2994, **over)))
+    for jf_, pf_ in ((JC.compact_student_config, PC.compact_student_config),
+                     (JC.enhanced_student_config, PC.enhanced_student_config)):
+        assert (dataclasses.asdict(pf_(2994)) == dataclasses.asdict(jf_(2994)))
+        assert (dataclasses.asdict(pf_(50, **over))
+                == dataclasses.asdict(jf_(50, **over)))
     assert (dataclasses.asdict(PC.full_student_config(2994))
             == dataclasses.asdict(JC.full_student_config(2994)))
 

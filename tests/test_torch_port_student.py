@@ -152,12 +152,25 @@ def test_port_checkpoint_reads_back_in_jax(tmp_path):
 
 
 def test_unported_variants_and_flags_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        Student(PC.StudentConfig(variant="compact", num_layers=1))
+    """All three variants build; what no kernel takes raises: a layer count
+    other than the variant's, an unknown variant or ``model_type``."""
+    for variant, layers in (("full", 2), ("compact", 1), ("enhanced", 3)):
+        cfg = PC.STUDENT_CONFIGS[variant](V, embed_size=E, hidden_size=H)
+        assert cfg.variant == variant and cfg.num_layers == layers
+        assert Student(cfg).cfg is cfg
+        with pytest.raises(NotImplementedError, match="LSTM layers"):
+            Student(PC.replace(cfg, num_layers=layers + 1))
+    with pytest.raises(ValueError, match="unknown student variant"):
+        Student(PC.StudentConfig(variant="tiny"))
     path = str(tmp_path / "c.npz")
+    PCKPT.save_checkpoint(path, {
+        "student_state_dict": {"params": {}, "model_state": {}},
+        "vocab_size": 5, "model_config": {"model_type": "enhanced"}})
+    _, cfg, _ = PCKPT.load_student_checkpoint(path)
+    assert cfg == PC.enhanced_student_config(5)
     PCKPT.save_checkpoint(path, {"student_state_dict": {}, "vocab_size": 5,
-                                 "model_config": {"model_type": "enhanced"}})
-    with pytest.raises(NotImplementedError, match="not ported"):
+                                 "model_config": {"model_type": "tiny"}})
+    with pytest.raises(ValueError, match="unknown student model_type"):
         PCKPT.load_student_checkpoint(path)
     base = ["--checkpoint", "c", "--vocab", "v", "--images", "i",
             "--device", "cpu"]

@@ -48,11 +48,18 @@ def teacher_ckpt(grid, tmp_path_factory):
 def trained(grid, teacher_ckpt, tmp_path_factory):
     train_loader, val_loader, vocab = grid
     out = str(tmp_path_factory.mktemp("kd_out"))
-    state, s_cfg, _ = TK.train_student_with_kd(
-        train_loader, val_loader, vocab, teacher_ckpt, out, num_epochs=3,
-        train_cfg=KDTrainConfig(learning_rate=1e-3, validate_every=2),
-        compute_dtype=torch.float32, seed=0, device="cpu", verbose=False,
-        student_cfg_overrides=dict(embed_size=32, hidden_size=32))
+    # two intra-op threads: with a thread per core in each of the suite's
+    # workers the machine is oversubscribed and this run takes minutes
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        state, s_cfg, _ = TK.train_student_with_kd(
+            train_loader, val_loader, vocab, teacher_ckpt, out, num_epochs=3,
+            train_cfg=KDTrainConfig(learning_rate=1e-3, validate_every=2),
+            compute_dtype=torch.float32, seed=0, device="cpu", verbose=False,
+            student_cfg_overrides=dict(embed_size=32, hidden_size=32))
+    finally:
+        torch.set_num_threads(threads)
     return out, state, s_cfg
 
 
@@ -150,11 +157,15 @@ def test_checkpoint_reads_in_jax_and_serves_through_the_port(trained, grid):
     (dict(data_parallel=True), "item 13"),
     (dict(device_dataset=True), "item 11"),
     (dict(metrics_jsonl="m.jsonl"), "item 14"),
-    (dict(student_variant="compact"), "items 7"),
+    (dict(student_variant="tiny"), "unknown student_variant"),
 ])
 def test_unported_options_exit_with_their_roadmap_item(grid, kw, match):
+    """Options whose paths are not ported exit with their roadmap item; the
+    three student variants are all ported, and an unknown one raises."""
     train_loader, val_loader, vocab = grid
-    with pytest.raises(SystemExit, match="not ported yet") as e:
+    unknown = "student_variant" in kw
+    with pytest.raises(ValueError if unknown else SystemExit,
+                       match=match if unknown else "not ported yet") as e:
         TK.train_student_with_kd(train_loader, val_loader, vocab, "t.npz",
                                  "out", device="cpu", **kw)
     assert match in str(e.value)
