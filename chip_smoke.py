@@ -11,15 +11,18 @@ Imports nothing of JAX.  In order it:
   3. turns TF32 off (matmul and cuDNN), so float32 comparisons are float32;
   4. holds the attention-core kernel against its plain version at the
      refinement, ViT and teacher-decoder shapes (causal, and cross-attention
-     with Lq != Lk), float32 and bf16, and its gradients under autograd
-     against autograd through the plain version;
+     with Lq != Lk) in all four pairings of float32 and bf16, and its
+     gradients under autograd against autograd through the plain version;
+     times it per call and queued at the five shapes where the main paths
+     launch it, beside SDPA;
   5. holds the greedy-decode kernel against its plain version at full width
      (B=32, L=49, E=256, H=512, V=2994, T=20), temperature 1 and 2;
   6. holds the decoder-scan kernels against their plain versions at the KD
      shapes (T=47, B=16, L=49, E=256, H=512), float32 and bf16: the forward
      with a random dropout mask and residuals, and without either; the
      reverse-time backward with random dh_tops and dattns, all eleven
-     gradients, each of which must be non-degenerate;
+     gradients, each of which must be non-degenerate and bit-identical in a
+     second run; times the backward by stage;
   7. drives the serving path: a full student from a numpy seed is written as
      a JAX-format checkpoint, reloaded through the serve path's loader in
      bf16, and captions 8 batches of 32 seeded uint8 224x224 images through
@@ -69,10 +72,10 @@ Imports nothing of JAX.  In order it:
  14. prints the kernels JSON line, the nvidia-smi line, and last
      ``{"ok": true, "device": {...}}``.
 Any failed check exits non-zero before the last line.  ``--mutation`` builds
-three faulty copies (a scan backward without its dropout mask, a beam
+four faulty copies (a scan backward without its dropout mask, a beam
 self-attention that ignores the ancestry table, an enhanced scan whose
-attention ignores its dropout multiplier) and expects all three checks to
-fail.
+attention ignores its dropout multiplier, an attention core whose causal
+mask is off by one) and expects all four checks to fail.
 """
 
 from __future__ import annotations
@@ -199,36 +202,80 @@ def queued_ms(fn, n: int = 40) -> float:
     return start.elapsed_time(end) / n
 
 
+ATTN_DTYPES = [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+               (torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32)]
+# kernel #2 where the main paths launch it: (B, heads, Lq, Lk, hd, causal,
+# dtype of q, k and v)
+ATTN_PATH_SHAPES = {
+    "refinement": (32, 4, 49, 49, 64, False, torch.bfloat16),
+    "vit": (16, 6, 197, 197, 64, False, torch.float32),
+    "teacher_self": (16, 8, 47, 47, 64, True, torch.float32),
+    "teacher_cross": (16, 8, 47, 197, 64, False, torch.float32),
+    "enhanced_refinement": (16, 8, 64, 64, 48, False, torch.bfloat16),
+}
+
+
 def check_attention(dev, gen):
-    """Kernel vs plain at the slice's shapes; returns (max_abs_err at the
-    main path's case, kernel ms, plain ms)."""
+    """Kernel vs plain at the slice's shapes, in all four pairings of the
+    q/k and v types (the output has v's type, and the limit is v's);
+    returns the max_abs_err at the case the main path launches most (the
+    ViT's float32 self-attention)."""
     main_err = None
     for shape in ATTN_SHAPES:
-        for dtype in (torch.float32, torch.bfloat16):
+        for qk_dt, v_dt in ATTN_DTYPES:
             for causal in (False, True):
-                q, k, v = (torch.randn(shape, device=dev, generator=gen
-                                       ).to(dtype) for _ in range(3))
+                q, k = (torch.randn(shape, device=dev, generator=gen
+                                    ).to(qk_dt) for _ in range(2))
+                v = torch.randn(shape, device=dev, generator=gen).to(v_dt)
                 scale = shape[3] ** -0.5
                 got = A.attention_core_cuda(q, k, v, causal=causal, scale=scale)
                 ref = A.attention_core_plain(q, k, v, causal=causal, scale=scale)
                 torch.cuda.synchronize()
-                if got.dtype != dtype or got.shape != ref.shape:
-                    fail(f"attention {shape} {dtype}: dtype/shape contract")
+                if got.dtype != v_dt or got.shape != ref.shape:
+                    fail(f"attention {shape} {v_dt}: dtype/shape contract")
                 err = (got.float() - ref.float()).abs().max().item()
-                ok = err <= ATTN_LIMIT[dtype]
-                print(f"attention_core {shape} {str(dtype)[6:]} causal={causal}"
-                      f": max_abs_err {err:.3e} (limit {ATTN_LIMIT[dtype]:g})"
-                      f" {'ok' if ok else 'FAIL'}", flush=True)
+                ok = err <= ATTN_LIMIT[v_dt]
+                print(f"attention_core {shape} q,k {str(qk_dt)[6:]} v "
+                      f"{str(v_dt)[6:]} causal={causal}: max_abs_err "
+                      f"{err:.3e} (limit {ATTN_LIMIT[v_dt]:g}) "
+                      f"{'ok' if ok else 'FAIL'}", flush=True)
                 if not ok:
                     fail("attention kernel disagrees with its plain version")
-                if shape == ATTN_SHAPES[0] and dtype == torch.bfloat16 \
+                if shape == ATTN_SHAPES[1] and qk_dt == v_dt == torch.float32 \
                         and not causal:
                     main_err = err
-    q, k, v = (torch.randn(ATTN_SHAPES[0], device=dev, generator=gen
-                           ).to(torch.bfloat16) for _ in range(3))
-    kms = median_ms(lambda: A.attention_core_cuda(q, k, v, scale=0.125), 200)
-    pms = median_ms(lambda: A.attention_core_plain(q, k, v, scale=0.125), 200)
-    return main_err, kms, pms
+    return main_err
+
+
+def time_attention(dev, gen):
+    """Kernel #2 at each shape where a main path launches it: per call
+    (CUDA events around one call: the host's enqueue for a kernel this
+    short) and queued (the device's time, stream kept full), beside the
+    plain version and SDPA (the yardstick, used nowhere in the port), and
+    the bound.  Returns {shape name: dict}."""
+    out = {}
+    for name, (B, H, lq, lk, d, causal, dt) in ATTN_PATH_SHAPES.items():
+        q = torch.randn((B, H, lq, d), device=dev, generator=gen).to(dt)
+        k, v = (torch.randn((B, H, lk, d), device=dev, generator=gen).to(dt)
+                for _ in range(2))
+        sc = d ** -0.5
+        kern = lambda: A.attention_core_cuda(q, k, v, causal=causal, scale=sc)  # noqa: E731
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q, k, v, is_causal=causal, scale=sc)
+        kind = "bf16" if dt == torch.bfloat16 else "f32"
+        pairs = B * H * lq * (lk if not causal else (lk + 1) / 2)
+        t = dict(ms=median_ms(kern, 200), queued_ms=queued_ms(kern, 100),
+                 sdpa_ms=median_ms(sdpa, 200), sdpa_queued_ms=queued_ms(sdpa, 100),
+                 plain_ms=median_ms(lambda: A.attention_core_plain(
+                     q, k, v, causal=causal, scale=sc), 50),
+                 bound=bound_ms(nbytes(q, k, v, q), 4 * pairs * d, kind))
+        print(f"attention_core {name} ({B},{H},{lq}x{lk},{d}) {kind} "
+              f"causal={causal}: kernel {t['ms']:.4f} ms per call, "
+              f"{t['queued_ms']:.4f} queued; SDPA {t['sdpa_ms']:.4f}, "
+              f"{t['sdpa_queued_ms']:.4f} queued; plain {t['plain_ms']:.4f}; "
+              f"bound {t['bound'][0]:.5f} by {t['bound'][1]}", flush=True)
+        out[name] = t
+    return out
 
 
 def sharpen_decoder(dec: dict) -> None:
@@ -305,8 +352,7 @@ def check_attention_kd(dev, gen):
     """The teacher decoder's attention shapes (causal self-attention and
     cross-attention with Lq != Lk), kernel against plain; then the kernel
     under autograd at the refinement shape: its gradients against autograd
-    through the plain version.  Returns the SDPA yardstick's ms at the
-    refinement shape (timed here, used nowhere in the port)."""
+    through the plain version."""
     for (B, H, Lq, Lk, causal) in ATTN_KD_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             q = torch.randn((B, H, Lq, 64), device=dev, generator=gen).to(dtype)
@@ -353,10 +399,6 @@ def check_attention_kd(dev, gen):
               f"{'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
             fail("attention gradients disagree with the plain version's")
-    q, k, v = (torch.randn(ATTN_SHAPES[0], device=dev, generator=gen
-                           ).to(torch.bfloat16) for _ in range(3))
-    return median_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, scale=0.125), 200)
 
 
 def scan_operands(decoder, dev, dtype, seed):
@@ -462,6 +504,15 @@ def check_scan(decoder, dev, mutant=False):
         torch.cuda.synchronize()
         bwd_err = report(f"decoder_scan_bwd {tag}", rel_errs(S.GRADS, gk, gp),
                          SCAN_LIMIT[dtype])
+        if not mutant:  # every sum in a fixed order: runs repeat bit for bit
+            with torch.no_grad():
+                again = S.decoder_scan_bwd_cuda(res, dh, da)
+            torch.cuda.synchronize()
+            same = all(torch.equal(x, y) for x, y in zip(gk, again))
+            print(f"decoder_scan_bwd {tag}: a second run bit-identical to the "
+                  f"first: {same} {'ok' if same else 'FAIL'}", flush=True)
+            if not same:
+                fail(f"decoder_scan_bwd {tag}: a second run differs")
         if dtype == torch.bfloat16 and not mutant:
             kept = dict(ops=ops, nomask=nomask, res=res, dh=dh, da=da,
                         fwd_err=fwd_err, bwd_err=bwd_err)
@@ -469,10 +520,11 @@ def check_scan(decoder, dev, mutant=False):
 
 
 def time_scan(kept):
-    """CUDA-event medians at bf16, the KD step's compute dtype."""
+    """CUDA-event medians at bf16, the KD step's compute dtype.  The
+    backward whole and by stage: the recompute, the reverse chain, the
+    post-loop reductions, the weight gradients."""
     ops, nomask, res, dh, da = (kept[k] for k in
                                 ("ops", "nomask", "res", "dh", "da"))
-    E, H = ops[0].shape[2], ops[7].shape[1]
     with torch.no_grad():
         t = dict(
             eval_ms=median_ms(lambda: S.decoder_scan_cuda(*nomask), 20, 3),
@@ -481,16 +533,33 @@ def time_scan(kept):
             plain_eval_ms=median_ms(lambda: S.decoder_scan_plain(*nomask), 5, 2),
             plain_train_ms=median_ms(lambda: S.decoder_scan_plain(
                 *ops, residuals=True), 5, 2),
-            bwd_steps_ms=median_ms(lambda: S.decoder_scan_bwd_steps_cuda(
-                res, dh, da), 20, 3),
             bwd_ms=median_ms(lambda: S.decoder_scan_bwd_cuda(res, dh, da),
                              20, 3),
             plain_bwd_ms=median_ms(lambda: S.decoder_scan_bwd_plain(
                 res, dh, da), 3, 1))
-        stores = S.decoder_scan_bwd_steps_cuda(res, dh, da)[2]
+        bufs = [S.decoder_scan_bwd_buffers(res, dh, da) for _ in range(28)]
+        it = iter(bufs)
+        for stage in (0, 1, 2):  # each chain run needs fresh carries
+            t[f"bwd_stage{stage}_ms"] = median_ms(
+                lambda: S.decoder_scan_bwd_stage_cuda(next(it), stage), 20, 3)
+            it = iter(bufs)
         t["bwd_weights_ms"] = median_ms(
-            lambda: S.decoder_scan_bwd_weights_cuda(stores, E, H), 20, 3)
+            lambda: S.decoder_scan_bwd_weights_cuda(bufs[0]), 20, 3)
     return t
+
+
+def print_scan_times(t, b):
+    print(f"decoder_scan T={KD_T} B={KD_B} bf16: eval form "
+          f"{t['eval_ms']:.4f} ms (plain {t['plain_eval_ms']:.4f}), "
+          f"train form {t['train_ms']:.4f} ms (plain "
+          f"{t['plain_train_ms']:.4f})")
+    print(f"decoder_scan_bwd T={KD_T} B={KD_B} bf16 residuals: "
+          f"{t['bwd_ms']:.4f} ms (bound {b['bwd'][0]:.5f} by {b['bwd'][1]}) = "
+          f"recompute {t['bwd_stage0_ms']:.4f} + chain "
+          f"{t['bwd_stage1_ms']:.4f} + reductions {t['bwd_stage2_ms']:.4f} + "
+          f"weight gradients {t['bwd_weights_ms']:.4f} (plain "
+          f"{t['plain_bwd_ms']:.4f})",
+          flush=True)
 
 
 def scan_bounds(kept):
@@ -957,11 +1026,16 @@ def time_kd_steps(dev, state, s_cfg, ckpt, train_loader, n=4):
     for i in range(n + 1):
         batch = steps.batch_to_device(stacks[i % len(stacks)], dev)
         torch.cuda.synchronize()
+        if i == 1:
+            zero_counters()
         t0 = time.perf_counter()
         metrics = step(state, batch, 0.5, gen)
         float(metrics["total_loss"])
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
+    per_step = {k: v / n for k, v in kd_counters(s_cfg.variant).items()}
+    print(f"KD step ({s_cfg.variant}) kernel launches per step: {per_step}",
+          flush=True)
     return times[1:]    # the first repeats the warm-up of a fresh generator
 
 
@@ -1342,29 +1416,26 @@ def time_enhanced_scan(kept):
 
 def check_attention_48(dev, gen):
     """Kernel #2 at the enhanced cross refinement's shape (B=16, 8 heads,
-    Lq = Lk = 64, hd = 384 / 8 = 48), against plain, SDPA timed beside it."""
-    shape, out = (KD_B, ENH_NH, ENH_L, 48), {}
-    for dtype in (torch.float32, torch.bfloat16):
-        q, k, v = (torch.randn(shape, device=dev, generator=gen).to(dtype)
-                   for _ in range(3))
-        scale = 48 ** -0.5
+    Lq = Lk = 64, hd = 384 / 8 = 48), against plain in all four type
+    pairings; returns the bf16 error."""
+    shape = (KD_B, ENH_NH, ENH_L, 48)
+    scale = 48 ** -0.5
+    for qk_dt, v_dt in ATTN_DTYPES:
+        q, k = (torch.randn(shape, device=dev, generator=gen).to(qk_dt)
+                for _ in range(2))
+        v = torch.randn(shape, device=dev, generator=gen).to(v_dt)
         got = A.attention_core_cuda(q, k, v, scale=scale)
         ref = A.attention_core_plain(q, k, v, scale=scale)
         torch.cuda.synchronize()
-        err = (got.float() - ref.float()).abs().max().item()
-        ok = err <= ATTN_LIMIT[dtype] and got.dtype == dtype
-        print(f"attention_core {shape} {str(dtype)[6:]}: max_abs_err {err:.3e}"
-              f" (limit {ATTN_LIMIT[dtype]:g}) {'ok' if ok else 'FAIL'}",
-              flush=True)
+        e = (got.float() - ref.float()).abs().max().item()
+        ok = e <= ATTN_LIMIT[v_dt] and got.dtype == v_dt
+        print(f"attention_core {shape} q,k {str(qk_dt)[6:]} v {str(v_dt)[6:]}"
+              f": max_abs_err {e:.3e} (limit {ATTN_LIMIT[v_dt]:g}) "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
             fail("attention kernel disagrees with its plain version at hd=48")
-    out["err"] = err
-    out["ms"] = median_ms(lambda: A.attention_core_cuda(q, k, v, scale=scale),
-                          200)
-    out["plain_ms"] = median_ms(
-        lambda: A.attention_core_plain(q, k, v, scale=scale), 200)
-    out["sdpa_ms"] = median_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, scale=scale), 200)
+        if qk_dt == v_dt == torch.bfloat16:
+            err = e
     try:
         A.attention_core_cuda(q[..., :40].contiguous(), k[..., :40].contiguous(),
                               v[..., :40].contiguous(), scale=scale)
@@ -1372,7 +1443,7 @@ def check_attention_48(dev, gen):
         pass
     else:
         fail("the attention wrapper took a head dimension it has no kernel for")
-    return out
+    return err
 
 
 def write_student(tmp, variant, vocab_path=None):
@@ -1530,16 +1601,23 @@ def mutant_caught(source: str, good: str, bad: str, check, what: str) -> bool:
 
 
 def run_mutation(dev) -> int:
-    """Three planted faults, each of which its check must catch: the scan
+    """Four planted faults, each of which its check must catch: the scan
     backward without the dropout mask on layer 1's input gradient (``dh0 =
     dh0_c + (dgp1·W_ih1ᵀ) · mask``), a beam self-attention that reads its
-    own slot's cache row instead of ``anc[n, i, s]``, and an enhanced scan
-    whose attention heads ignore their dropout multiplier ``amask``."""
+    own slot's cache row instead of ``anc[n, i, s]``, an enhanced scan
+    whose attention heads ignore their dropout multiplier ``amask``, and an
+    attention core whose causal mask lets each row see one key ahead."""
     decoder = make_decoder(dev)
     caught = [
+        mutant_caught("attention_core.cu",
+                      "if (col >= Lk || (causal && col > row)) x = -INFINITY;",
+                      "if (col >= Lk || (causal && col > row + 1)) x = -INFINITY;",
+                      lambda: check_attention(
+                          dev, torch.Generator(device=dev).manual_seed(SEED)),
+                      "causal mask lets each row see one key ahead"),
         mutant_caught("decoder_scan_bwd.cu",
-                      "const float dh0 = dh0_s[j] + ta_s[j] * m;",
-                      "const float dh0 = dh0_s[j] + ta_s[j];",
+                      "const float dh0 = a.dh0c[rj] + s.px[r * CMAX + c] * m;",
+                      "const float dh0 = a.dh0c[rj] + s.px[r * CMAX + c];",
                       lambda: check_scan(decoder, dev, mutant=True),
                       "no dropout mask on d(h0)"),
         mutant_caught("beam_attention.cu",
@@ -1594,8 +1672,9 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
     # --- 4. attention kernel vs plain ---------------------------------
-    attn_err, attn_ms, attn_plain_ms = check_attention(dev, gen)
-    attn_sdpa_ms = check_attention_kd(dev, gen)
+    attn_err = check_attention(dev, gen)
+    check_attention_kd(dev, gen)
+    attn_t = time_attention(dev, gen)
 
     # --- full student from a numpy seed, written as a JAX checkpoint ---
     cfg = full_student_config(VOCAB)
@@ -1706,7 +1785,7 @@ def main() -> int:
         beam_launches, beam_rates, beam_split = run_beam(dev, tmp)
 
     # --- 11. the compact student: kernels #3 and #7, serving, KD ------------
-    attn48 = check_attention_48(dev, gen)
+    attn48_err = check_attention_48(dev, gen)
     cscan = check_compact_scan(make_variant_decoder("compact", dev), dev)
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = write_student(tmp, "compact")
@@ -1733,20 +1812,9 @@ def main() -> int:
     del c_model32, e_model32
 
     # --- 13./14. timings, bounds and the result lines ----------------------
-    print(f"attention_core (32,4,49,64) bf16: kernel {attn_ms:.4f} ms, "
-          f"plain {attn_plain_ms:.4f} ms, SDPA {attn_sdpa_ms:.4f} ms")
     print(f"greedy_decode B=32 T=20 bf16: kernel {greedy_ms:.4f} ms, "
           f"plain {greedy_plain_ms:.4f} ms")
-    print(f"decoder_scan T={KD_T} B={KD_B} bf16: eval form "
-          f"{scan_t['eval_ms']:.4f} ms (plain {scan_t['plain_eval_ms']:.4f}), "
-          f"train form {scan_t['train_ms']:.4f} ms (plain "
-          f"{scan_t['plain_train_ms']:.4f})")
-    print(f"decoder_scan_bwd T={KD_T} B={KD_B} bf16 residuals: "
-          f"{scan_t['bwd_ms']:.4f} ms = reverse-time steps "
-          f"{scan_t['bwd_steps_ms']:.4f} + weight gradients "
-          f"{scan_t['bwd_weights_ms']:.4f} (plain {scan_t['plain_bwd_ms']:.4f})")
-    bh, lq, d = 32 * 4, 49, 64
-    attn_bound = bound_ms(4 * bh * lq * d * 2, 4 * bh * lq * lq * d, "bf16")
+    print_scan_times(scan_t, scan_b)
     w16 = G.greedy_operands(model16.decoder, torch.bfloat16)
     greedy_macs = sum(w16[k].numel() for k in (
         "w_attn", "w_comb", "w_ih0", "w_hh0", "w_ih1", "w_hh1", "fc1_w",
@@ -1775,8 +1843,6 @@ def main() -> int:
               f"{t['bounds']['cross'][1]}); with the stream kept full: self "
               f"{t['self_queued_ms']:.4f} ms, cross {t['cross_queued_ms']:.4f}"
               f" ms, SDPA {t['cross_sdpa_queued_ms']:.4f} ms")
-    print(f"attention_core (16,8,64,48) bf16: kernel {attn48['ms']:.4f} ms, "
-          f"plain {attn48['plain_ms']:.4f} ms, SDPA {attn48['sdpa_ms']:.4f} ms")
     print(f"greedy_decode_compact B=32 T=20 bf16: kernel {cg_ms:.4f} ms, "
           f"plain {cg_plain_ms:.4f} ms")
     print(f"compact_scan T={KD_T} B={KD_B} bf16: kernel {cscan['ms']:.4f} ms, "
@@ -1796,9 +1862,13 @@ def main() -> int:
     kernels = [
         entry("attention_core", "attention_core.cu", "pallas_attention.py:198",
               sum(attn_by_path.values()),
-              attn_err, attn_ms, attn_plain_ms, attn_bound, attn_sdpa_ms,
-              hd48_ms=attn48["ms"], hd48_plain_ms=attn48["plain_ms"],
-              hd48_library_ms=attn48["sdpa_ms"], hd48_max_abs_err=attn48["err"],
+              attn_err, attn_t["vit"]["ms"], attn_t["vit"]["plain_ms"],
+              attn_t["vit"]["bound"], attn_t["vit"]["sdpa_ms"],
+              queued_ms=attn_t["vit"]["queued_ms"],
+              library_queued_ms=attn_t["vit"]["sdpa_queued_ms"],
+              hd48_max_abs_err=attn48_err, by_shape={
+                  n: {k: (v if k != "bound" else v[0]) for k, v in t.items()}
+                  for n, t in attn_t.items()},
               **attn_by_path),
         entry("greedy_decode_compact", "greedy_decode_compact.cu",
               "pallas_greedy.py:214", c_launches["greedy_decode_compact"],
@@ -1827,7 +1897,9 @@ def main() -> int:
         entry("decoder_scan_bwd", "decoder_scan_bwd.cu", f"{lstm}:1037",
               kd_launches["decoder_scan_bwd"], scan["bwd_err"],
               scan_t["bwd_ms"], scan_t["plain_bwd_ms"], scan_b["bwd"],
-              steps_ms=scan_t["bwd_steps_ms"],
+              recompute_ms=scan_t["bwd_stage0_ms"],
+              chain_ms=scan_t["bwd_stage1_ms"],
+              reductions_ms=scan_t["bwd_stage2_ms"],
               weights_ms=scan_t["bwd_weights_ms"]),
         entry("beam_self_attention", "beam_attention.cu",
               "pallas_beam_attn.py:166", beam_launches["beam_self_attention"],

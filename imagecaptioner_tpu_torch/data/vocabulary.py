@@ -4,10 +4,10 @@
 Serving loads a saved vocabulary and maps ids back to words.  Training on
 the in-memory synthetic data also builds one: ``build_vocabulary`` adds a
 word when its running count reaches ``freq_threshold``, with ids in
-first-reached order from 4.  Its tokenizer is ``tokenize_words`` (lowercase,
-split on whitespace), which equals the JAX package's rule-based tokenizer
-on punctuation-free text such as the synthetic captions; the full tokenizer
-comes with the CSV/JPEG loader (ROADMAP Queue 1 item 4, still open).
+first-reached order from 4.  Its tokenizer is the rule-based one of
+``data/tokenizer.py``, the port's copy of the JAX package's ``tokenize_py``,
+so a saved ``vocab.json`` encodes punctuated captions to the same ids in
+both packages.
 """
 
 from __future__ import annotations
@@ -15,13 +15,10 @@ from __future__ import annotations
 import json
 from typing import Dict, Iterable, List
 
+from imagecaptioner_tpu_torch.data.tokenizer import tokenize
+
 PAD, START, END, UNK = 0, 1, 2, 3
 SPECIALS = {0: "<PAD>", 1: "<START>", 2: "<END>", 3: "<UNK>"}
-
-
-def tokenize_words(text: str) -> List[str]:
-    """Lowercase and split on whitespace (punctuation-free text only)."""
-    return text.lower().split()
 
 
 class Vocabulary:
@@ -33,22 +30,28 @@ class Vocabulary:
     def __len__(self) -> int:
         return len(self.itos)
 
+    @staticmethod
+    def tokenizer_eng(text: str) -> List[str]:
+        return tokenize(text)
+
     def build_vocabulary(self, sentence_list: Iterable[str]) -> None:
         """First-reached-threshold insertion order."""
         frequencies: Dict[str, int] = {}
         idx = len(self.itos)
         for sentence in sentence_list:
-            for word in tokenize_words(sentence):
+            for word in tokenize(sentence):
                 frequencies[word] = frequencies.get(word, 0) + 1
                 if frequencies[word] == self.freq_threshold:
                     self.stoi[word] = idx
                     self.itos[idx] = word
                     idx += 1
 
+    def numericalize(self, text: str) -> List[int]:
+        return [self.stoi.get(tok, UNK) for tok in tokenize(text)]
+
     def encode_caption(self, text: str) -> List[int]:
         """<START> + tokens + <END> framing."""
-        return ([START] + [self.stoi.get(t, UNK) for t in tokenize_words(text)]
-                + [END])
+        return [START] + self.numericalize(text) + [END]
 
     def decode(self, ids: Iterable[int], *, strip_specials: bool = True
                ) -> List[str]:

@@ -74,15 +74,17 @@ def make_greedy_captioner(student: Student, cfg: StudentConfig, device, *,
     """uint8 images (B, H, W, 3) -> tokens (B, max_length) int32.
 
     Computes in the dtype of the student's parameters.  Temperature 1.0 is
-    greedy; any other value samples, seeded by ``seed``, as the JAX CLI
-    does."""
+    greedy; any other value samples.  Every batch samples from a generator
+    seeded afresh with ``seed``, as the JAX CLI closes one
+    ``PRNGKey(seed)`` into its jitted function: the same images give the
+    same tokens in every batch."""
     dtype = next(student.parameters()).dtype
-    rng = None
-    if temperature != 1.0:
-        rng = torch.Generator(device=device).manual_seed(seed)
 
     @torch.inference_mode()
     def caption(images_u8: np.ndarray) -> np.ndarray:
+        rng = None
+        if temperature != 1.0:
+            rng = torch.Generator(device=device).manual_seed(seed)
         x = torch.from_numpy(np.ascontiguousarray(images_u8)).to(device)
         _, refined = student.encode_image(T.normalize(x, dtype=dtype))
         toks = best_greedy_decode_student(

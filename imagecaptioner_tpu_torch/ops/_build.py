@@ -22,6 +22,8 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable
 
+import torch
+
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
@@ -108,3 +110,12 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
         lib.ic_error_string.argtypes = [ctypes.c_int]
         msg = lib.ic_error_string(err).decode()
         raise RuntimeError(f"{what} launch failed: CUDA error {err} ({msg})")
+
+
+def call_on(dev: torch.device, fn, *args):
+    """``fn(*args, stream)`` with ``dev`` current and ``stream`` its current
+    stream; no device switch when ``dev`` is already current."""
+    if dev.index == torch.cuda.current_device():
+        return fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
+    with torch.cuda.device(dev):
+        return fn(*args, torch.cuda.current_stream().cuda_stream)

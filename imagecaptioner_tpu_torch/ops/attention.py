@@ -8,10 +8,13 @@ the output is ``v.dtype`` (``pallas_attention.py:161-168``).
 
 ``attention_core`` dispatches on the device: a CPU tensor takes the plain
 version (differentiable by ordinary autograd), a CUDA tensor the kernel in
-``csrc/attention_core.cu`` (D = 64 or 48, Lk <= 256, Lq = Lk when causal), which
-raises on anything it does not take.  The JAX package has no backward
-kernel for this core: its ``custom_vjp`` recomputes the plain core and
-differentiates that (``pallas_attention.py:_bwd``).  ``_AttentionCore`` does
+``csrc/attention_core.cu`` (D = 64 or 48, Lk <= 256, Lq = Lk when causal;
+tensor cores, K and V staged once per block), which raises on anything it
+does not take.  ``attention_core_two_pass`` mirrors the kernel's
+decomposition (score tiles, a two-pass softmax, P·V by key tiles) in plain
+PyTorch for the CPU tests; nothing on the card calls it.  The JAX package
+has no backward kernel for this core: its ``custom_vjp`` recomputes the
+plain core and differentiates that (``pallas_attention.py:_bwd``).  ``_AttentionCore`` does
 the same around the CUDA forward.
 """
 
@@ -28,6 +31,21 @@ MAX_LK = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0  # kernel launches by attention_core_cuda
+_KERNEL = None  # (library, its entry point with argtypes set), at first use
+
+
+def _kernel():
+    global _KERNEL
+    if _KERNEL is None:
+        lib = _build.library("attention_core")
+        fn = lib.ic_attention_core
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        _KERNEL = lib, fn
+    return _KERNEL
 
 
 def attention_core_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -49,18 +67,54 @@ def attention_core_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return torch.matmul(p.to(acc_dtype), v.to(acc_dtype)).to(v.dtype)
 
 
+def attention_core_two_pass(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, *, causal: bool = False,
+                            scale: float = 1.0, key_tile: int = 8
+                            ) -> torch.Tensor:
+    """The kernel's decomposition in plain PyTorch: scores by tiles of
+    ``key_tile`` keys (keys padded to a multiple of 16 and masked), pass 1
+    the row max over all tiles and the row sum of exp(s - max), pass 2 the
+    normalised probability rounded to ``v.dtype`` and P·V summed tile by
+    tile in float32.  A test helper: nothing on the card calls it."""
+    qk = torch.promote_types(q.dtype, k.dtype)
+    qf, kf, vf = q.to(qk).float(), k.to(qk).float(), v.float()
+    lq, lk = q.shape[-2], k.shape[-2]
+    lkp = -(-lk // 16) * 16
+    pad = (0, 0, 0, lkp - lk)
+    kf, vf = torch.nn.functional.pad(kf, pad), torch.nn.functional.pad(vf, pad)
+    row = torch.arange(lq)[:, None]
+    tiles = []
+    for j0 in range(0, lkp, key_tile):
+        col = torch.arange(j0, j0 + key_tile)[None, :]
+        s = torch.matmul(qf, kf[..., j0:j0 + key_tile, :].transpose(-1, -2))
+        s = s * scale
+        masked = (col >= lk) | ((col > row) if causal else False)
+        tiles.append(s.masked_fill(masked, float("-inf")))
+    m = torch.stack([t.amax(-1) for t in tiles]).amax(0)[..., None]
+    e = [torch.exp(t - m) for t in tiles]
+    total = torch.stack([t.sum(-1) for t in e]).sum(0)[..., None]
+    out = torch.zeros(qf.shape, dtype=torch.float32)
+    for j, t in enumerate(e):
+        p = (t / total).to(v.dtype).float()
+        out = out + torch.matmul(p, vf[..., j * key_tile:(j + 1) * key_tile, :])
+    return out.to(v.dtype)
+
+
 def attention_core_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = False, scale: float = 1.0
                         ) -> torch.Tensor:
     """Launch the CUDA kernel on the current stream."""
     global launches
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if not t.is_cuda or t.dim() != 4:
-            raise ValueError(f"{name} must be a 4-D CUDA tensor")
-        if t.dtype not in _DTYPES:
-            raise TypeError(f"{name}: dtype {t.dtype} not supported")
-    qk = torch.promote_types(q.dtype, k.dtype)
-    q, k = q.to(qk), k.to(qk)
+    if not (q.is_cuda and k.is_cuda and v.is_cuda) \
+            or q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("q, k and v must be 4-D CUDA tensors")
+    if q.dtype not in _DTYPES or k.dtype not in _DTYPES \
+            or v.dtype not in _DTYPES:
+        raise TypeError(f"dtypes {q.dtype}, {k.dtype}, {v.dtype}: only "
+                        "float32 and bfloat16 are supported")
+    if q.dtype != k.dtype:
+        qk = torch.promote_types(q.dtype, k.dtype)
+        q, k = q.to(qk), k.to(qk)
     B, H, Lq, D = q.shape
     Lk = k.shape[2]
     if k.shape != (B, H, Lk, D) or v.shape != k.shape:
@@ -74,21 +128,17 @@ def attention_core_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"got Lq={Lq}, Lk={Lk}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k and v must be contiguous")
-    if not (q.device == k.device == v.device):
+    qp, kp, vp = q.data_ptr(), k.data_ptr(), v.data_ptr()
+    if (qp | kp | vp) % 16:
+        raise ValueError("q, k and v must be 16-byte aligned")
+    dev = v.device
+    if not (q.device == k.device == dev):
         raise ValueError("q, k and v must be on one device")
-    out = torch.empty(q.shape, dtype=v.dtype, device=v.device)
-    lib = _build.library("attention_core")
-    fn = lib.ic_attention_core
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-                   ctypes.c_void_p]
-    with torch.cuda.device(v.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(_DTYPES[qk], _DTYPES[v.dtype], q.data_ptr(), k.data_ptr(),
-                 v.data_ptr(), out.data_ptr(), B * H, Lq, Lk, D, float(scale),
-                 int(causal), stream)
+    out = torch.empty(q.shape, dtype=v.dtype, device=dev)
+    lib, fn = _kernel()
+    err = _build.call_on(dev, fn, _DTYPES[q.dtype], _DTYPES[v.dtype], qp, kp,
+                         vp, out.data_ptr(), B * H, Lq, Lk, D, float(scale),
+                         int(causal))
     _build.check(lib, err, "attention_core")
     launches += 1
     return out

@@ -201,6 +201,95 @@ def decoder_scan_bwd_plain(res: Sequence[Optional[torch.Tensor]],
             dw_hh1, db1)
 
 
+def decoder_scan_bwd_staged(res: Sequence[Optional[torch.Tensor]],
+                            dh_tops: Optional[torch.Tensor],
+                            dattns: Optional[torch.Tensor]
+                            ) -> Tuple[torch.Tensor, ...]:
+    """The backward kernel's decomposition in plain PyTorch (a test helper:
+    nothing on the card calls it).  1. Recompute every step's forward
+    intermediates for all T·B rows at once, and G = feats·W_cᵀ.  2. The
+    reverse chain in the kernel's five phases per step: dh1 (from the last
+    step's dhw) and layer 1's cell; d(h0·mask), dh1_rec and layer 0's cell;
+    dx0 and the carried dh0; dctx and d(weights) = dx0·Gᵀ + dattn; d(scores)
+    and dhw.  3. dfeats and df_proj after the loop from the per-step stores.
+    4. The weight gradients as products over all rows.  Same contract as
+    ``decoder_scan_bwd_plain``."""
+    (emb_w, f_proj, feats, mask, w_h, w_c, w_ih0, w_hh0, b0, w_ih1, w_hh1,
+     b1, h_tops, attns, h0s, c0s, c1s) = res
+    T, B, E = emb_w.shape
+    H = w_hh0.shape[1]
+    acc = torch.promote_types(torch.float32, emb_w.dtype)
+    f = lambda x: x.to(acc)  # noqa: E731
+    W_h, W_c = f(w_h), f(w_c)
+    Wih0, Whh0, Wih1, Whh1 = f(w_ih0), f(w_hh0), f(w_ih1), f(w_hh1)
+    ft, fp, w = f(feats), f(f_proj), f(attns)
+
+    # 1. recompute, all rows
+    zero = torch.zeros(1, B, H, dtype=acc, device=emb_w.device)
+    h0p = torch.cat([zero, f(h0s[:-1])])
+    h1p = torch.cat([zero, f(h_tops[:-1])])
+    h0d = f(h0s) * (1.0 if mask is None else f(mask))
+    ctx = torch.einsum("tbl,ble->tbe", w, ft)
+    hw = h1p @ W_h.t()
+    x0 = f(emb_w) + ctx @ W_c.t()
+
+    def act(g):
+        i, fg, gg, o = g.chunk(4, dim=-1)
+        return torch.sigmoid(i), torch.sigmoid(fg), torch.tanh(gg), torch.sigmoid(o)
+
+    act0 = act(x0 @ Wih0.t() + h0p @ Whh0.t() + f(b0))
+    act1 = act(h0d @ Wih1.t() + h1p @ Whh1.t() + f(b1))
+    G = ft @ W_c.t()                                     # (B, L, E)
+
+    def cell_bwd(dh, dc, c_t, c_prev, i, fg, gg, o):
+        tc = torch.tanh(c_t)
+        dcn = dc + dh * o * (1 - tc * tc)
+        dgp = torch.cat([dcn * gg * i * (1 - i), dcn * c_prev * fg * (1 - fg),
+                         dcn * i * (1 - gg * gg), dh * tc * o * (1 - o)], -1)
+        return dgp, dcn * fg
+
+    # 2. the reverse chain
+    zeros = lambda *s: torch.zeros(*s, dtype=acc, device=emb_w.device)  # noqa: E731
+    dc0, dc1, dh0c, dh1rec = (zeros(B, H) for _ in range(4))
+    dgp0s, dgp1s, dx0s, dctxs, dss, dhws = ([None] * T for _ in range(6))
+    for t in range(T - 1, -1, -1):
+        dh1 = zeros(B, H) if t == T - 1 else dh1rec + dhws[t + 1] @ W_h
+        if dh_tops is not None:
+            dh1 = dh1 + f(dh_tops[t])
+        c1p = f(c1s[t - 1]) if t > 0 else zeros(B, H)
+        c0p = f(c0s[t - 1]) if t > 0 else zeros(B, H)
+        dgp1, dc1 = cell_bwd(dh1, dc1, f(c1s[t]), c1p,
+                             *(a[t] for a in act1))
+        dh1rec = dgp1 @ Whh1
+        m_t = 1.0 if mask is None else f(mask[t])
+        dh0 = dh0c + (dgp1 @ Wih1) * m_t
+        dgp0, dc0 = cell_bwd(dh0, dc0, f(c0s[t]), c0p, *(a[t] for a in act0))
+        dx0 = dgp0 @ Wih0
+        dh0c = dgp0 @ Whh0
+        dctxs[t] = dx0 @ W_c
+        dw = torch.einsum("be,ble->bl", dx0, G)
+        if dattns is not None:
+            dw = dw + f(dattns[t])
+        ds = w[t] * (dw - (w[t] * dw).sum(-1, keepdim=True))
+        th = torch.tanh(fp + hw[t][:, None, :])
+        dhws[t] = (ds[:, :, None] * (1 - th * th)).sum(1)
+        dgp0s[t], dgp1s[t], dx0s[t], dss[t] = dgp0, dgp1, dx0, ds
+    dgp0, dgp1, dx0, dctx, ds, dhw = (torch.stack(x) for x in
+                                      (dgp0s, dgp1s, dx0s, dctxs, dss, dhws))
+
+    # 3. after the loop
+    dfeats = torch.einsum("tbl,tbe->ble", w, dctx)
+    th = torch.tanh(fp[None] + hw[:, :, None, :])        # (T, B, L, E)
+    df_proj = (ds[..., None] * (1 - th * th)).sum(0)
+
+    # 4. weight gradients over all T·B rows
+    flat = lambda x: x.reshape(T * B, -1)  # noqa: E731
+    prod = lambda d, x: flat(d).t() @ flat(x)  # noqa: E731
+    return (dx0, df_proj, dfeats, prod(dhw, h1p), prod(dx0, ctx),
+            prod(dgp0, x0), prod(dgp0, h0p), flat(dgp0).sum(0),
+            prod(dgp1, h0d), prod(dgp1, h1p), flat(dgp1).sum(0))
+
+
 # ---------------------------------------------------------------------------
 # The CUDA kernels
 # ---------------------------------------------------------------------------
@@ -297,11 +386,18 @@ def decoder_scan_cuda(emb_w, f_proj, feats, mask, w_h, w_c, w_ih0, w_hh0, b0,
     return h_tops, attn
 
 
-def decoder_scan_bwd_steps_cuda(res, dh_tops, dattns):
-    """The reverse-time kernel alone.  Returns ``(df_proj, dfeats, stores)``
-    where ``stores`` are the nine per-step float32 arrays the weight
-    gradients are summed from: dgp0, dgp1, dhw, dx0, x0, ctx, h0p, h1p, h0d
-    (``dx0`` is also ``demb_w``)."""
+CHAIN_MAX_COLUMNS = 4  # columns of H or E one block of the chain may own
+# per-step float32 stores of the backward, in the order the kernel takes them
+BWD_STORES = ("h0p", "h1p", "h0d", "ctx", "hw", "x0", "act0", "act1", "featsf",
+              "G", "dgp0", "dgp1", "dx0", "dctx", "dw", "ds", "dhw")
+
+
+def decoder_scan_bwd_buffers(res, dh_tops, dattns) -> dict:
+    """Check the residuals and cotangents and allocate what the backward's
+    stages write: the per-step stores (``BWD_STORES``), the zeroed carries
+    and barrier words of the chain, and df_proj, dfeats.  Returns a dict
+    that ``decoder_scan_bwd_stage_cuda`` and ``decoder_scan_bwd_weights_cuda``
+    take."""
     T, B, L, E, H = _check_operands(*res[:12])
     dt, dev = res[2].dtype, res[2].device
     traj = {"h_tops": ((T, B, H), dt), "attn": ((T, B, L), torch.float32),
@@ -316,58 +412,116 @@ def decoder_scan_bwd_steps_cuda(res, dh_tops, dattns):
                 or not t.is_contiguous():
             raise ValueError(f"{name}: expected contiguous {shape} {dtype} "
                              f"on {dev}")
-    lib = _build.library("decoder_scan_bwd")
-    _smem_ok(lib, "ic_decoder_scan_bwd_smem_bytes", L, E, H)
+    blocks, smem = _chain_blocks(dt, dev, B, L, E, H)
+    if blocks <= 0:
+        why = f"; CUDA error {-blocks}" if blocks < 0 else ""
+        raise RuntimeError(f"decoder_scan_bwd: the chain kernel does not fit "
+                           f"on the card ({smem} bytes of shared memory "
+                           f"a block{why})")
+    if max(-(-H // blocks), -(-E // blocks)) > CHAIN_MAX_COLUMNS:
+        raise ValueError(f"decoder_scan_bwd: {blocks} resident blocks own at "
+                         f"most {CHAIN_MAX_COLUMNS} columns each, too few for "
+                         f"E={E}, H={H}")
     new = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)  # noqa: E731
-    df_proj, dfeats = new(B, L, E), new(B, L, E)
-    stores = (new(T, B, 4 * H), new(T, B, 4 * H), new(T, B, E), new(T, B, E),
-              new(T, B, E), new(T, B, E), new(T, B, H), new(T, B, H),
-              new(T, B, H))
-    fn = lib.ic_decoder_scan_bwd_steps
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 7 + \
-        [ctypes.c_void_p]
-    ptrs = _ptr_array(tuple(res) + (dh_tops, dattns, df_proj, dfeats) + stores)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(_DTYPES[dt], ptrs, T, B, L, E, H, res[4].stride(0),
-                 res[5].stride(0), stream)
-    _build.check(lib, err, "decoder_scan_bwd (steps)")
-    return df_proj, dfeats, stores
+    shapes = {"h0p": (T, B, H), "h1p": (T, B, H), "h0d": (T, B, H),
+              "ctx": (T, B, E), "hw": (T, B, E), "x0": (T, B, E),
+              "act0": (T, B, 4 * H), "act1": (T, B, 4 * H),
+              "featsf": (B, L, E), "G": (B, L, E), "dgp0": (T, B, 4 * H),
+              "dgp1": (T, B, 4 * H), "dx0": (T, B, E), "dctx": (T, B, E),
+              "dw": (T, B, L), "ds": (T, B, L), "dhw": (T, B, E)}
+    buf = {k: new(*shapes[k]) for k in BWD_STORES}
+    # four (B, H) carries and the barrier's two words, zeroed in one fill
+    zeroed = torch.zeros(4 * B * H + 4, dtype=torch.float32, device=dev)
+    carries = zeroed[:4 * B * H].view(4, B, H)
+    buf.update(df_proj=new(B, L, E), dfeats=new(B, L, E), zeroed=zeroed,
+               dims=(T, B, L, E, H), dtype=dt, device=dev)
+    ptrs = (tuple(res) + (dh_tops, dattns) + tuple(buf[k] for k in BWD_STORES)
+            + tuple(carries) + (zeroed[4 * B * H:], buf["df_proj"],
+                                buf["dfeats"]))
+    buf["ptrs"] = _ptr_array(ptrs)
+    buf["keep"] = ptrs  # the tensors the pointer array points at
+    buf["ld"] = (res[4].stride(0), res[5].stride(0))
+    buf["blocks"] = blocks
+    return buf
 
 
-def decoder_scan_bwd_weights_cuda(stores, E: int, H: int):
+def decoder_scan_bwd_stage_cuda(buf: dict, stage: int) -> None:
+    """Launch one stage of the backward on the current stream: 0 the
+    recompute of every step's forward intermediates, 1 the reverse chain
+    (one cooperative kernel), 2 the post-loop reductions (df_proj, dfeats).
+    The chain zeroes nothing itself: run it once per
+    ``decoder_scan_bwd_buffers``."""
+    lib, fns = _bwd_library()
+    err = _build.call_on(buf["device"], fns["stage"], stage,
+                         _DTYPES[buf["dtype"]], buf["ptrs"], *buf["dims"],
+                         *buf["ld"], buf["blocks"])
+    _build.check(lib, err, f"decoder_scan_bwd (stage {stage})")
+
+
+def decoder_scan_bwd_weights_cuda(buf: dict):
     """The weight- and bias-gradient kernels alone: sums over the T·B rows
     of the per-step stores.  Returns dw_h, dw_c, dw_ih0, dw_hh0, db0,
     dw_ih1, dw_hh1, db1 (float32, torch layout)."""
-    dev = stores[0].device
-    N = stores[0].shape[0] * stores[0].shape[1]
-    new = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)  # noqa: E731
+    T, B, L, E, H = buf["dims"]
+    new = lambda *s: torch.empty(s, dtype=torch.float32, device=buf["device"])  # noqa: E731
     outs = (new(E, H), new(E, E), new(4 * H, E), new(4 * H, H), new(4 * H),
             new(4 * H, H), new(4 * H, H), new(4 * H))
-    lib = _build.library("decoder_scan_bwd")
-    fn = lib.ic_decoder_scan_bwd_weights
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 3 + \
-        [ctypes.c_void_p]
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(_ptr_array(stores), _ptr_array(outs), N, E, H, stream)
+    stores = tuple(buf[k] for k in ("dgp0", "dgp1", "dhw", "dx0", "x0", "ctx",
+                                    "h0p", "h1p", "h0d"))
+    lib, fns = _bwd_library()
+    err = _build.call_on(buf["device"], fns["weights"], _ptr_array(stores),
+                         _ptr_array(outs), T * B, E, H)
     _build.check(lib, err, "decoder_scan_bwd (weights)")
     return outs
+
+
+_BWD = None  # (library, its entry points with argtypes set), at first use
+_CHAIN_BLOCKS = {}  # (dtype, device, B, L, E, H) -> (blocks, shared bytes)
+
+
+def _chain_blocks(dt, dev, B, L, E, H):
+    """The chain kernel's cooperative grid on this card, asked once."""
+    key = (dt, dev, B, L, E, H)
+    if key not in _CHAIN_BLOCKS:
+        _, fns = _bwd_library()
+        smem = ctypes.c_longlong()
+        with torch.cuda.device(dev):
+            blocks = fns["blocks"](_DTYPES[dt], B, L, E, H, ctypes.byref(smem))
+        _CHAIN_BLOCKS[key] = blocks, smem.value
+    return _CHAIN_BLOCKS[key]
+
+
+def _bwd_library():
+    global _BWD
+    if _BWD is None:
+        lib = _build.library("decoder_scan_bwd")
+        fns = {"blocks": lib.ic_decoder_scan_bwd_chain_blocks,
+               "stage": lib.ic_decoder_scan_bwd_stage,
+               "weights": lib.ic_decoder_scan_bwd_weights}
+        for f in fns.values():
+            f.restype = ctypes.c_int
+        fns["blocks"].argtypes = [ctypes.c_int] * 5 + \
+            [ctypes.POINTER(ctypes.c_longlong)]
+        fns["stage"].argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] + \
+            [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fns["weights"].argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + \
+            [ctypes.c_void_p]
+        _BWD = lib, fns
+    return _BWD
 
 
 def decoder_scan_bwd_cuda(res, dh_tops, dattns) -> Tuple[torch.Tensor, ...]:
     """Launch the backward kernels on the current stream.  Same contract as
     ``decoder_scan_bwd_plain``; the gradients are float32."""
     global launches_bwd
-    df_proj, dfeats, stores = decoder_scan_bwd_steps_cuda(res, dh_tops, dattns)
-    E, H = res[0].shape[2], res[7].shape[1]
+    buf = decoder_scan_bwd_buffers(res, dh_tops, dattns)
+    for stage in (0, 1, 2):
+        decoder_scan_bwd_stage_cuda(buf, stage)
     dw_h, dw_c, dw_ih0, dw_hh0, db0, dw_ih1, dw_hh1, db1 = \
-        decoder_scan_bwd_weights_cuda(stores, E, H)
+        decoder_scan_bwd_weights_cuda(buf)
     launches_bwd += 1
-    return (stores[3], df_proj, dfeats, dw_h, dw_c, dw_ih0, dw_hh0, db0,
-            dw_ih1, dw_hh1, db1)
+    return (buf["dx0"], buf["df_proj"], buf["dfeats"], dw_h, dw_c, dw_ih0,
+            dw_hh0, db0, dw_ih1, dw_hh1, db1)
 
 
 class _DecoderScan(torch.autograd.Function):

@@ -1,0 +1,62 @@
+#!/usr/bin/env python3
+"""Check and time kernels #2 (attention core) and #6 (the full student's
+reverse-time backward) alone on one NVIDIA GPU, with the checks and timers
+of ``chip_smoke.py``.  Faster than the whole smoke run when only these two
+kernels change.
+
+    python3 scripts/torch_bench_kernels.py [--only attention|scan]
+
+Prints ptxas' register and spill lines for the two sources, each check, the
+timings, and the card's ``nvidia-smi`` name and power limit.  Exits non-zero
+on a failed check or without a card.
+"""
+
+from __future__ import annotations
+
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+import chip_smoke as CS  # noqa: E402
+from imagecaptioner_tpu_torch.ops import _build  # noqa: E402
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        CS.fail("torch.cuda.is_available() is false: this script runs on the card")
+    only = sys.argv[sys.argv.index("--only") + 1] if "--only" in sys.argv else None
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout.strip()
+    print(f"device: {torch.cuda.get_device_name(0)} | nvidia-smi: {smi}",
+          flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sources = {"attention": ["attention_core"],
+               "scan": ["decoder_scan", "decoder_scan_bwd"]}
+    names = sources[only] if only else sum(sources.values(), [])
+    print(f"built {names} in {_build.build_all(names):.1f} s", flush=True)
+    for src in names:
+        for line in _build.build_log(src).splitlines():
+            if "registers" in line or "spill" in line or "error" in line:
+                print(f"  {src}: {line.strip()}")
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(CS.SEED)
+    if only in (None, "attention"):
+        CS.check_attention(dev, gen)
+        CS.check_attention_kd(dev, gen)
+        CS.check_attention_48(dev, gen)
+        CS.time_attention(dev, gen)
+    if only in (None, "scan"):
+        kept = CS.check_scan(CS.make_decoder(dev), dev)
+        CS.print_scan_times(CS.time_scan(kept), CS.scan_bounds(kept))
+    print(smi)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

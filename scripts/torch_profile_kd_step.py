@@ -53,7 +53,10 @@ VOCAB, A, B, T_STEPS, SEED = 2994, 2, 16, 47, 0
 
 # kernel-name fragments -> kind, first match wins
 KINDS = [
-    ("decoder scan backward (steps)", ("steps_kernel",)),
+    # csrc/decoder_scan_bwd.cu: the recompute (prep, gemm), the cooperative
+    # reverse chain and the post-loop reductions
+    ("decoder scan backward (recompute, chain, reductions)",
+     ("prep_kernel", "::gemm_kernel", "chain_kernel", "post_kernel")),
     ("decoder scan backward (weight grads)", ("weight_grad_kernel",
                                               "bias_grad_kernel")),
     # the three students' forward recurrences: scan_kernel,

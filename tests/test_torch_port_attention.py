@@ -131,3 +131,35 @@ def test_build_module_imports_without_nvcc():
             " for s in _build.SOURCES)\n")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
                    cwd=Path(__file__).resolve().parent.parent)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,Lq,Lk,D,causal", [
+    (2, 3, 20, 20, 64, True),    # causal, keys padded 20 -> 32
+    (1, 2, 9, 37, 48, False),    # cross-attention, hd 48
+    (1, 2, 33, 197, 64, False),  # the ViT's key count, 13 tiles of 16
+])
+def test_two_pass_mirror_matches_plain_and_jax(dtype, B, H, Lq, Lk, D,
+                                               causal):
+    """The kernel's decomposition (key tiles, padded and masked keys, a
+    two-pass softmax that normalises before rounding, P·V by tiles) against
+    ``attention_core_plain`` and the JAX fused core (interpret mode).
+    float32: 1e-5 (summation order only); bfloat16: the probabilities
+    round to 8 bits on both sides at the same place, so the outputs agree
+    to one bf16 step of the largest output."""
+    q, k, v = _qkv(B, H, Lq, Lk, D, seed=Lk + D)
+    tdt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
+    tq, tk, tv = (torch.from_numpy(x).to(tdt) for x in (q, k, v))
+    scale = 1.0 / np.sqrt(D)
+    got = A.attention_core_two_pass(tq, tk, tv, causal=causal, scale=scale)
+    plain = A.attention_core_plain(tq, tk, tv, causal=causal, scale=scale)
+    jq, jk, jv = (jnp.asarray(x, dtype) for x in (q, k, v))
+    fused = fused_attention_core(jq, jk, jv, causal, float(scale), True)
+    assert got.dtype == tdt
+    atol = ATOL if dtype == "float32" else 2e-2
+    for ref in (plain.float().numpy(), np.asarray(fused, np.float32)):
+        np.testing.assert_allclose(got.float().numpy(), ref, atol=atol,
+                                   rtol=0)
+    if dtype == "bfloat16":  # most elements are bit-identical to plain
+        same = (got == plain).float().mean().item()
+        assert same > 0.9, same

@@ -262,3 +262,33 @@ def test_bf16_plain_forward_rounds_where_the_kernel_rounds(operands):
                                         torch.float32]
     for a, b in zip(out16, out32):
         assert float((a.float() - b).abs().max()) < 0.1
+
+
+@pytest.mark.parametrize("cots", ["both", "dh_only"])
+def test_staged_backward_mirror_matches_plain_and_jax(operands, forward,
+                                                      cotangents, backward,
+                                                      cots):
+    """The backward kernel's decomposition (recompute of all rows first, the
+    five-phase reverse chain with d(weights) = dx0·(feats·W_cᵀ)ᵀ, dfeats and
+    df_proj after the loop, weight gradients over all rows) against
+    ``decoder_scan_bwd_plain`` and, with both cotangents, against the JAX
+    kernel in interpret mode and its XLA twin: 1e-5 relative to each
+    gradient's largest value (float32, summation order only)."""
+    ref_fwd, _ = forward
+    dh, da = cotangents
+    res = _port_ops(operands) + [torch.from_numpy(x) for x in ref_fwd]
+    dat = torch.from_numpy(da) if cots == "both" else None
+    got = S.decoder_scan_bwd_staged(res, torch.from_numpy(dh), dat)
+    plain = S.decoder_scan_bwd_plain(res, torch.from_numpy(dh), dat)
+    refs = [[p.numpy() for p in plain]]
+    if cots == "both":
+        kernel, twin, _ = backward
+        refs += [[_to_port_layout(n, x) for n, x in zip(JAX_GRADS, r)]
+                 for r in (kernel, twin)]
+    for i, name in enumerate(JAX_GRADS):
+        g = got[i].numpy()
+        for ref in refs:
+            top = np.abs(ref[i]).max()
+            assert top > 1e-3 and g.shape == ref[i].shape, name
+            np.testing.assert_allclose(g, ref[i], atol=1e-5 * top, rtol=0,
+                                       err_msg=name)
