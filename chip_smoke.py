@@ -9,20 +9,30 @@ Imports nothing of JAX.  In order it:
   2. builds every kernel from ``csrc/`` (one nvcc per source, started
      together);
   3. turns TF32 off (matmul and cuDNN), so float32 comparisons are float32;
-  4. holds the attention-core kernel against its plain version at the
+  4. holds ``core.modules.dense`` at bf16 (bf16 operands on tensor cores,
+     float32 result) against its float32 form within one bf16 ulp at the
+     serving and KD shapes, forward and gradients, and checks by the
+     profiler that the product is a bf16 GEMM; holds the attention-core kernel against its plain version at the
      refinement, ViT and teacher-decoder shapes (causal, and cross-attention
      with Lq != Lk) in all four pairings of float32 and bf16, and its
      gradients under autograd against autograd through the plain version;
      times it per call and queued at the five shapes where the main paths
      launch it, beside SDPA;
   5. holds the greedy-decode kernel against its plain version at full width
-     (B=32, L=49, E=256, H=512, V=2994, T=20), temperature 1 and 2;
+     (B=32, L=49, E=256, H=512, V=2994, T=20), temperature 1 and 2 (float32
+     every row; bf16 at most one row in 32 departing from the float64 plain
+     version, and only at a near tie of its top two logits), and requires 20
+     more runs to be bit-identical to the first;
   6. holds the decoder-scan kernels against their plain versions at the KD
      shapes (T=47, B=16, L=49, E=256, H=512), float32 and bf16: the forward
-     with a random dropout mask and residuals, and without either; the
+     with a random dropout mask and residuals, and without either (20 more
+     runs of each bit-identical to the first); the
      reverse-time backward with random dh_tops and dattns, all eleven
      gradients, each of which must be non-degenerate and bit-identical in a
-     second run; times the backward by stage;
+     second run; times the backward by stage; then the greedy kernel and
+     both scan forms at B=40 (two chunks, the second of 8 rows) and B=5,
+     against their plain versions with the same limits, and each chunked
+     launch against a launch per chunk, bit for bit;
   7. drives the serving path: a full student from a numpy seed is written as
      a JAX-format checkpoint, reloaded through the serve path's loader in
      bf16, and captions 8 batches of 32 seeded uint8 224x224 images through
@@ -68,21 +78,29 @@ Imports nothing of JAX.  In order it:
      the loop alone with features drawn per row; runs the KD trainer for 3
      steps, times 4 more, compares one float32 step card against CPU;
  13. prints kernel, plain and library times (CUDA events, median after
-     warm-up), each kernel's bound, and the end-to-end rates;
+     warm-up), each kernel's bound, the chain floor of the three cooperative
+     kernels (#1, #4/#5, #6: the median of 2,000 empty grid barriers at the
+     chain's grid times the barriers a run crosses), ptxas' registers and
+     spills for them, and the end-to-end rates;
  14. prints the kernels JSON line, the nvidia-smi line, and last
      ``{"ok": true, "device": {...}}``.
 Any failed check exits non-zero before the last line.  ``--mutation`` builds
-four faulty copies (a scan backward without its dropout mask, a beam
+six faulty copies (a scan backward without its dropout mask, a beam
 self-attention that ignores the ancestry table, an enhanced scan whose
 attention ignores its dropout multiplier, an attention core whose causal
-mask is off by one) and expects all four checks to fail.
+mask is off by one, a greedy decode whose blocks all read row 0's broadcast
+context, a scan forward whose layer 1 reads the broadcast h0 without its
+mask) and expects all six checks to fail.
 """
 
 from __future__ import annotations
 
+import contextlib
+import ctypes
 import dataclasses
 import functools
 import json
+import math
 import os
 import shutil
 import statistics
@@ -298,43 +316,318 @@ def sharpen_decoder(dec: dict) -> None:
     dec["output_projection"]["fc2"]["bias"][END] += 2.0
 
 
-def check_greedy(model32, feats32):
-    """Kernel vs plain at full width; returns (max |token diff| over the
-    float32 runs, bf16 rows identical, kernel ms, plain ms)."""
+REPEATS = 20  # runs of a chain kernel that must be bit-identical
+NEAR_TIE_ULPS = 4  # a bf16 row may depart only where the top two logits are this close
+CHUNK_BATCHES = (40, 5)  # #1 and #4/#5 at two chunks (the second of 8 rows) and one odd chunk
+
+
+@contextlib.contextmanager
+def recorded_logits(into: list):
+    """Append the logits of every step of ``G.greedy_decode_plain`` to
+    ``into``: the plain loop picks each token through ``G.next_token``."""
+    real = G.next_token
+
+    def record(logits, *args, **kwargs):
+        into.append(logits.detach().clone())
+        return real(logits, *args, **kwargs)
+
+    G.next_token = record
+    try:
+        yield into
+    finally:
+        G.next_token = real
+
+
+def departures(got, ref, logits, temp):
+    """For each row of ``got`` that departs from ``ref``: (row, first step
+    that differs, the top-two gap of ``ref``'s logits there after the
+    temperature, that gap in bf16 ulps of the top logit).  The rows agree
+    on every earlier token, so the gap says how near a tie the choice was."""
+    out = []
+    for r in (got != ref).any(dim=1).nonzero().flatten().tolist():
+        t = int((got[r] != ref[r]).nonzero()[0])
+        top = torch.topk(logits[t][r].double() / temp, 2).values.tolist()
+        ulp = 2.0 ** (math.floor(math.log2(max(abs(top[0]), 1e-30))) - 7)
+        out.append((r, t, top[0] - top[1], (top[0] - top[1]) / ulp))
+    return out
+
+
+def show_departures(dep) -> str:
+    return ", ".join(f"row {r} step {t} gap {g:.4g} ({u:.2f} ulp)"
+                     for r, t, g, u in dep) or "none"
+
+
+def check_greedy(decoder, feats32, mutant=False, timed=True):
+    """Kernel vs plain at full width, any batch; then the same call REPEATS
+    times, which must repeat bit for bit (a race in the cross-block
+    exchange shows there).  float32: every row identical to the plain
+    version.  bf16: against the plain version summed in float64 (the exact
+    trajectory of the rounded recurrence), at most one row in 32 (at least
+    one) may depart, and only at a near tie: at its first differing step the
+    float64 top-two logit gap must be within NEAR_TIE_ULPS bf16 ulps of the
+    top logit.  Two float32 summations each leave the float64 trajectory in
+    about one row of 32 where a rounding of h or of the logits lands the
+    other way, in different rows, so the plain float32 version is no sharper
+    reference than that; its departures and the kernel's rows against it
+    are printed beside.  Returns (max |token diff| over the float32 runs,
+    fewest bf16 rows identical, kernel ms, plain ms), the times only when
+    ``timed``."""
     B = feats32.shape[0]
+    allowed = -(-B // 32)
     max_diff, bf16_rows = 0, B
     for dtype in (torch.float32, torch.bfloat16):
         feats = feats32.to(dtype).contiguous()
-        w = G.greedy_operands(model32.decoder, dtype)
+        w = G.greedy_operands(decoder, dtype)
         f_proj = G.attention_feature_projection(w, feats)
         for temp in (1.0, 2.0):
             got = G.greedy_decode_cuda(w, feats, f_proj, max_length=MAX_LEN,
                                        temperature=temp)
-            ref = G.greedy_decode_plain(w, feats, f_proj, max_length=MAX_LEN,
-                                        temperature=temp)
+            ref32 = G.greedy_decode_plain(w, feats, f_proj, max_length=MAX_LEN,
+                                          temperature=temp)
+            with recorded_logits([]) as logits64:
+                ref64 = G.greedy_decode_plain(w, feats, f_proj,
+                                              max_length=MAX_LEN,
+                                              temperature=temp,
+                                              acc_dtype=torch.float64)
             torch.cuda.synchronize()
+            f32 = dtype == torch.float32
+            ref = ref32 if f32 else ref64
             distinct, ended = token_power(ref, B, "greedy")
             rows = int((got == ref).all(dim=1).sum())
             diff = int((got.long() - ref.long()).abs().max())
-            need = B if dtype == torch.float32 else B - 1
+            need = B if f32 else B - allowed
+            beside = int((got == ref32).all(dim=1).sum())
+            floor = int((ref64 == ref32).all(dim=1).sum())
+            ok = rows >= need
+            ties = ""
+            if not f32:
+                dep = departures(got, ref64, logits64, temp)
+                ok = ok and all(u <= NEAR_TIE_ULPS for *_, u in dep)
+                ties = (f"; kernel departs at {show_departures(dep)} (each "
+                        f"must be within {NEAR_TIE_ULPS} ulp); plain float32 "
+                        f"departs at {show_departures(departures(ref32, ref64, logits64, temp))}")
             print(f"greedy_decode B={B} {str(dtype)[6:]} T={temp}: "
-                  f"{rows}/{B} rows identical (need {need}); reference has "
-                  f"{distinct} distinct rows, {ended} ending "
-                  f"{'ok' if rows >= need else 'FAIL'}", flush=True)
-            if rows < need:
+                  f"{rows}/{B} rows identical to the plain version summed in "
+                  f"{'float32' if f32 else 'float64'} (need {need}); "
+                  f"reference has {distinct} distinct rows, {ended} ending; "
+                  f"beside: kernel vs plain float32 {beside}/{B}, plain "
+                  f"float32 vs float64 {floor}/{B}{ties} "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
                 fail("greedy kernel disagrees with its plain version")
-            if dtype == torch.float32:
+            if f32:
                 max_diff = max(max_diff, diff)
             else:
                 bf16_rows = min(bf16_rows, rows)
+        if not mutant:
+            same = all(torch.equal(got, G.greedy_decode_cuda(
+                w, feats, f_proj, max_length=MAX_LEN, temperature=temp))
+                for _ in range(REPEATS))
+            print(f"greedy_decode B={B} {str(dtype)[6:]}: {REPEATS} more runs "
+                  f"bit-identical to the first: {same} "
+                  f"{'ok' if same else 'FAIL'}", flush=True)
+            if not same:
+                fail("greedy kernel: repeated runs differ")
+    if mutant or not timed:
+        return max_diff, bf16_rows, None, None
     feats = feats32.to(torch.bfloat16).contiguous()
-    w = G.greedy_operands(model32.decoder, torch.bfloat16)
+    w = G.greedy_operands(decoder, torch.bfloat16)
     f_proj = G.attention_feature_projection(w, feats)
     kms = median_ms(lambda: G.greedy_decode_cuda(
         w, feats, f_proj, max_length=MAX_LEN), 20, 3)
     pms = median_ms(lambda: G.greedy_decode_plain(
         w, feats, f_proj, max_length=MAX_LEN), 10, 2)
     return max_diff, bf16_rows, kms, pms
+
+
+def check_chain_batches(g_decoder, s_decoder, dev):
+    """#1 and both forms of #4/#5 at the batches of CHUNK_BATCHES, which the
+    main path's shapes (B=32, B=16) do not reach: a launch of two chunks
+    whose second has 8 rows (mma pads them to 16), and one odd batch of 5.
+    Each is held against its plain version with the limits of the main
+    check, and a launch of several chunks must equal separate launches of
+    each chunk, bit for bit (rows are independent and every sum runs in a
+    fixed order)."""
+    cfg = decoder_cfg()
+    for B in CHUNK_BATCHES:
+        feats32 = torch.from_numpy(np.random.default_rng(SEED + 20 + B)
+                                   .standard_normal((B, cfg.feature_tokens,
+                                                     cfg.embed_size))
+                                   .astype(np.float32)).to(dev)
+        with torch.inference_mode():
+            check_greedy(g_decoder, feats32, timed=False)
+            for dtype in (torch.float32, torch.bfloat16):
+                feats = feats32.to(dtype).contiguous()
+                w = G.greedy_operands(g_decoder, dtype)
+                f_proj = G.attention_feature_projection(w, feats)
+                whole = G.greedy_decode_cuda(w, feats, f_proj,
+                                             max_length=MAX_LEN)
+                parts = torch.cat([G.greedy_decode_cuda(
+                    w, feats[b:b + 32].contiguous(),
+                    f_proj[b:b + 32].contiguous(), max_length=MAX_LEN)
+                    for b in range(0, B, 32)])
+                chunk_same(f"greedy_decode B={B} {str(dtype)[6:]}",
+                           [whole], [parts])
+        for dtype in (torch.float32, torch.bfloat16):
+            check_scan_forward(s_decoder, dev, dtype, B)
+
+
+def chunk_same(what, whole, parts):
+    same = all(torch.equal(x, y) for x, y in zip(whole, parts))
+    print(f"{what}: one launch of every chunk bit-identical to a launch per "
+          f"chunk: {same} {'ok' if same else 'FAIL'}", flush=True)
+    if not same:
+        fail(f"{what}: the chunked launch differs from its chunks' launches")
+
+
+def greedy_inputs(dev):
+    """The sharpened full-width decoder of the serving path (the same
+    weights ``main`` writes to its checkpoint) and features drawn per row."""
+    cfg = full_student_config(VOCAB)
+    params, _ = student_init(SEED, cfg)
+    sharpen_decoder(params["decoder"])
+    decoder = L.FullDecoder(cfg)
+    decoder.load_state_dict(CV.tree_to_state_dict(params["decoder"]),
+                            strict=True)
+    feats32 = torch.from_numpy(np.random.default_rng(SEED + 2).standard_normal(
+        (BATCH, cfg.feature_tokens, cfg.embed_size)).astype(np.float32)).to(dev)
+    return decoder.to(dev), feats32
+
+
+def ptxas_usage(src: str, kernel: str):
+    """Registers and spill bytes ptxas reported for each instance of
+    ``kernel`` in the build log of the library loaded for ``src``, by operand
+    type; None when that library has no log (it was not built here)."""
+    out, fn = {}, None
+    for line in _build.build_log(src).splitlines():
+        if "Compiling entry function" in line or "Function properties for" in line:
+            fn = line.split()[-3 if "Compiling" in line else -1].strip("'")
+        if fn is None or kernel not in fn:
+            continue
+        kind = "bf16" if "bfloat16" in fn else "float32"
+        rec = out.setdefault(kind, {})
+        if "spill stores" in line:
+            parts = line.replace(",", "").split()
+            rec["spill_stores"] = int(parts[parts.index("spill") - 2])
+            rec["spill_loads"] = int(parts[-4])
+        if "Used" in line and "registers" in line:
+            parts = line.split()
+            rec["registers"] = int(parts[parts.index("registers,") - 1]
+                                   if "registers," in parts
+                                   else parts[parts.index("registers") - 1])
+    return out or None
+
+
+PROBE = "chain_probe"  # csrc/chain_probe.cu: the chains' grid barrier alone
+
+
+def chain_barrier_ns(blocks: int, n: int, dev) -> list:
+    """Times of ``n`` empty grid barriers on ``blocks`` co-resident blocks of
+    512 threads in one cooperative launch, in ns each: block 0's clock64()
+    after every barrier, scaled to ns by the launch's %globaltimer span."""
+    lib = _build.library(PROBE)
+    fn = lib.ic_chain_barrier_probe
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
+    clk = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+    gt = torch.zeros(2, dtype=torch.int64, device=dev)
+    bar = torch.zeros(4, dtype=torch.int32, device=dev)
+    err = _build.call_on(dev, fn, blocks, n, clk.data_ptr(), gt.data_ptr(),
+                         bar.data_ptr())
+    _build.check(lib, err, "chain barrier probe")
+    clk, gt = clk.cpu().tolist(), gt.cpu().tolist()
+    ns_per_cycle = (gt[1] - gt[0]) / max(clk[-1] - clk[0], 1)
+    return [(b - a) * ns_per_cycle for a, b in zip(clk, clk[1:])]
+
+
+def chain_floors(dev):
+    """The least time each cooperative chain's barriers take: the median of
+    2,000 empty grid barriers at the chain's own grid (one launch each),
+    times the barriers a run of the chain crosses at the main path's shapes
+    (#1: 5 a step and 2 more for the last token, B=32, T=20; #4/#5: 5 a
+    step, T=47; #6's reverse chain: 5 a step less one)."""
+    cfg = decoder_cfg()
+    L_, E, H = cfg.feature_tokens, cfg.embed_size, cfg.hidden_size
+    bf = torch.bfloat16
+    chains = {
+        "greedy_decode": (G.greedy_blocks(bf, dev, L_, E, H, VOCAB),
+                          5 * MAX_LEN + 2),
+        "decoder_scan": (S.decoder_scan_blocks(bf, dev, L_, E, H), 5 * KD_T),
+        "decoder_scan_bwd": (S.chain_blocks(bf, dev, KD_B, L_, E, H),
+                             5 * KD_T - 1)}
+    out = {}
+    for name, (blocks, n_bar) in chains.items():
+        ns = statistics.median(chain_barrier_ns(blocks, 2000, dev))
+        out[name] = dict(blocks=blocks, barrier_us=ns / 1e3, barriers=n_bar,
+                         floor_ms=n_bar * ns / 1e6)
+        print(f"chain floor {name}: {blocks} blocks, median barrier "
+              f"{ns / 1e3:.3f} us x {n_bar} barriers = "
+              f"{n_bar * ns / 1e6:.4f} ms", flush=True)
+    return out
+
+
+# dense at bf16 where the main paths run it: serving's f_proj (B=32 x 49
+# tokens), the KD step's output head fc1 and fc2 (T=47 x B=16 rows)
+DENSE_SHAPES = [(BATCH * 49, 256, 256), (KD_T * KD_B, 512, 256),
+                (KD_T * KD_B, 256, VOCAB)]
+
+
+def check_dense(dev):
+    """``core.modules.dense`` at bf16 on the card against its float32 form
+    (operands widened to float32, the product in float32), forward and both
+    gradients: each element within one bf16 ulp of the float32 form's, plus
+    what two float32 sums of the same exact products may differ by in any
+    order (K·2⁻²⁴·Σ|terms|, which matters only where the sum cancels to a
+    value far below its terms).  Then the profiler's kernel names of one
+    call: a bf16 product and no float32 GEMM."""
+    rng = np.random.default_rng(SEED + 9)
+    u32 = 2.0 ** -24
+    for rows, k, n in DENSE_SHAPES:
+        x = seeded(rng, (rows, k), dev, torch.bfloat16)
+        w = seeded(rng, (n, k), dev, scale=k ** -0.5)
+        b = seeded(rng, (n,), dev)
+        dy = seeded(rng, (rows, n), dev, torch.bfloat16)
+        xa, wa = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        got = M.dense(xa, wa, b)
+        got.backward(dy)
+        xb, wb = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        ref = F.linear(xb.float(), wb.to(torch.bfloat16).float(),
+                       b).to(torch.bfloat16)
+        ref.backward(dy)
+        ax, aw, ag = (t.float().abs() for t in (x, w.to(torch.bfloat16), dy))
+        terms = {"y": (k, ax @ aw.t() + b.abs()), "dx": (n, ag @ aw),
+                 "dW": (rows, ag.t() @ ax)}
+        torch.cuda.synchronize()
+        worst = 0.0
+        for name, g, r in (("y", got, ref), ("dx", xa.grad, xb.grad),
+                           ("dW", wa.grad, wb.grad)):
+            r = r.float()
+            ulp = torch.exp2(torch.floor(torch.log2(r.abs().clamp_min(1e-30)))
+                             - 7)
+            K, mag = terms[name]
+            over = ((g.float() - r).abs() / (ulp + K * u32 * mag)).max().item()
+            worst = max(worst, over)
+        ok = got.dtype == torch.bfloat16 and worst <= 1.0
+        print(f"dense bf16 ({rows}x{k}) -> {n}: largest error {worst:.3f} of "
+              f"its bound (one bf16 ulp + the float32 sum-order bound) over "
+              f"y, dx, dW (limit 1) {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fail("bf16 dense disagrees with its float32 form")
+    x = seeded(rng, DENSE_SHAPES[2][:2], dev, torch.bfloat16)
+    w = seeded(rng, DENSE_SHAPES[2][2:0:-1], dev)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        M.dense(x, w, None)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    gemms = [k for k in names if "gemm" in k.lower() or "xmma" in k.lower()
+             or "cutlass" in k.lower()]
+    # a float32 GEMM (sgemm, or any product kernel without bf16 operands)
+    ok = bool(gemms) and all("bf16" in k.lower() for k in gemms)
+    print(f"dense bf16 kernels: {gemms} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail("bf16 dense did not run a bf16 product, or ran a float32 GEMM")
 
 
 def nbytes(*tensors) -> int:
@@ -401,17 +694,18 @@ def check_attention_kd(dev, gen):
             fail("attention gradients disagree with the plain version's")
 
 
-def scan_operands(decoder, dev, dtype, seed):
-    """The twelve operands of the decoder scan at the KD shapes, from a
-    full-width decoder at its default init, seeded features, tokens and a
-    keep-0.7 dropout mask, prepared as ``full_decoder_apply`` prepares them."""
+def scan_operands(decoder, dev, dtype, seed, B=KD_B):
+    """The twelve operands of the decoder scan at the KD shapes (batch ``B``),
+    from a full-width decoder at its default init, seeded features, tokens
+    and a keep-0.7 dropout mask, prepared as ``full_decoder_apply`` prepares
+    them."""
     cfg = decoder_cfg()
     rng = np.random.default_rng(seed)
     feats = torch.from_numpy(rng.standard_normal(
-        (KD_B, cfg.feature_tokens, cfg.embed_size)).astype(np.float32)
+        (B, cfg.feature_tokens, cfg.embed_size)).astype(np.float32)
         ).to(dev).to(dtype)
-    caps = torch.from_numpy(rng.integers(0, VOCAB, (KD_T, KD_B))).to(dev)
-    keep = torch.from_numpy(rng.random((KD_T, KD_B, cfg.hidden_size)) < 0.7)
+    caps = torch.from_numpy(rng.integers(0, VOCAB, (KD_T, B))).to(dev)
+    keep = torch.from_numpy(rng.random((KD_T, B, cfg.hidden_size)) < 0.7)
     mask = (keep.float() / 0.7).to(dev)
     E, H = cfg.embed_size, cfg.hidden_size
     with torch.no_grad():
@@ -466,10 +760,53 @@ def report(what, rows, limit, floor=None, mean=False, brief=False):
     return worst
 
 
-def check_scan(decoder, dev, mutant=False):
-    """Decoder-scan kernels against their plain versions at the KD shapes.
-    Returns the operands and residuals at bf16 for the timings, and the
-    largest absolute errors of the bf16 (main path) forward and backward."""
+def scan_chunk(ops, b, n):
+    """The scan operands of batch rows [b, b + n): emb_w and mask are
+    (T, B, ·), f_proj and feats (B, L, E), the weights shared."""
+    emb_w, f_proj, feats, mask = ops[:4]
+    return (emb_w[:, b:b + n].contiguous(), f_proj[b:b + n].contiguous(),
+            feats[b:b + n].contiguous(),
+            None if mask is None else mask[:, b:b + n].contiguous()) + ops[4:]
+
+
+def check_scan_forward(decoder, dev, dtype, B):
+    """Both forms of #4/#5 at batch ``B`` against their plain versions with
+    the main check's limits, and one launch against a launch per chunk of
+    32 rows, bit for bit."""
+    fwd_names = ("h_tops", "attn", "h0s", "c0s", "c1s")
+    tag = f"B={B} {str(dtype)[6:]}"
+    ops = scan_operands(decoder, dev, dtype, SEED + 30 + B, B)
+    nomask = ops[:3] + (None,) + ops[4:]
+    limit = SCAN_LIMIT[dtype] if dtype == torch.float32 \
+        else SCAN_FWD_BF16_LIMIT
+    with torch.no_grad():
+        got = S.decoder_scan_cuda(*ops, residuals=True)
+        got_e = S.decoder_scan_cuda(*nomask)
+        ref = S.decoder_scan_plain(*ops, residuals=True)
+        ref64 = S.decoder_scan_plain(*ops, residuals=True,
+                                     acc_dtype=torch.float64)
+        ref_e = S.decoder_scan_plain(*nomask)
+        parts = [S.decoder_scan_cuda(*scan_chunk(ops, b, 32), residuals=True)
+                 for b in range(0, B, 32)]
+        parts_e = [S.decoder_scan_cuda(*scan_chunk(nomask, b, 32))
+                   for b in range(0, B, 32)]
+    torch.cuda.synchronize()
+    report(f"decoder_scan {tag} train form", rel_errs(fwd_names, got, ref),
+           limit, rel_errs(fwd_names, ref64, ref))
+    report(f"decoder_scan {tag} eval form",
+           rel_errs(fwd_names[:2], got_e, ref_e), limit)
+    chunk_same(f"decoder_scan {tag} both forms", list(got) + list(got_e),
+               [torch.cat(x, dim=1) for x in zip(*parts)]
+               + [torch.cat(x, dim=1) for x in zip(*parts_e)])
+
+
+def check_scan(decoder, dev, mutant=None):
+    """Decoder-scan kernels against their plain versions at the KD shapes;
+    the forward repeated REPEATS times and the backward twice, each run
+    bit-identical to the first.  Returns the operands and residuals at bf16
+    for the timings, and the largest absolute errors of the bf16 (main
+    path) forward and backward.  ``mutant``: "fwd" or "bwd", the kernel a
+    mutation run planted a fault in; only its checks run."""
     fwd_names = ("h_tops", "attn", "h0s", "c0s", "c1s")
     kept = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -486,12 +823,27 @@ def check_scan(decoder, dev, mutant=False):
         torch.cuda.synchronize()
         limit = SCAN_LIMIT[dtype] if dtype == torch.float32 \
             else SCAN_FWD_BF16_LIMIT
-        if not mutant:
+        if mutant != "bwd":
             fwd_err = report(f"decoder_scan {tag} train form",
                              rel_errs(fwd_names, got, ref), limit,
                              rel_errs(fwd_names, ref64, ref))
             report(f"decoder_scan {tag} eval form",
                    rel_errs(fwd_names[:2], got_e, ref_e), limit)
+        if mutant is None:  # no atomics, sums in a fixed order
+            with torch.no_grad():
+                same = all(
+                    all(torch.equal(x, y) for x, y in zip(got, S.decoder_scan_cuda(
+                        *ops, residuals=True)))
+                    and all(torch.equal(x, y) for x, y in zip(
+                        got_e, S.decoder_scan_cuda(*nomask)))
+                    for _ in range(REPEATS))
+            print(f"decoder_scan {tag}: {REPEATS} more runs of both forms "
+                  f"bit-identical to the first: {same} "
+                  f"{'ok' if same else 'FAIL'}", flush=True)
+            if not same:
+                fail(f"decoder_scan {tag}: repeated runs differ")
+        if mutant == "fwd":
+            continue
         rng = np.random.default_rng(SEED + 6)
         dh = torch.from_numpy(rng.standard_normal(got[0].shape).astype(
             np.float32)).to(dev).to(dtype)
@@ -504,7 +856,7 @@ def check_scan(decoder, dev, mutant=False):
         torch.cuda.synchronize()
         bwd_err = report(f"decoder_scan_bwd {tag}", rel_errs(S.GRADS, gk, gp),
                          SCAN_LIMIT[dtype])
-        if not mutant:  # every sum in a fixed order: runs repeat bit for bit
+        if mutant is None:  # every sum in a fixed order: runs repeat bit for bit
             with torch.no_grad():
                 again = S.decoder_scan_bwd_cuda(res, dh, da)
             torch.cuda.synchronize()
@@ -513,7 +865,7 @@ def check_scan(decoder, dev, mutant=False):
                   f"first: {same} {'ok' if same else 'FAIL'}", flush=True)
             if not same:
                 fail(f"decoder_scan_bwd {tag}: a second run differs")
-        if dtype == torch.bfloat16 and not mutant:
+        if dtype == torch.bfloat16 and mutant is None:
             kept = dict(ops=ops, nomask=nomask, res=res, dh=dh, da=da,
                         fwd_err=fwd_err, bwd_err=bwd_err)
     return kept
@@ -960,7 +1312,7 @@ def run_kd(dev, tmp, variant="full"):
     state, s_cfg, _ = TK.train_student_with_kd(
         train_loader, val_loader, vocab, ckpt, out, num_epochs=1,
         compute_dtype=torch.bfloat16, seed=SEED, device=dev, verbose=False,
-        student_variant=variant)
+        student_variant=variant, data_parallel=False)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = kd_counters(variant)
@@ -1571,12 +1923,22 @@ def compare_card_cpu(both, variant):
                  "CPU's")
 
 
+def forget_libraries() -> None:
+    """Drop every loaded kernel library and the grids asked of them, so that
+    the next launch loads the library built from the current
+    ``_build.CSRC``."""
+    _build._LIBS.clear()
+    _build._GRIDS.clear()
+    A._KERNEL = G._GREEDY = S._FWD = S._BWD = None
+
+
 def mutant_caught(source: str, good: str, bad: str, check, what: str) -> bool:
     """Build a copy of ``csrc/`` in which one line of ``source`` is replaced
     and run ``check`` on it: the check must fail.  The copy lives in a
     temporary directory; the repository's sources are not touched."""
     tmp = tempfile.mkdtemp(prefix="ic_mutant_")
     real = _build.CSRC
+    forget_libraries()
     try:
         for f in real.glob("*.cu*"):
             shutil.copy(f, tmp)
@@ -1597,18 +1959,34 @@ def mutant_caught(source: str, good: str, bad: str, check, what: str) -> bool:
         return False
     finally:
         _build.CSRC = real
+        forget_libraries()
         shutil.rmtree(tmp, ignore_errors=True)
 
 
 def run_mutation(dev) -> int:
-    """Four planted faults, each of which its check must catch: the scan
+    """Six planted faults, each of which its check must catch: the scan
     backward without the dropout mask on layer 1's input gradient (``dh0 =
     dh0_c + (dgp1·W_ih1ᵀ) · mask``), a beam self-attention that reads its
     own slot's cache row instead of ``anc[n, i, s]``, an enhanced scan
-    whose attention heads ignore their dropout multiplier ``amask``, and an
-    attention core whose causal mask lets each row see one key ahead."""
+    whose attention heads ignore their dropout multiplier ``amask``, an
+    attention core whose causal mask lets each row see one key ahead, and
+    two faults in the cross-block exchange of the cooperative chains: a
+    greedy decode whose blocks all read batch row 0's context from L2 when
+    they build x0, and a scan forward whose layer 1 reads the broadcast h0
+    without its dropout mask."""
     decoder = make_decoder(dev)
+    g_decoder, g_feats = greedy_inputs(dev)
     caught = [
+        mutant_caught("greedy_decode.cu",
+                      "ctxsrc{a.ctx, E, E, nullptr}",
+                      "ctxsrc{a.ctx, 0, E, nullptr}",
+                      lambda: check_greedy(g_decoder, g_feats, mutant=True),
+                      "every row reads row 0's broadcast context"),
+        mutant_caught("decoder_scan.cu",
+                      "const float fed = a.mask ? h * a.mask[n * H + j] : h;",
+                      "const float fed = h;",
+                      lambda: check_scan(decoder, dev, mutant="fwd"),
+                      "layer 1 reads the broadcast h0 without its mask"),
         mutant_caught("attention_core.cu",
                       "if (col >= Lk || (causal && col > row)) x = -INFINITY;",
                       "if (col >= Lk || (causal && col > row + 1)) x = -INFINITY;",
@@ -1618,7 +1996,7 @@ def run_mutation(dev) -> int:
         mutant_caught("decoder_scan_bwd.cu",
                       "const float dh0 = a.dh0c[rj] + s.px[r * CMAX + c] * m;",
                       "const float dh0 = a.dh0c[rj] + s.px[r * CMAX + c];",
-                      lambda: check_scan(decoder, dev, mutant=True),
+                      lambda: check_scan(decoder, dev, mutant="bwd"),
                       "no dropout mask on d(h0)"),
         mutant_caught("beam_attention.cu",
                       "rows[s] = n * K + anc[(size_t)r * S + s];",
@@ -1662,8 +2040,9 @@ def main() -> int:
     if "--mutation" in sys.argv[1:]:
         return run_mutation(dev)
 
-    secs = _build.build_all()
-    print(f"built {', '.join(_build.SOURCES)} in {secs:.1f} s", flush=True)
+    secs = _build.build_all(_build.SOURCES + (PROBE,))
+    print(f"built {', '.join(_build.SOURCES + (PROBE,))} in {secs:.1f} s",
+          flush=True)
     for src in _build.SOURCES:
         for line in _build.build_log(src).splitlines():
             if "registers" in line or "spill" in line:
@@ -1671,7 +2050,8 @@ def main() -> int:
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
-    # --- 4. attention kernel vs plain ---------------------------------
+    # --- 4. dense at bf16 on tensor cores; attention kernel vs plain --------
+    check_dense(dev)
     attn_err = check_attention(dev, gen)
     check_attention_kd(dev, gen)
     attn_t = time_attention(dev, gen)
@@ -1710,10 +2090,11 @@ def main() -> int:
         (BATCH, cfg.feature_tokens, cfg.embed_size)).astype(np.float32)).to(dev)
     with torch.inference_mode():
         greedy_diff, bf16_rows, greedy_ms, greedy_plain_ms = check_greedy(
-            model32, feats32)
+            model32.decoder, feats32)
 
     # --- 6. decoder-scan kernels vs plain, at the KD step's shapes --------
     scan = check_scan(make_decoder(dev), dev)
+    check_chain_batches(model32.decoder, make_decoder(dev), dev)
     scan_t = time_scan(scan)
     scan_b = scan_bounds(scan)
 
@@ -1812,6 +2193,10 @@ def main() -> int:
     del c_model32, e_model32
 
     # --- 13./14. timings, bounds and the result lines ----------------------
+    floors = chain_floors(dev)
+    usage = {src: ptxas_usage(src, kernel) for src, kernel in (
+        ("greedy_decode", "greedy_kernel"), ("decoder_scan", "scan_kernel"),
+        ("decoder_scan_bwd", "chain_kernel"))}
     print(f"greedy_decode B=32 T=20 bf16: kernel {greedy_ms:.4f} ms, "
           f"plain {greedy_plain_ms:.4f} ms")
     print_scan_times(scan_t, scan_b)
@@ -1887,16 +2272,25 @@ def main() -> int:
         entry("greedy_decode", "greedy_decode.cu", "pallas_greedy.py:258",
               launches["greedy_decode"], greedy_diff, greedy_ms,
               greedy_plain_ms, greedy_bound,
-              bf16_rows_identical=f"{bf16_rows}/{BATCH}"),
+              bf16_rows_identical=f"{bf16_rows}/{BATCH}",
+              chain_floor_ms=floors["greedy_decode"]["floor_ms"],
+              chain=floors["greedy_decode"], ptxas=usage["greedy_decode"]),
         entry("decoder_scan", "decoder_scan.cu", f"{lstm}:267",
               kd_launches["decoder_scan"], scan["fwd_err"],
-              scan_t["eval_ms"], scan_t["plain_eval_ms"], scan_b["eval"]),
+              scan_t["eval_ms"], scan_t["plain_eval_ms"], scan_b["eval"],
+              chain_floor_ms=floors["decoder_scan"]["floor_ms"],
+              chain=floors["decoder_scan"], ptxas=usage["decoder_scan"]),
         entry("decoder_scan_train", "decoder_scan.cu", f"{lstm}:339",
               kd_launches["decoder_scan_train"], scan["fwd_err"],
-              scan_t["train_ms"], scan_t["plain_train_ms"], scan_b["train"]),
+              scan_t["train_ms"], scan_t["plain_train_ms"], scan_b["train"],
+              chain_floor_ms=floors["decoder_scan"]["floor_ms"],
+              ptxas=usage["decoder_scan"]),
         entry("decoder_scan_bwd", "decoder_scan_bwd.cu", f"{lstm}:1037",
               kd_launches["decoder_scan_bwd"], scan["bwd_err"],
               scan_t["bwd_ms"], scan_t["plain_bwd_ms"], scan_b["bwd"],
+              chain_floor_ms=floors["decoder_scan_bwd"]["floor_ms"],
+              chain=floors["decoder_scan_bwd"],
+              ptxas=usage["decoder_scan_bwd"],
               recompute_ms=scan_t["bwd_stage0_ms"],
               chain_ms=scan_t["bwd_stage1_ms"],
               reductions_ms=scan_t["bwd_stage2_ms"],

@@ -41,11 +41,56 @@ def _param(*shape) -> nn.Parameter:
 def dense(x: torch.Tensor, weight: torch.Tensor,
           bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``x @ W.T + b`` (weight torch-layout (out, in)) with float32
-    accumulation and a float32 bias; the weight rides in the activation dtype
-    as in ``modules.dense``."""
+    accumulation and a float32 bias added before the one rounding to
+    ``x.dtype``; the weight rides in the activation dtype as in
+    ``modules.dense``.  A bf16 CUDA tensor multiplies its bf16 operands on
+    tensor cores (``_DenseBf16``); elsewhere the operands are widened to
+    float32 for the same values (a bf16 x bf16 product is exact in float32;
+    the CPU has no bf16 product with a float32 result)."""
+    if x.is_cuda and x.dtype == torch.bfloat16:
+        return _DenseBf16.apply(x, weight, bias)
     w = weight.to(x.dtype).float()
     b = None if bias is None else bias.float()
     return F.linear(x.float(), w, b).to(x.dtype)
+
+
+class _DenseBf16(torch.autograd.Function):
+    """bf16 ``dense`` on the card: ``torch.addmm(b, x, Wᵀ, out_dtype=float32)``
+    (bf16 operands, float32 accumulation and result, float32 bias), then one
+    rounding to bf16, as JAX's ``dot_general(preferred_element_type=f32)``.
+    The float32-result product has no autograd formula, so the backward is
+    written out with the same products: dx = dtype(dy·W), dW = dtype(dyᵀ·x)
+    widened to the weight's dtype (the gradient of its cast to bf16), db =
+    sum of dy in float32; the same values as autograd through the
+    float32 form."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias):
+        w = weight.to(torch.bfloat16)
+        x2 = x.reshape(-1, x.shape[-1])
+        if bias is None:
+            y = torch.mm(x2, w.t(), out_dtype=torch.float32)
+        else:
+            y = torch.addmm(bias.float(), x2, w.t(), out_dtype=torch.float32)
+        ctx.save_for_backward(x2, w)
+        ctx.shapes = x.shape, weight.dtype, None if bias is None else bias.dtype
+        return y.to(torch.bfloat16).reshape(*x.shape[:-1], w.shape[0])
+
+    @staticmethod
+    def backward(ctx, dy):
+        x2, w = ctx.saved_tensors
+        x_shape, w_dtype, b_dtype = ctx.shapes
+        g = dy.reshape(-1, dy.shape[-1]).to(torch.bfloat16)
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.mm(g, w, out_dtype=torch.float32).to(
+                torch.bfloat16).reshape(x_shape)
+        if ctx.needs_input_grad[1]:
+            dw = torch.mm(g.t(), x2, out_dtype=torch.float32).to(
+                torch.bfloat16).to(w_dtype)
+        if b_dtype is not None and ctx.needs_input_grad[2]:
+            db = g.float().sum(0).to(b_dtype)
+        return dx, dw, db
 
 
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, *,

@@ -51,29 +51,13 @@
 // recompute and the weight gradients are bound by float32 operations on
 // CUDA cores (about 2·N·(4H·(E + 3H) + E·H + E·E) each, 5.8 GFLOP at T=47,
 // B=16, E=256, H=512).  No library kernel (cuBLAS, cuDNN) is called.
+//
+// The grid barrier, the slice staging and the column ownership (`Owned`)
+// are shared with the forward chains, in chain.cuh.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "chain.cuh"
 
 namespace {
-
-typedef __nv_bfloat16 bf16;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)); }
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// A load of data written earlier in the same kernel by another block: from
-// L2, never from this SM's (incoherent) L1.
-__device__ __forceinline__ float ld_cg(const float* p) { return __ldcg(p); }
 
 // ---------------------------------------------------------------------------
 // Operands
@@ -270,19 +254,6 @@ constexpr int CHAIN_THREADS = 512;
 constexpr int CHAIN_WARPS = CHAIN_THREADS / 32;
 constexpr int CMAX = 4;  // most columns a block owns on either side
 
-// What block `blk` of `nblk` owns: columns [h0, h1) of H, [e0, e1) of E,
-// (row, token) pairs [p0, p1) of B·L, (row, column) pairs [q0, q1) of B·E.
-struct Owned {
-  int h0, h1, e0, e1, p0, p1, q0, q1;
-  __device__ Owned(int blk, int nblk, int B, int L, int E, int H)
-      : h0((int)((long long)blk * H / nblk)), h1((int)((long long)(blk + 1) * H / nblk)),
-        e0((int)((long long)blk * E / nblk)), e1((int)((long long)(blk + 1) * E / nblk)),
-        p0((int)((long long)blk * B * L / nblk)),
-        p1((int)((long long)(blk + 1) * B * L / nblk)),
-        q0((int)((long long)blk * B * E / nblk)),
-        q1((int)((long long)(blk + 1) * B * E / nblk)) {}
-};
-
 // out_x[r * CMAX + c] = sum_k D[r, k] X[k * CMAX + c] for r < B, c < nc,
 // and the same for Y when given (into out_y).  X and Y are column slices in
 // shared memory; D is (B, K) float32 written in this kernel; a warp takes a
@@ -469,41 +440,10 @@ __device__ void phase_e(const Args<T>& a, const Owned& o, float* ds_s, float* do
   }
 }
 
-// Sense-reversing grid barrier over co-resident blocks (a cooperative
-// launch guarantees residency).  Writes before it are visible after it to
-// loads that bypass L1 (ld_cg).
-__device__ __forceinline__ void grid_barrier(unsigned* bar, unsigned nblocks) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    volatile unsigned* gen = bar + 1;
-    const unsigned g = *gen;
-    __threadfence();
-    if (atomicAdd(bar, 1u) == nblocks - 1) {
-      atomicExch(bar, 0u);
-      __threadfence();
-      atomicAdd(bar + 1, 1u);
-    } else {
-      while (*gen == g) __nanosleep(32);
-    }
-    __threadfence();
-  }
-  __syncthreads();
-}
-
 template <typename T>
 __host__ __device__ inline size_t chain_smem_bytes(int B, int L, int E, int H) {
   return (sizeof(T) * (size_t)CMAX * (3 * 4 * H + E + 4 * H + E) + 4 * (size_t)B * CMAX * 2 +
           4 * (size_t)(B * L + B) + 15) / 16 * 16;
-}
-
-// Stage a (rows x nc) column slice of W (row stride ld, first column c0)
-// into shared memory with row stride CMAX; columns >= nc are zero.
-template <typename T>
-__device__ void stage_slice(T* dst, const T* W, int ld, int c0, int rows, int nc) {
-  for (int i = threadIdx.x; i < rows * CMAX; i += CHAIN_THREADS) {
-    const int k = i / CMAX, c = i % CMAX;
-    dst[i] = c < nc ? W[(size_t)k * ld + c0 + c] : T(0.f);
-  }
 }
 
 template <typename T>
@@ -520,12 +460,12 @@ __global__ void __launch_bounds__(CHAIN_THREADS, 1) chain_kernel(const Args<T> a
   T* wh = hh0 + 4 * H * CMAX;
   T* ih0 = wh + E * CMAX;
   T* wc = ih0 + 4 * H * CMAX;
-  stage_slice(ih1, a.w_ih1, H, o.h0, 4 * H, nh);
-  stage_slice(hh1, a.w_hh1, H, o.h0, 4 * H, nh);
-  stage_slice(hh0, a.w_hh0, H, o.h0, 4 * H, nh);
-  stage_slice(wh, a.w_h, a.ld_h, o.h0, E, nh);
-  stage_slice(ih0, a.w_ih0, E, o.e0, 4 * H, ne);
-  stage_slice(wc, a.w_c, a.ld_c, o.e0, E, ne);
+  stage_slice(ih1, a.w_ih1, H, o.h0, 4 * H, nh, CMAX);
+  stage_slice(hh1, a.w_hh1, H, o.h0, 4 * H, nh, CMAX);
+  stage_slice(hh0, a.w_hh0, H, o.h0, 4 * H, nh, CMAX);
+  stage_slice(wh, a.w_h, a.ld_h, o.h0, E, nh, CMAX);
+  stage_slice(ih0, a.w_ih0, E, o.e0, 4 * H, ne, CMAX);
+  stage_slice(wc, a.w_c, a.ld_c, o.e0, E, ne, CMAX);
   s.w_ih1 = ih1;
   s.w_hh1 = hh1;
   s.w_hh0 = hh0;

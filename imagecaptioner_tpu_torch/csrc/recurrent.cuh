@@ -1,9 +1,11 @@
-// Device helpers shared by the recurrent kernels (greedy_decode.cu,
-// greedy_decode_compact.cu, decoder_scan.cu, decoder_scan_bwd.cu,
-// compact_scan.cu, enhanced_scan.cu): one block of THREADS threads owns
-// one batch row; weights are read in their torch (out, in) layout, one warp
-// per output row with 16-byte loads, ROWS rows in flight per warp, against
-// a float32 vector in shared memory.
+// Device helpers shared by the recurrent kernels.  The elementwise ones
+// (conversions, sigmoid, sums, softmax, argmax rules, emit_token) serve all
+// of them; gemv and block_argmax serve the kernels in which one block of
+// THREADS threads owns one batch row (greedy_decode_compact.cu,
+// compact_scan.cu, enhanced_scan.cu): weights are read in their torch (out,
+// in) layout, one warp per output row with 16-byte loads, ROWS rows in
+// flight per warp, against a float32 vector in shared memory.  The
+// cooperative chains build on chain.cuh.
 
 #pragma once
 

@@ -5,7 +5,8 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its own:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -Xptxas -v -o _build/lib<name>-<hash>.so csrc/<name>.cu
 
-into ``imagecaptioner_tpu_torch/_build/`` (listed in ``.gitignore``).  The
+into ``imagecaptioner_tpu_torch/_build/`` (listed in ``.gitignore``), with
+nvcc's output beside it as ``lib<name>-<hash>.log``.  The
 library name carries a hash of the source and of the shared ``csrc/*.cuh``
 headers, so an edited source rebuilds and a stale library is never loaded.  Importing this module needs no nvcc:
 nothing is compiled until a kernel is first launched or ``build_all`` runs.
@@ -34,6 +35,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_GRIDS: Dict[tuple, tuple] = {}  # cooperative_grid's answers, by key
 
 
 def nvcc() -> str:
@@ -71,7 +73,7 @@ def _start(name: str):
 def _finish(name: str, job) -> None:
     proc, tmp, lib = job
     out, _ = proc.communicate()
-    (BUILD / f"{name}.log").write_text(out)
+    lib.with_suffix(".log").write_text(out)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{out}")
     os.replace(tmp, lib)
@@ -89,7 +91,10 @@ def build_all(names: Iterable[str] = SOURCES) -> float:
 
 
 def build_log(name: str) -> str:
-    path = BUILD / f"{name}.log"
+    """nvcc's output for the library the current ``csrc/<name>.cu`` and
+    headers make, ptxas' lines included; "" if that library was not built
+    here (a library built from other sources leaves its own log)."""
+    path = _lib_path(name).with_suffix(".log")
     return path.read_text() if path.exists() else ""
 
 
@@ -119,3 +124,29 @@ def call_on(dev: torch.device, fn, *args):
         return fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
     with torch.cuda.device(dev):
         return fn(*args, torch.cuda.current_stream().cuda_stream)
+
+
+def cooperative_grid(key: tuple, query, what: str, caps=()) -> int:
+    """The grid of a cooperative chain kernel, asked once per ``key`` (the
+    kernel's name, dtype, device and shape; ``key[2]`` is the device):
+    ``query(smem)`` is the library's blocks function, which stores the
+    kernel's shared bytes through the ``c_longlong`` pointer ``smem`` and
+    returns the blocks the card holds at once (0: none; negative: a CUDA
+    error).  Raises unless the kernel fits and each block owns at most
+    ``cap`` of the ``size`` columns of every ``(name, size, cap)`` in
+    ``caps``."""
+    if key not in _GRIDS:
+        smem = ctypes.c_longlong()
+        with torch.cuda.device(key[2]):
+            _GRIDS[key] = query(ctypes.byref(smem)), smem.value
+    n, smem = _GRIDS[key]
+    if n <= 0:
+        why = f"; CUDA error {-n}" if n < 0 else ""
+        raise RuntimeError(f"{what}: {smem} bytes of shared memory a block do "
+                           f"not fit an SM of this card{why}")
+    for name, size, cap in caps:
+        if -(-size // n) > cap:
+            raise ValueError(f"{what}: {n} cooperative blocks own at most "
+                             f"{cap} columns of {name} each, too few for "
+                             f"{name}={size}")
+    return n

@@ -3,8 +3,8 @@
 ``pallas_greedy_decode_compact`` at the end of this file).
 
 ``greedy_operands`` gathers the decoder weights in their torch (out, in)
-layout, which is also the layout the kernel reads (one warp per output row);
-only the two LSTM bias vectors are summed and made float32.
+layout, which is also the layout the kernel reads (each block stages the
+rows it owns); only the two LSTM bias vectors are summed and made float32.
 ``attention_feature_projection`` computes ``f_proj = feats·W_f + b_attn``
 outside the loop, as ``pallas_greedy.py:270-274`` does.
 
@@ -13,8 +13,10 @@ float32 and rounds each matmul input to the activation dtype exactly where
 the Pallas kernel does, so at float32 it is token-identical to both JAX
 greedy paths.  Given a ``torch.Generator`` it samples from
 softmax(logits / temperature) instead of taking the argmax.
-``greedy_decode_cuda`` launches ``csrc/greedy_decode.cu`` and raises on
-anything the kernel does not take.
+``greedy_decode_cuda`` launches ``csrc/greedy_decode.cu``, one cooperative
+kernel over the whole card (one block an SM, asked once per device and
+shape), and raises on anything the kernel does not take, a card too small
+for it included.
 """
 
 from __future__ import annotations
@@ -75,48 +77,51 @@ def attention_feature_projection(w: Operands, feats: torch.Tensor
 
 def greedy_decode_plain(w: Operands, feats: torch.Tensor, f_proj: torch.Tensor,
                         *, max_length: int = 20, temperature: float = 1.0,
-                        generator: Optional[torch.Generator] = None
+                        generator: Optional[torch.Generator] = None,
+                        acc_dtype: torch.dtype = torch.float32
                         ) -> torch.Tensor:
     """Plain PyTorch version of the kernel.  Returns (B, max_length) int32;
-    PAD at and after the first END."""
+    PAD at and after the first END.  ``acc_dtype`` is the type the sums
+    run in (float64 shows what summation order alone moves)."""
     B, L, E = feats.shape
     H = w["w_hh0"].shape[1]
-    dt = feats.dtype
+    dt, acc = feats.dtype, acc_dtype
 
-    def rd(x):  # round a float32 value to the activation dtype
-        return x.to(dt).float()
+    def rd(x):  # round an accumulator value to the activation dtype
+        return x.to(dt).to(acc)
 
-    # weights in the activation dtype, widened once to float32 (transposed)
-    wt = {k: w[k].to(dt).float().t() for k in
+    # weights in the activation dtype, widened once (transposed)
+    wt = {k: w[k].to(dt).to(acc).t() for k in
           ("w_ih0", "w_hh0", "w_ih1", "w_hh1", "fc1_w", "fc2_w")}
-    w_h = w["w_attn"][:, :H].to(dt).float().t()
-    w_e = w["w_comb"][:, :E].to(dt).float().t()
-    w_c = w["w_comb"][:, E:].to(dt).float().t()
+    w_h = w["w_attn"][:, :H].to(dt).to(acc).t()
+    w_e = w["w_comb"][:, :E].to(dt).to(acc).t()
+    w_c = w["w_comb"][:, E:].to(dt).to(acc).t()
+    b = {k: w[k].to(acc) for k in ("b_comb", "b0", "b1", "fc1_b", "fc2_b")}
 
     def cell(x, h, c, layer):
         gates = (x @ wt[f"w_ih{layer}"] + h @ wt[f"w_hh{layer}"]
-                 + w[f"b{layer}"])
+                 + b[f"b{layer}"])
         i, f, g, o = gates.chunk(4, dim=-1)
         c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
         return torch.sigmoid(o) * torch.tanh(c), c
 
-    fp, ft = f_proj.float(), feats.float()
+    fp, ft = f_proj.to(acc), feats.to(acc)
     dev = feats.device
-    h0 = c0 = h1 = c1 = torch.zeros(B, H, device=dev)
+    h0 = c0 = h1 = c1 = torch.zeros(B, H, device=dev, dtype=acc)
     tok = torch.full((B,), START, dtype=torch.long, device=dev)
     done = torch.zeros(B, dtype=torch.bool, device=dev)
     out = torch.full((B, max_length), PAD, dtype=torch.int32, device=dev)
     for t in range(max_length):
-        emb = w["emb"][tok].float()
+        emb = w["emb"][tok].to(acc)
         hw = rd(h1) @ w_h
         scores = torch.tanh(fp + hw[:, None, :]).sum(-1)
         attn = torch.softmax(scores, dim=-1)
         ctx = (attn[:, :, None] * ft).sum(1)
-        x0 = rd(emb @ w_e + rd(ctx) @ w_c + w["b_comb"])
+        x0 = rd(emb @ w_e + rd(ctx) @ w_c + b["b_comb"])
         h0, c0 = cell(x0, rd(h0), c0, 0)
         h1, c1 = cell(rd(h0), rd(h1), c1, 1)
-        hid = torch.relu(rd(h1) @ wt["fc1_w"] + w["fc1_b"])
-        logits = rd(hid) @ wt["fc2_w"] + w["fc2_b"]
+        hid = torch.relu(rd(h1) @ wt["fc1_w"] + b["fc1_b"])
+        logits = rd(hid) @ wt["fc2_w"] + b["fc2_b"]
         tok, done = next_token(logits, tok, done, out[:, t], temperature,
                                generator)
     return out
@@ -160,10 +165,48 @@ def _check_operands(ops: Operands, order, float32_names, shapes,
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
+HIDDEN_PER_BLOCK, E_PER_BLOCK, V_PER_BLOCK = 4, 2, 24  # csrc/greedy_decode.cu caps
+
+_GREEDY = None  # (library, its entry points with argtypes set), at first use
+
+
+def _greedy_library():
+    global _GREEDY
+    if _GREEDY is None:
+        lib = _build.library("greedy_decode")
+        fns = {"blocks": lib.ic_greedy_blocks,
+               "workspace": lib.ic_greedy_workspace_bytes,
+               "decode": lib.ic_greedy_decode}
+        for f in ("blocks", "decode"):
+            fns[f].restype = ctypes.c_int
+        fns["workspace"].restype = ctypes.c_longlong
+        fns["blocks"].argtypes = [ctypes.c_int] * 4 + \
+            [ctypes.POINTER(ctypes.c_longlong)]
+        fns["workspace"].argtypes = [ctypes.c_int] * 4
+        fns["decode"].argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3 + \
+            [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+        _GREEDY = lib, fns
+    return _GREEDY
+
+
+def greedy_blocks(dt: torch.dtype, dev: torch.device, L: int, E: int,
+                  H: int, V: int) -> int:
+    """The greedy kernel's cooperative grid on this card (one block an SM);
+    raises if the kernel does not fit or its blocks would own more columns
+    than it takes."""
+    _, fns = _greedy_library()
+    return _build.cooperative_grid(
+        ("greedy_decode", dt, dev, L, E, H),
+        lambda smem: fns["blocks"](_DTYPES[dt], L, E, H, smem),
+        "greedy kernel", (("H", H, HIDDEN_PER_BLOCK), ("E", E, E_PER_BLOCK),
+                          ("V", V, V_PER_BLOCK)))
+
+
 def greedy_decode_cuda(w: Operands, feats: torch.Tensor, f_proj: torch.Tensor,
                        *, max_length: int = 20, temperature: float = 1.0
                        ) -> torch.Tensor:
-    """Launch the CUDA kernel on the current stream.  Returns (B,
+    """Launch the cooperative CUDA kernel on the current stream (any B: rows
+    beyond 32 run as further chunks inside the launch).  Returns (B,
     max_length) int32."""
     global launches
     if not feats.is_cuda or feats.dim() != 3:
@@ -174,8 +217,8 @@ def greedy_decode_cuda(w: Operands, feats: torch.Tensor, f_proj: torch.Tensor,
     B, L, E = feats.shape
     H = w["w_hh0"].shape[1]
     V = w["emb"].shape[0]
-    if E % 8 or H % 8:
-        raise ValueError(f"greedy kernel needs E and H divisible by 8, "
+    if E % 16 or H % 16:
+        raise ValueError(f"greedy kernel needs E and H divisible by 16, "
                          f"got E={E}, H={H}")
     ops = dict(w, feats=feats, f_proj=f_proj)
     _check_operands(ops, _ORDER, _FLOAT32_OPERANDS, {
@@ -185,24 +228,17 @@ def greedy_decode_cuda(w: Operands, feats: torch.Tensor, f_proj: torch.Tensor,
         "w_ih1": (4 * H, H), "w_hh1": (4 * H, H), "b1": (4 * H,),
         "fc1_w": (E, H), "fc1_b": (E,), "fc2_w": (V, E), "fc2_b": (V,),
     }, feats)
-    lib = _build.library("greedy_decode")
-    lib.ic_greedy_smem_bytes.restype = ctypes.c_longlong
-    lib.ic_greedy_smem_bytes.argtypes = [ctypes.c_int] * 4
-    smem = lib.ic_greedy_smem_bytes(L, E, H, V)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"greedy kernel: {smem} bytes of shared memory for "
-                         f"L={L}, E={E}, H={H}, V={V} exceed {MAX_SMEM_BYTES}")
-    out = torch.empty((B, max_length), dtype=torch.int32, device=feats.device)
+    dev = feats.device
+    lib, fns = _greedy_library()
+    blocks = greedy_blocks(dt, dev, L, E, H, V)
+    ws = torch.zeros(fns["workspace"](_DTYPES[dt], E, H, blocks),
+                     dtype=torch.uint8, device=dev)
+    out = torch.empty((B, max_length), dtype=torch.int32, device=dev)
     ptrs = (ctypes.c_void_p * len(_ORDER))(*[ops[n].data_ptr() for n in _ORDER])
-    fn = lib.ic_greedy_decode
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p] + \
-        [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
-    with torch.cuda.device(feats.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(_DTYPES[dt], ctypes.cast(ptrs, ctypes.c_void_p),
-                 out.data_ptr(), B, L, E, H, V, max_length,
-                 float(temperature), stream)
+    err = _build.call_on(dev, fns["decode"], _DTYPES[dt],
+                         ctypes.cast(ptrs, ctypes.c_void_p), out.data_ptr(),
+                         ws.data_ptr(), blocks, B, L, E, H, V, max_length,
+                         float(temperature))
     _build.check(lib, err, "greedy_decode")
     launches += 1
     return out

@@ -352,17 +352,56 @@ def _ptr_array(tensors):
     return ctypes.cast(arr, ctypes.c_void_p)
 
 
+_FWD = None  # (library, its entry points with argtypes set), at first use
+HIDDEN_PER_BLOCK, E_PER_BLOCK = 4, 2  # csrc/decoder_scan.cu caps
+
+
+def _fwd_library():
+    global _FWD
+    if _FWD is None:
+        lib = _build.library("decoder_scan")
+        fns = {"blocks": lib.ic_decoder_scan_blocks,
+               "workspace": lib.ic_decoder_scan_workspace_bytes,
+               "scan": lib.ic_decoder_scan}
+        fns["blocks"].restype = fns["scan"].restype = ctypes.c_int
+        fns["workspace"].restype = ctypes.c_longlong
+        fns["blocks"].argtypes = [ctypes.c_int] * 4 + \
+            [ctypes.POINTER(ctypes.c_longlong)]
+        fns["workspace"].argtypes = [ctypes.c_int] * 3
+        fns["scan"].argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 2 + \
+            [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        _FWD = lib, fns
+    return _FWD
+
+
+def decoder_scan_blocks(dt, dev, L: int, E: int, H: int) -> int:
+    """The forward kernel's cooperative grid on this card (one block an
+    SM); raises if the kernel does not fit or its blocks would own more
+    columns than it takes."""
+    _, fns = _fwd_library()
+    return _build.cooperative_grid(
+        ("decoder_scan", dt, dev, L, E, H),
+        lambda smem: fns["blocks"](_DTYPES[dt], L, E, H, smem),
+        "decoder scan kernel", (("H", H, HIDDEN_PER_BLOCK),
+                                ("E", E, E_PER_BLOCK)))
+
+
 def decoder_scan_cuda(emb_w, f_proj, feats, mask, w_h, w_c, w_ih0, w_hh0, b0,
                       w_ih1, w_hh1, b1, *, residuals: bool = False):
-    """Launch the forward kernel on the current stream.  Returns ``(h_tops,
-    attn)`` or, with ``residuals``, also ``(h0s, c0s, c1s)``."""
+    """Launch the cooperative forward kernel on the current stream.  Returns
+    ``(h_tops, attn)`` or, with ``residuals``, also ``(h0s, c0s, c1s)``."""
     global launches_eval, launches_train
     ops = (emb_w, f_proj, feats, mask, w_h, w_c, w_ih0, w_hh0, b0, w_ih1,
            w_hh1, b1)
     T, B, L, E, H = _check_operands(*ops)
+    if E % 16 or H % 16:
+        raise ValueError(f"decoder scan kernel needs E and H divisible by 16, "
+                         f"got E={E}, H={H}")
     dt, dev = feats.dtype, feats.device
-    lib = _build.library("decoder_scan")
-    _smem_ok(lib, "ic_decoder_scan_smem_bytes", L, E, H)
+    lib, fns = _fwd_library()
+    blocks = decoder_scan_blocks(dt, dev, L, E, H)
+    ws = torch.zeros(fns["workspace"](_DTYPES[dt], E, H), dtype=torch.uint8,
+                     device=dev)
     h_tops = torch.empty((T, B, H), dtype=dt, device=dev)
     attn = torch.empty((T, B, L), dtype=torch.float32, device=dev)
     res = (None, None, None)
@@ -370,14 +409,9 @@ def decoder_scan_cuda(emb_w, f_proj, feats, mask, w_h, w_c, w_ih0, w_hh0, b0,
         res = (torch.empty((T, B, H), dtype=dt, device=dev),
                torch.empty((T, B, H), dtype=torch.float32, device=dev),
                torch.empty((T, B, H), dtype=torch.float32, device=dev))
-    fn = lib.ic_decoder_scan
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 7 + \
-        [ctypes.c_void_p]
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(_DTYPES[dt], _ptr_array(ops + (h_tops, attn) + res), T, B, L,
-                 E, H, w_h.stride(0), w_c.stride(0), stream)
+    err = _build.call_on(dev, fns["scan"], _DTYPES[dt],
+                         _ptr_array(ops + (h_tops, attn) + res), ws.data_ptr(),
+                         blocks, T, B, L, E, H, w_h.stride(0), w_c.stride(0))
     _build.check(lib, err, "decoder_scan")
     if residuals:
         launches_train += 1
@@ -412,16 +446,7 @@ def decoder_scan_bwd_buffers(res, dh_tops, dattns) -> dict:
                 or not t.is_contiguous():
             raise ValueError(f"{name}: expected contiguous {shape} {dtype} "
                              f"on {dev}")
-    blocks, smem = _chain_blocks(dt, dev, B, L, E, H)
-    if blocks <= 0:
-        why = f"; CUDA error {-blocks}" if blocks < 0 else ""
-        raise RuntimeError(f"decoder_scan_bwd: the chain kernel does not fit "
-                           f"on the card ({smem} bytes of shared memory "
-                           f"a block{why})")
-    if max(-(-H // blocks), -(-E // blocks)) > CHAIN_MAX_COLUMNS:
-        raise ValueError(f"decoder_scan_bwd: {blocks} resident blocks own at "
-                         f"most {CHAIN_MAX_COLUMNS} columns each, too few for "
-                         f"E={E}, H={H}")
+    blocks = chain_blocks(dt, dev, B, L, E, H)
     new = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)  # noqa: E731
     shapes = {"h0p": (T, B, H), "h1p": (T, B, H), "h0d": (T, B, H),
               "ctx": (T, B, E), "hw": (T, B, E), "x0": (T, B, E),
@@ -476,19 +501,16 @@ def decoder_scan_bwd_weights_cuda(buf: dict):
 
 
 _BWD = None  # (library, its entry points with argtypes set), at first use
-_CHAIN_BLOCKS = {}  # (dtype, device, B, L, E, H) -> (blocks, shared bytes)
-
-
-def _chain_blocks(dt, dev, B, L, E, H):
-    """The chain kernel's cooperative grid on this card, asked once."""
-    key = (dt, dev, B, L, E, H)
-    if key not in _CHAIN_BLOCKS:
-        _, fns = _bwd_library()
-        smem = ctypes.c_longlong()
-        with torch.cuda.device(dev):
-            blocks = fns["blocks"](_DTYPES[dt], B, L, E, H, ctypes.byref(smem))
-        _CHAIN_BLOCKS[key] = blocks, smem.value
-    return _CHAIN_BLOCKS[key]
+def chain_blocks(dt, dev, B, L, E, H) -> int:
+    """The reverse chain's cooperative grid on this card (as many blocks as
+    it holds at once); raises if the kernel does not fit or its blocks
+    would own more columns than it takes."""
+    _, fns = _bwd_library()
+    return _build.cooperative_grid(
+        ("decoder_scan_bwd", dt, dev, B, L, E, H),
+        lambda smem: fns["blocks"](_DTYPES[dt], B, L, E, H, smem),
+        "decoder_scan_bwd: the chain kernel",
+        (("H", H, CHAIN_MAX_COLUMNS), ("E", E, CHAIN_MAX_COLUMNS)))
 
 
 def _bwd_library():

@@ -67,12 +67,3 @@ def log_progress(epoch, batch_idx, loss_dict, learning_rate, total_batches):
             print(f"  {label}: {float(loss_dict[name]):.4f}")
     print("-" * 50)
 
-
-def monitoring_bleu(pred_ids, target_ids, vocab) -> float:
-    """Set-intersection BLEU-1 used inside training validation
-    (``eval/metrics.monitoring_bleu``); ids 0/1/2 stripped."""
-    def words(ids):
-        return {vocab.itos[int(i)] for i in ids
-                if int(i) not in (0, 1, 2) and int(i) in vocab.itos}
-    pred, target = words(pred_ids), words(target_ids)
-    return len(pred & target) / len(target) if target else 0.0

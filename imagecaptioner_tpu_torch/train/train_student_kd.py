@@ -21,9 +21,11 @@ CLI builds them from the in-memory synthetic grid task:
       --output-dir saved_models [--epochs 1] [--student full|compact|enhanced] \\
       [--device cuda|cpu]
 
-Not ported yet, each exiting with its roadmap item: the CSV/JPEG loader
-(``--data-root``), ``resume_from``, ``data_parallel``, ``device_dataset`` /
-``stream_steps`` and ``metrics_jsonl``.  On the card each variant's
+Data parallelism is on by default, as in the reference, and a no-op on one
+card (``--no-data-parallel`` turns it off).  Not ported yet, each exiting
+with its roadmap item: the CSV/JPEG loader (``--data-root``),
+``resume_from``, data parallelism over more than one card, ``device_dataset``
+(with its ``stream_steps``) and ``metrics_jsonl``.  On the card each variant's
 teacher-forced recurrence is its kernel: the JAX trainer's table of
 per-variant decoder implementations is a TPU measurement and is not carried
 over.
@@ -50,6 +52,7 @@ from imagecaptioner_tpu_torch.data import transforms as T
 from imagecaptioner_tpu_torch.distill.projector import (
     create_feature_projectors, make_projectors)
 from imagecaptioner_tpu_torch.distill.validate import validate_distillation_setup
+from imagecaptioner_tpu_torch.eval.metrics import monitoring_bleu
 from imagecaptioner_tpu_torch.models.student import Student, student_init
 from imagecaptioner_tpu_torch.models import teacher as TM
 from imagecaptioner_tpu_torch.train import common, steps
@@ -88,7 +91,7 @@ def validate_student(eval_step, state, val_loader, vocab, device, *,
         if bi < 5:
             preds, cap_tgt = preds.cpu().numpy(), cap_tgt.cpu().numpy()
             for i in range(min(2, b)):
-                bleus.append(common.monitoring_bleu(preds[:, i],
+                bleus.append(monitoring_bleu(preds[:, i],
                                                     cap_tgt[:, i], vocab))
     return (sum(losses) / max(n, 1),
             float(np.mean(bleus)) if bleus else 0.0)
@@ -108,7 +111,7 @@ def train_student_with_kd(
     seed: int = 0,
     max_steps_per_epoch: Optional[int] = None,
     resume_from: Optional[str] = None,
-    data_parallel: bool = False,
+    data_parallel: bool = True,
     metrics_jsonl: Optional[str] = None,
     freeze_backbone: bool = True,
     use_attention_refinement: Optional[bool] = None,
@@ -116,6 +119,7 @@ def train_student_with_kd(
     student_cfg_overrides: Optional[dict] = None,
     aug=None,
     device_dataset: bool = False,
+    stream_steps: int = 8,
     verbose: bool = True,
     device="cuda",
 ):
@@ -124,7 +128,10 @@ def train_student_with_kd(
     ``val_loader``.  Returns ``(state, s_cfg, vocab)``."""
     if resume_from is not None:
         raise not_ported("resuming a KD run", "item 4, still open")
-    if data_parallel:
+    if (data_parallel and torch.device(device).type == "cuda"
+            and torch.cuda.device_count() > 1):
+        # on one device data parallelism is a no-op, as the reference's
+        # maybe_mesh makes it; a CPU run has one device
         raise not_ported("data-parallel KD training", "item 13")
     if device_dataset:
         raise not_ported("the device-resident dataset", "item 11")
@@ -308,9 +315,14 @@ def main(argv=None):
     ap.add_argument("--resume-from", default=None)
     ap.add_argument("--student", default="full",
                     choices=["full", "compact", "enhanced"])
-    ap.add_argument("--data-parallel", action="store_true")
+    ap.add_argument("--no-data-parallel", dest="data_parallel",
+                    action="store_false",
+                    help="force single-device training even with several "
+                         "cards visible")
     ap.add_argument("--device-dataset", action="store_true")
-    ap.add_argument("--stream-steps", type=int, default=8)
+    ap.add_argument("--stream-steps", type=int, default=8,
+                    help="with --device-dataset: optimizer steps chained "
+                         "per dispatch")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
     args = ap.parse_args(argv)
@@ -332,6 +344,7 @@ def main(argv=None):
         args.output_dir, num_epochs=args.epochs, seed=args.seed,
         resume_from=args.resume_from, student_variant=args.student,
         data_parallel=args.data_parallel, device_dataset=args.device_dataset,
+        stream_steps=args.stream_steps,
         device=device)
     return 0
 

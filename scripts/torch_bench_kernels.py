@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
-"""Check and time kernels #2 (attention core) and #6 (the full student's
-reverse-time backward) alone on one NVIDIA GPU, with the checks and timers
-of ``chip_smoke.py``.  Faster than the whole smoke run when only these two
-kernels change.
+"""Check and time the hand-written kernels of the full student's paths alone
+on one NVIDIA GPU, with the checks and timers of ``chip_smoke.py``: #2 (the
+attention core), #1 (the cooperative greedy loop), #4/#5 and #6 (the
+decoder scan's forward and its reverse-time backward).  Faster than the
+whole smoke run when only these kernels change.
 
-    python3 scripts/torch_bench_kernels.py [--only attention|scan]
+    python3 scripts/torch_bench_kernels.py [--only attention|greedy|scan[,...]]
 
-Prints ptxas' register and spill lines for the two sources, each check, the
-timings, and the card's ``nvidia-smi`` name and power limit.  Exits non-zero
-on a failed check or without a card.
+Prints ptxas' register and spill lines for the sources, each check, the
+timings (the scan's forward forms beside its backward by stage), the chain
+floor of each cooperative kernel (the median empty grid barrier at its grid
+times the barriers a run crosses), and the card's ``nvidia-smi`` name and
+power limit.  Exits non-zero on a failed check or without a card.
 """
 
 from __future__ import annotations
@@ -36,9 +39,12 @@ def main() -> int:
           flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    sources = {"attention": ["attention_core"],
+    sources = {"attention": ["attention_core"], "greedy": ["greedy_decode"],
                "scan": ["decoder_scan", "decoder_scan_bwd"]}
-    names = sources[only] if only else sum(sources.values(), [])
+    picked = only.split(",") if only else list(sources)
+    names = sum((sources[p] for p in picked), [])
+    if "greedy" in picked or "scan" in picked:
+        names.append(CS.PROBE)  # the chain floors' barrier probe
     print(f"built {names} in {_build.build_all(names):.1f} s", flush=True)
     for src in names:
         for line in _build.build_log(src).splitlines():
@@ -46,14 +52,23 @@ def main() -> int:
                 print(f"  {src}: {line.strip()}")
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(CS.SEED)
-    if only in (None, "attention"):
+    if "attention" in picked:
         CS.check_attention(dev, gen)
         CS.check_attention_kd(dev, gen)
         CS.check_attention_48(dev, gen)
         CS.time_attention(dev, gen)
-    if only in (None, "scan"):
+    if "greedy" in picked:
+        decoder, feats32 = CS.greedy_inputs(dev)
+        with torch.inference_mode():
+            _, rows, kms, pms = CS.check_greedy(decoder, feats32)
+        print(f"greedy_decode B={CS.BATCH} T={CS.MAX_LEN} bf16: kernel "
+              f"{kms:.4f} ms, plain {pms:.4f} ms; bf16 rows identical "
+              f"{rows}/{CS.BATCH}", flush=True)
+    if "scan" in picked:
         kept = CS.check_scan(CS.make_decoder(dev), dev)
         CS.print_scan_times(CS.time_scan(kept), CS.scan_bounds(kept))
+    if "greedy" in picked or "scan" in picked:
+        CS.chain_floors(dev)
     print(smi)
     return 0
 

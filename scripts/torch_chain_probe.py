@@ -1,0 +1,185 @@
+#!/usr/bin/env python3
+"""Where the time of the cooperative step chains goes, on one NVIDIA GPU.
+
+    python3 scripts/torch_chain_probe.py [--against OTHER_CSRC_DIR]
+
+1. Builds a copy of ``csrc/`` in which block 0 of ``greedy_decode.cu`` (#1)
+   and of ``decoder_scan.cu`` (#4/#5) reads %globaltimer after every grid
+   barrier, runs each once at the main path's shapes in bf16 (#1: B=32,
+   T=20; the scan: T=47, B=16, with mask and residuals), and prints the
+   median time from one barrier to the next for each of the five phases of
+   a step (the slowest block's work in that phase plus the barrier).  The
+   copy is a temporary directory and builds libraries of their own hash;
+   the repository's sources are not touched.
+2. With ``--against``, the ``csrc/`` directory of another checkout: runs
+   #6 (``decoder_scan_bwd.cu``, whose interface is unchanged since it was
+   written) from both trees on the same residuals, float32 and bf16, says
+   whether all eleven gradients are bit-identical, and times the reverse
+   chain in turns (other, this, this, other).
+
+Prints the card's ``nvidia-smi`` name and power limit.  Exits non-zero
+without a card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import shutil
+import statistics
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+import chip_smoke as CS  # noqa: E402
+from imagecaptioner_tpu_torch.ops import _build  # noqa: E402
+from imagecaptioner_tpu_torch.ops import greedy as G  # noqa: E402
+from imagecaptioner_tpu_torch.ops import lstm_scan as S  # noqa: E402
+
+STAMP = ("if (blockIdx.x == 0 && threadIdx.x == 0 && probe_n < 16384) { "
+         "unsigned long long t_; asm volatile(\"mov.u64 %0, %%globaltimer;\" "
+         ": \"=l\"(t_)); probe_t[probe_n++] = t_; }")
+READER = ('extern "C" int ic_probe_read(unsigned long long* t, int* n) {\n'
+          "  cudaMemcpyFromSymbol(n, probe_n, sizeof(int));\n"
+          "  cudaMemcpyFromSymbol(t, probe_t, sizeof(probe_t));\n"
+          "  const int zero = 0;\n"
+          "  return (int)cudaMemcpyToSymbol(probe_n, &zero, sizeof(int));\n}\n")
+PHASES = ("1 h products", "2 attention (and logits)", "3 x0 (and token)",
+          "4 layer 0", "5 layer 1")
+
+
+def stamped_copy() -> Path:
+    """csrc/ with a %globaltimer stamp after every grid barrier of the two
+    forward chains."""
+    tmp = Path(tempfile.mkdtemp(prefix="ic_probe_"))
+    for f in _build.CSRC.glob("*.cu*"):
+        shutil.copy(f, tmp)
+    for name in ("greedy_decode.cu", "decoder_scan.cu"):
+        src = (tmp / name).read_text()
+        src = src.replace("namespace {\n", "namespace {\n__device__ unsigned long long "
+                          "probe_t[16384];\n__device__ int probe_n;\n", 1)
+        src = src.replace("grid_barrier(a.bar, nblk);",
+                          "grid_barrier(a.bar, nblk); " + STAMP)
+        (tmp / name).write_text(src + READER)
+    return tmp
+
+
+def phase_medians(lib, run, steps: int) -> list:
+    t = (ctypes.c_ulonglong * 16384)()
+    n = ctypes.c_int()
+    lib.ic_probe_read(t, ctypes.byref(n))
+    run()
+    torch.cuda.synchronize()
+    lib.ic_probe_read(t, ctypes.byref(n))
+    stamps = list(t)[:n.value]
+    gaps = [(b - a) / 1e3 for a, b in zip(stamps, stamps[1:])]
+    # gaps[0] runs from the barrier after phase 1 of step 0 to the one after
+    # phase 2; from gap 4 on, gap 4 + i is phase i % 5 + 1 (step 0 and the
+    # tail left out)
+    by_phase = {}
+    for i, g in enumerate(gaps[4:5 * (steps - 1) + 4]):
+        by_phase.setdefault(i % 5, []).append(g)
+    return [statistics.median(by_phase[p]) for p in range(5)]
+
+
+def probe_phases(dev) -> None:
+    real, tmp = _build.CSRC, stamped_copy()
+    try:
+        CS.forget_libraries()
+        _build.CSRC = tmp
+        decoder, feats32 = CS.greedy_inputs(dev)
+        feats = feats32.to(torch.bfloat16).contiguous()
+        w = G.greedy_operands(decoder, torch.bfloat16)
+        f_proj = G.attention_feature_projection(w, feats)
+        with torch.inference_mode():
+            run = lambda: G.greedy_decode_cuda(w, feats, f_proj,  # noqa: E731
+                                               max_length=CS.MAX_LEN)
+            run()
+            med = phase_medians(_build.library("greedy_decode"), run, CS.MAX_LEN)
+        print(f"#1 greedy_decode B={CS.BATCH} T={CS.MAX_LEN} bf16, median us a "
+              f"phase: " + ", ".join(f"{p} {m:.2f}" for p, m in zip(PHASES, med))
+              + f"; a step {sum(med):.2f}", flush=True)
+        ops = CS.scan_operands(CS.make_decoder(dev), dev, torch.bfloat16,
+                               CS.SEED + 5)
+        with torch.no_grad():
+            run = lambda: S.decoder_scan_cuda(*ops, residuals=True)  # noqa: E731
+            run()
+            med = phase_medians(_build.library("decoder_scan"), run, CS.KD_T)
+        print(f"#4/#5 decoder_scan T={CS.KD_T} B={CS.KD_B} bf16 train form, "
+              f"median us a phase: " + ", ".join(
+                  f"{p} {m:.2f}" for p, m in zip(PHASES, med))
+              + f"; a step {sum(med):.2f}", flush=True)
+    finally:
+        _build.CSRC = real
+        CS.forget_libraries()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def against(dev, other: Path) -> None:
+    real = _build.CSRC
+    decoder = CS.make_decoder(dev)
+    try:
+        for dtype in (torch.float32, torch.bfloat16):
+            ops = CS.scan_operands(decoder, dev, dtype, CS.SEED + 5)
+            with torch.no_grad():
+                ref = S.decoder_scan_plain(*ops, residuals=True)
+            rng = np.random.default_rng(CS.SEED + 6)
+            dh = torch.from_numpy(rng.standard_normal(ref[0].shape).astype(
+                np.float32)).to(dev).to(dtype)
+            da = torch.from_numpy(rng.standard_normal(ref[1].shape).astype(
+                np.float32)).to(dev)
+            res = ops + tuple(ref)
+            grads, chains = {}, {}
+            for tag, src in (("other", other), ("this", real), ("this", real),
+                             ("other", other)):
+                CS.forget_libraries()
+                _build.CSRC = src
+                with torch.no_grad():
+                    g = S.decoder_scan_bwd_cuda(res, dh, da)
+                    bufs = iter([S.decoder_scan_bwd_buffers(res, dh, da)
+                                 for _ in range(28)])
+                    chains.setdefault(tag, []).append(CS.median_ms(
+                        lambda: S.decoder_scan_bwd_stage_cuda(next(bufs), 1),
+                        20, 3))
+                torch.cuda.synchronize()
+                grads.setdefault(tag, g)
+            same = all(torch.equal(x, y) for x, y in zip(grads["other"],
+                                                         grads["this"]))
+            print(f"#6 decoder_scan_bwd {str(dtype)[6:]}: all eleven gradients "
+                  f"bit-identical to the other tree's: {same}; reverse chain ms "
+                  f"other {chains['other'][0]:.4f}, this {chains['this'][0]:.4f}, "
+                  f"this {chains['this'][1]:.4f}, other {chains['other'][1]:.4f}",
+                  flush=True)
+    finally:
+        _build.CSRC = real
+        CS.forget_libraries()
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        CS.fail("torch.cuda.is_available() is false: this script runs on the card")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout.strip()
+    print(f"device: {torch.cuda.get_device_name(0)} | nvidia-smi: {smi}",
+          flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    probe_phases(dev)
+    if "--against" in sys.argv:
+        other = Path(sys.argv[sys.argv.index("--against") + 1]).resolve()
+        if not (other / "decoder_scan_bwd.cu").is_file():
+            CS.fail(f"--against {other}: no decoder_scan_bwd.cu there")
+        against(dev, other)
+    print(smi)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -57,7 +57,8 @@ def trained(grid, teacher_ckpt, tmp_path_factory):
             train_loader, val_loader, vocab, teacher_ckpt, out, num_epochs=3,
             train_cfg=KDTrainConfig(learning_rate=1e-3, validate_every=2),
             compute_dtype=torch.float32, seed=0, device="cpu", verbose=False,
-            student_cfg_overrides=dict(embed_size=32, hidden_size=32))
+            student_cfg_overrides=dict(embed_size=32, hidden_size=32),
+            data_parallel=True)  # the default: a no-op on one device
     finally:
         torch.set_num_threads(threads)
     return out, state, s_cfg
@@ -154,20 +155,28 @@ def test_checkpoint_reads_in_jax_and_serves_through_the_port(trained, grid):
 
 @pytest.mark.parametrize("kw,match", [
     (dict(resume_from="x.npz"), "item 4"),
-    (dict(data_parallel=True), "item 13"),
+    (dict(data_parallel=True, device="cuda"), "item 13"),
+    # a CPU run has one device: past data parallelism to the next check
+    (dict(data_parallel=True, device_dataset=True), "item 11"),
     (dict(device_dataset=True), "item 11"),
     (dict(metrics_jsonl="m.jsonl"), "item 14"),
     (dict(student_variant="tiny"), "unknown student_variant"),
 ])
-def test_unported_options_exit_with_their_roadmap_item(grid, kw, match):
+def test_unported_options_exit_with_their_roadmap_item(grid, kw, match,
+                                                      monkeypatch):
     """Options whose paths are not ported exit with their roadmap item; the
-    three student variants are all ported, and an unknown one raises."""
+    three student variants are all ported, and an unknown one raises.  Data
+    parallelism is on by default and a no-op on one device, as the
+    reference's ``maybe_mesh`` makes it: it exits only when training on the
+    card with more than one card visible (checked before any card is used)."""
     train_loader, val_loader, vocab = grid
+    if "data_parallel" in kw:
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     unknown = "student_variant" in kw
     with pytest.raises(ValueError if unknown else SystemExit,
                        match=match if unknown else "not ported yet") as e:
         TK.train_student_with_kd(train_loader, val_loader, vocab, "t.npz",
-                                 "out", device="cpu", **kw)
+                                 "out", **{"device": "cpu", **kw})
     assert match in str(e.value)
 
 
