@@ -50,6 +50,8 @@ Imports nothing of JAX.  In order it:
      at the teacher's full width (N=16 and 32 images, K=5 beams, 8 heads,
      S=21 cache positions, L=197 memory tokens), float32 and bf16, random
      ancestry, pos 0, 7 and 20, q as a column block of a packed projection;
+     20 more runs of the cross kernel at each N and dtype bit-identical to
+     the first;
  10. drives teacher beam serving: a ViT-S/16 teacher from a numpy seed with
      its cross-attention scaled up and its END bias raised (so that beams
      finish at different lengths), written as a JAX-format checkpoint,
@@ -72,25 +74,30 @@ Imports nothing of JAX.  In order it:
  12. the enhanced student (EfficientNet-B3, E=384, H=768, L=64): holds the
      enhanced scan kernel against plain at T=47, B=16 with and without
      dropout multipliers (rates 0.1 and 0.15), all eight outputs, float32 and
-     bf16, and its gradients under autograd; serves 8 batches of 32 images in
+     bf16 (20 more runs of each bit-identical to the first), and its
+     gradients under autograd; then at B=4 and B=24 (two chunks, the second
+     of 8 rows) with the same limits, a chunked launch against a launch per
+     chunk bit for bit; serves 8 batches of 32 images in
      bf16 through the plain step loop (which launches the attention kernel in
      the refinement) and holds float32 card against CPU, on 4 images and on
      the loop alone with features drawn per row; runs the KD trainer for 3
      steps, times 4 more, compares one float32 step card against CPU;
  13. prints kernel, plain and library times (CUDA events, median after
-     warm-up), each kernel's bound, the chain floor of the three cooperative
-     kernels (#1, #4/#5, #6: the median of 2,000 empty grid barriers at the
+     warm-up), each kernel's bound, the chain floor of the four cooperative
+     kernels (#1, #4/#5, #6, #8: the median of 2,000 empty grid barriers at the
      chain's grid times the barriers a run crosses), ptxas' registers and
      spills for them, and the end-to-end rates;
  14. prints the kernels JSON line, the nvidia-smi line, and last
      ``{"ok": true, "device": {...}}``.
 Any failed check exits non-zero before the last line.  ``--mutation`` builds
-six faulty copies (a scan backward without its dropout mask, a beam
-self-attention that ignores the ancestry table, an enhanced scan whose
-attention ignores its dropout multiplier, an attention core whose causal
-mask is off by one, a greedy decode whose blocks all read row 0's broadcast
-context, a scan forward whose layer 1 reads the broadcast h0 without its
-mask) and expects all six checks to fail.
+eight faulty copies (a scan backward without its dropout mask, a beam
+self-attention that ignores the ancestry table, a beam cross-attention whose
+bulk copy of V drops its last 16 keys, an enhanced scan whose attention
+ignores its dropout multiplier, an enhanced scan whose LayerNorms combine
+stale partials, an attention core whose causal mask is off by one, a greedy
+decode whose blocks all read row 0's broadcast context, a scan forward whose
+layer 1 reads the broadcast h0 without its mask) and expects all eight
+checks to fail.
 """
 
 from __future__ import annotations
@@ -540,23 +547,30 @@ def chain_barrier_ns(blocks: int, n: int, dev) -> list:
     return [(b - a) * ns_per_cycle for a, b in zip(clk, clk[1:])]
 
 
-def chain_floors(dev):
+def chain_floors(dev, names=None):
     """The least time each cooperative chain's barriers take: the median of
     2,000 empty grid barriers at the chain's own grid (one launch each),
     times the barriers a run of the chain crosses at the main path's shapes
     (#1: 5 a step and 2 more for the last token, B=32, T=20; #4/#5: 5 a
-    step, T=47; #6's reverse chain: 5 a step less one)."""
+    step, T=47; #6's reverse chain: 5 a step less one; #8: 8 a step,
+    T=47)."""
     cfg = decoder_cfg()
     L_, E, H = cfg.feature_tokens, cfg.embed_size, cfg.hidden_size
     bf = torch.bfloat16
     chains = {
-        "greedy_decode": (G.greedy_blocks(bf, dev, L_, E, H, VOCAB),
+        "greedy_decode": (lambda: G.greedy_blocks(bf, dev, L_, E, H, VOCAB),
                           5 * MAX_LEN + 2),
-        "decoder_scan": (S.decoder_scan_blocks(bf, dev, L_, E, H), 5 * KD_T),
-        "decoder_scan_bwd": (S.chain_blocks(bf, dev, KD_B, L_, E, H),
-                             5 * KD_T - 1)}
+        "decoder_scan": (lambda: S.decoder_scan_blocks(bf, dev, L_, E, H),
+                         5 * KD_T),
+        "decoder_scan_bwd": (lambda: S.chain_blocks(bf, dev, KD_B, L_, E, H),
+                             5 * KD_T - 1),
+        "enhanced_scan": (lambda: ES.enhanced_scan_blocks(
+            bf, dev, ENH_L, ENH_E, ENH_H, ENH_NH), 8 * KD_T)}
     out = {}
-    for name, (blocks, n_bar) in chains.items():
+    for name, (grid, n_bar) in chains.items():
+        if names is not None and name not in names:
+            continue
+        blocks = grid()
         ns = statistics.median(chain_barrier_ns(blocks, 2000, dev))
         out[name] = dict(blocks=blocks, barrier_us=ns / 1e3, barriers=n_bar,
                          floor_ms=n_bar * ns / 1e6)
@@ -939,13 +953,13 @@ def scan_bounds(kept):
                      T_ * B * (3 * 2 * macs + 3 * attn), "f32"))
 
 
-def beam_operands(dev, N, dtype, pos, seed):
+def beam_operands(dev, N, dtype, pos, seed, K=BEAM_K):
     """One beam step's attention operands at the teacher's full width from a
     numpy seed: q as the first column block of a packed (R, 1, 3E)
     projection (how ``decoder_step_cached`` hands it over), a random cache
     and memory, a random ancestry table with the identity at ``pos``."""
     rng = np.random.default_rng(seed)
-    K, H, S, L = BEAM_K, BEAM_H, BEAM_S, BEAM_L
+    H, S, L = BEAM_H, BEAM_S, BEAM_L
     R, E = N * K, BEAM_H * 64
 
     def t(*shape):
@@ -960,39 +974,57 @@ def beam_operands(dev, N, dtype, pos, seed):
                 anc=torch.from_numpy(anc).to(dev), pos=pos)
 
 
-def check_beam_attention(dev):
-    """The two beam-step kernels against their plain versions at full width.
-    Returns the largest errors of the main path's case (N=16, float32)."""
+def beam_close(what, got, ref, N, K, dtype, pos):
+    """Hold one beam kernel's output to its plain version's; the largest
+    error."""
+    if got.dtype != dtype or got.shape != (N * K, 1, 512):
+        fail(f"beam {what} attention: dtype/shape contract")
+    err = (got.float() - ref.float()).abs().max().item()
+    top = ref.float().abs().max().item()
+    ok = err <= BEAM_LIMIT[dtype] and top > 0.1
+    print(f"beam_{what}_attention N={N} K={K} {str(dtype)[6:]} pos={pos}: "
+          f"max_abs_err {err:.3e} (limit {BEAM_LIMIT[dtype]:g}), largest "
+          f"value {top:.3e} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail(f"the beam {what}-attention kernel disagrees with its plain "
+             "version")
+    return err
+
+
+def check_beam_attention(dev, mutant=False):
+    """The two beam-step kernels against their plain versions at full width,
+    and at the last position REPEATS more runs of the cross kernel
+    bit-identical to the first.  K=2*BEAM_K beams take the cross kernel's
+    second group of query rows (8 + 2) over the same resident K/V.  Returns
+    the largest errors of the main path's case (N=16, K=5, float32)."""
     main_err = {"self": 0.0, "cross": 0.0}
-    for N in (BEAM_B, 2 * BEAM_B):
-        for dtype in (torch.float32, torch.bfloat16):
-            for pos in (0, 7, BEAM_S - 1):
-                o = beam_operands(dev, N, dtype, pos, SEED + 20 + pos)
-                got_s = BA.beam_self_attention_cuda(
-                    o["q"], o["kv"], o["anc"], pos, num_heads=BEAM_H)
-                ref_s = BA.beam_self_attention_plain(
-                    o["q"], o["kv"], o["anc"], pos, num_heads=BEAM_H)
-                got_c = BA.beam_cross_attention_cuda(
-                    o["q"], o["mem_kv"], mem_group=BEAM_K, num_heads=BEAM_H)
-                ref_c = BA.beam_cross_attention_plain(
-                    o["q"], o["mem_kv"], mem_group=BEAM_K, num_heads=BEAM_H)
-                torch.cuda.synchronize()
-                for what, got, ref in (("self", got_s, ref_s),
-                                       ("cross", got_c, ref_c)):
-                    if got.dtype != dtype or got.shape != (N * BEAM_K, 1, 512):
-                        fail(f"beam {what} attention: dtype/shape contract")
-                    err = (got.float() - ref.float()).abs().max().item()
-                    top = ref.float().abs().max().item()
-                    ok = err <= BEAM_LIMIT[dtype] and top > 0.1
-                    print(f"beam_{what}_attention N={N} {str(dtype)[6:]} "
-                          f"pos={pos}: max_abs_err {err:.3e} (limit "
-                          f"{BEAM_LIMIT[dtype]:g}), largest value {top:.3e} "
-                          f"{'ok' if ok else 'FAIL'}", flush=True)
-                    if not ok:
-                        fail(f"the beam {what}-attention kernel disagrees "
-                             "with its plain version")
-                    if N == BEAM_B and dtype == torch.float32:
-                        main_err[what] = max(main_err[what], err)
+    cases = [(N, BEAM_K, dtype, pos, SEED + 20 + pos)
+             for N in (BEAM_B, 2 * BEAM_B)
+             for dtype in (torch.float32, torch.bfloat16)
+             for pos in (0, 7, BEAM_S - 1)]
+    cases += [(BEAM_B, 2 * BEAM_K, dtype, BEAM_S - 1, SEED + 60)
+              for dtype in (torch.float32, torch.bfloat16)]
+    for N, K, dtype, pos, seed in cases:
+        o = beam_operands(dev, N, dtype, pos, seed, K=K)
+        got_s = BA.beam_self_attention_cuda(
+            o["q"], o["kv"], o["anc"], pos, num_heads=BEAM_H)
+        ref_s = BA.beam_self_attention_plain(
+            o["q"], o["kv"], o["anc"], pos, num_heads=BEAM_H)
+        got_c = BA.beam_cross_attention_cuda(
+            o["q"], o["mem_kv"], mem_group=K, num_heads=BEAM_H)
+        ref_c = BA.beam_cross_attention_plain(
+            o["q"], o["mem_kv"], mem_group=K, num_heads=BEAM_H)
+        torch.cuda.synchronize()
+        for what, got, ref in (("self", got_s, ref_s), ("cross", got_c, ref_c)):
+            err = beam_close(what, got, ref, N, K, dtype, pos)
+            if N == BEAM_B and K == BEAM_K and dtype == torch.float32:
+                main_err[what] = max(main_err[what], err)
+        if pos == BEAM_S - 1 and not mutant:
+            repeats_same(f"beam_cross_attention N={N} K={K} "
+                         f"{str(dtype)[6:]}", [got_c],
+                         lambda: [BA.beam_cross_attention_cuda(
+                             o["q"], o["mem_kv"], mem_group=K,
+                             num_heads=BEAM_H)])
     return main_err
 
 
@@ -1447,7 +1479,7 @@ CARD_CPU_GNORM_LIMIT = 1e-3
 # The compact and the enhanced student
 # ---------------------------------------------------------------------------
 
-ENH_L, ENH_NH = 64, SE.NUM_HEADS
+ENH_L, ENH_NH, ENH_E, ENH_H = 64, SE.NUM_HEADS, 384, 768
 # Limits of the enhanced scan.  Its three LayerNorms re-scale whatever
 # rounding the state carries, so the recurrence drifts faster than the other
 # two: at float32 the plain version itself moves 3e-5 of the largest value
@@ -1671,25 +1703,26 @@ def make_variant_decoder(variant, dev):
     return decoder.to(dev)
 
 
-def enhanced_scan_operands(decoder, dev, dtype, seed, masked):
+def enhanced_scan_operands(decoder, dev, dtype, seed, masked, B=KD_B):
     """The 29 operands of the enhanced scan at the KD shapes (T=47, B=16,
-    L=64, E=384, H=768), as ``enhanced_decoder_apply`` prepares them, with
-    seeded dropout multipliers (rates 0.1 and 0.15) or none."""
+    L=64, E=384, H=768; or batch ``B``), as ``enhanced_decoder_apply``
+    prepares them, with seeded dropout multipliers (rates 0.1 and 0.15) or
+    none."""
     rng = np.random.default_rng(seed)
     cfg = enhanced_student_config(VOCAB)
-    feats = seeded(rng, (KD_B, ENH_L, cfg.embed_size), dev, dtype)
-    caps = torch.from_numpy(rng.integers(0, VOCAB, (KD_T, KD_B))).to(dev)
+    feats = seeded(rng, (B, ENH_L, cfg.embed_size), dev, dtype)
+    caps = torch.from_numpy(rng.integers(0, VOCAB, (KD_T, B))).to(dev)
     masks = None
     if masked:
         ka, kl = 1.0 - SE.ATTN_DROPOUT, 1.0 - cfg.dropout
         masks = {
             "attn": torch.from_numpy(
-                (rng.random((KD_T, KD_B, ENH_NH, ENH_L)) < ka) / ka).float(
+                (rng.random((KD_T, B, ENH_NH, ENH_L)) < ka) / ka).float(
                 ).to(dev),
             "lstm": torch.from_numpy(
-                (rng.random((3, KD_T, KD_B, cfg.hidden_size)) < kl) / kl
+                (rng.random((3, KD_T, B, cfg.hidden_size)) < kl) / kl
                 ).float().to(dev),
-            "proj": torch.ones(KD_T, KD_B, cfg.embed_size, dtype=torch.bool,
+            "proj": torch.ones(KD_T, B, cfg.embed_size, dtype=torch.bool,
                                device=dev)}
     seen = {}
     real = ES.enhanced_decoder_scan
@@ -1706,8 +1739,9 @@ def enhanced_scan_operands(decoder, dev, dtype, seed, masked):
 
 def check_enhanced_scan(decoder, dev, mutant=False):
     """Kernel #8 against its plain version at the KD shapes, with and
-    without dropout multipliers, float32 and bf16, all eight outputs; then
-    the kernel under autograd (plain reverse-time backward over the kernel's
+    without dropout multipliers, float32 and bf16, all eight outputs, and
+    REPEATS more runs of each bit-identical to the first; then the kernel
+    under autograd (plain reverse-time backward over the kernel's
     residuals) against autograd through the plain forward, masked."""
     kept = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -1725,13 +1759,17 @@ def check_enhanced_scan(decoder, dev, mutant=False):
                    f"{'with' if masked else 'without'} masks",
                    rel_errs(ES.OUTPUTS, got, ref, mean), limit,
                    rel_errs(ES.OUTPUTS, ref64, ref, mean), mean)
+            if not mutant:  # no atomics, sums in a fixed order
+                repeats_same(f"enhanced_scan {tag} "
+                             f"{'with' if masked else 'without'} masks", got,
+                             lambda: ES.enhanced_scan_cuda(*ops))
             worst = lambda a, b: max(  # noqa: E731
                 e for _, e, _ in rel_errs(ES.OUTPUTS, a, b))
             if masked and not mean:
-                f32_err = worst(got, ref)
+                f32_err, f32_ops = worst(got, ref), ops
             if masked and mean:
                 kept = dict(ops=ops, err=worst(got, ref), f32_err=f32_err,
-                            floor=worst(ref64, ref))
+                            f32_ops=f32_ops, floor=worst(ref64, ref))
             if masked and not mutant:
                 before = ES.launches
                 check_gradients(
@@ -1747,10 +1785,62 @@ def check_enhanced_scan(decoder, dev, mutant=False):
     return kept
 
 
+def repeats_same(what, first, run):
+    """REPEATS more runs of ``run`` must equal ``first`` bit for bit."""
+    with torch.no_grad():
+        same = all(all(torch.equal(x, y) for x, y in zip(first, run()))
+                   for _ in range(REPEATS))
+    print(f"{what}: {REPEATS} more runs bit-identical to the first: {same} "
+          f"{'ok' if same else 'FAIL'}", flush=True)
+    if not same:
+        fail(f"{what}: repeated runs differ")
+
+
+ENH_BATCHES = (4, 24)  # #8 at a padded tile and at two chunks (16 + 8 rows)
+
+
+def enhanced_chunk(ops, b, n):
+    """The enhanced scan operands of batch rows [b, b + n): embp, gate_w
+    and amask are (T, B, ·), k and v (B, ·), lmask (3, T, B, H)."""
+    embp, gate_w, k, v, amask, lmask = ops[:6]
+    cut = lambda x, *lead: None if x is None else \
+        x[lead + (slice(b, b + n),)].contiguous()  # noqa: E731
+    return (cut(embp, slice(None)), cut(gate_w, slice(None)), cut(k),
+            cut(v), cut(amask, slice(None)),
+            cut(lmask, slice(None), slice(None))) + ops[6:]
+
+
+def check_enhanced_batches(decoder, dev):
+    """#8 at the batches of ENH_BATCHES, which the KD path (B=16) does not
+    reach, masked, both dtypes, against its plain version with the main
+    check's limits; and one launch against a launch per chunk of 16 rows,
+    bit for bit."""
+    for B in ENH_BATCHES:
+        for dtype in (torch.float32, torch.bfloat16):
+            tag, mean = f"B={B} {str(dtype)[6:]}", dtype == torch.bfloat16
+            ops = enhanced_scan_operands(decoder, dev, dtype, SEED + 40 + B,
+                                         True, B)
+            with torch.no_grad():
+                got = ES.enhanced_scan_cuda(*ops)
+                ref = ES.enhanced_scan_plain(*ops)
+                ref64 = ES.enhanced_scan_plain(*ops, acc_dtype=torch.float64)
+                parts = [ES.enhanced_scan_cuda(*enhanced_chunk(ops, b, 16))
+                         for b in range(0, B, 16)]
+            torch.cuda.synchronize()
+            report(f"enhanced_scan {tag} with masks",
+                   rel_errs(ES.OUTPUTS, got, ref, mean),
+                   ENH_BF16_MEAN_LIMIT if mean else ENH_F32_LIMIT,
+                   rel_errs(ES.OUTPUTS, ref64, ref, mean), mean, brief=True)
+            chunk_same(f"enhanced_scan {tag}", list(got),
+                       [torch.cat(x, dim=1) for x in zip(*parts)])
+
+
 def time_enhanced_scan(kept):
     ops = kept["ops"]
     with torch.no_grad():
         kept["ms"] = median_ms(lambda: ES.enhanced_scan_cuda(*ops), 10, 2)
+        kept["f32_ms"] = median_ms(
+            lambda: ES.enhanced_scan_cuda(*kept["f32_ops"]), 5, 1)
         kept["plain_ms"] = median_ms(lambda: ES.enhanced_scan_plain(*ops), 3, 1)
         res = ops + ES.enhanced_scan_cuda(*ops)
         cots = [torch.ones_like(res[29 + i]) for i in range(3)]
@@ -1929,7 +2019,7 @@ def forget_libraries() -> None:
     ``_build.CSRC``."""
     _build._LIBS.clear()
     _build._GRIDS.clear()
-    A._KERNEL = G._GREEDY = S._FWD = S._BWD = None
+    A._KERNEL = G._GREEDY = S._FWD = S._BWD = BA._KERNELS = ES._LIB = None
 
 
 def mutant_caught(source: str, good: str, bad: str, check, what: str) -> bool:
@@ -1964,16 +2054,19 @@ def mutant_caught(source: str, good: str, bad: str, check, what: str) -> bool:
 
 
 def run_mutation(dev) -> int:
-    """Six planted faults, each of which its check must catch: the scan
+    """Eight planted faults, each of which its check must catch: the scan
     backward without the dropout mask on layer 1's input gradient (``dh0 =
     dh0_c + (dgp1·W_ih1ᵀ) · mask``), a beam self-attention that reads its
     own slot's cache row instead of ``anc[n, i, s]``, an enhanced scan
     whose attention heads ignore their dropout multiplier ``amask``, an
-    attention core whose causal mask lets each row see one key ahead, and
-    two faults in the cross-block exchange of the cooperative chains: a
-    greedy decode whose blocks all read batch row 0's context from L2 when
-    they build x0, and a scan forward whose layer 1 reads the broadcast h0
-    without its dropout mask."""
+    attention core whose causal mask lets each row see one key ahead, two
+    faults in the cross-block exchange of the cooperative chains (a greedy
+    decode whose blocks all read batch row 0's context from L2 when they
+    build x0, a scan forward whose layer 1 reads the broadcast h0 without
+    its dropout mask), an enhanced scan whose blocks publish their
+    LayerNorm partials at step 0 only, so that every later LayerNorm
+    combines stale partials, and a beam cross-attention whose bulk copy of
+    V drops the last 16 keys."""
     decoder = make_decoder(dev)
     g_decoder, g_feats = greedy_inputs(dev)
     caught = [
@@ -2001,8 +2094,14 @@ def run_mutation(dev) -> int:
         mutant_caught("beam_attention.cu",
                       "rows[s] = n * K + anc[(size_t)r * S + s];",
                       "rows[s] = r;",
-                      lambda: check_beam_attention(dev),
+                      lambda: check_beam_attention(dev, mutant=True),
                       "beam self-attention ignores anc"),
+        mutant_caught("beam_attention.cu",
+                      "bulk_load(v_s, mv + nh * L * D, bytes, &bar[1]);",
+                      "bulk_load(v_s, mv + nh * L * D, bytes - 16 * D * "
+                      "sizeof(T), &bar[1]);",
+                      lambda: check_beam_attention(dev, mutant=True),
+                      "beam cross-attention's V copy drops its last 16 keys"),
         mutant_caught("enhanced_scan.cu",
                       "sc[l] = sc[l] / sum * (am ? am[l] : 1.f);",
                       "sc[l] = sc[l] / sum;",
@@ -2010,6 +2109,13 @@ def run_mutation(dev) -> int:
                           make_variant_decoder("enhanced", dev), dev,
                           mutant=True),
                       "enhanced scan ignores amask"),
+        mutant_caught("enhanced_scan.cu",
+                      "*mine = make_float2(mean, m2);",
+                      "if (t == 0) *mine = make_float2(mean, m2);",
+                      lambda: check_enhanced_scan(
+                          make_variant_decoder("enhanced", dev), dev,
+                          mutant=True),
+                      "enhanced scan reads stale LayerNorm partials"),
     ]
     return 0 if all(caught) else 1
 
@@ -2181,8 +2287,10 @@ def main() -> int:
         ckd_launches, ckd_rate, _ = run_variant_kd(dev, tmp, "compact")
 
     # --- 12. the enhanced student: kernel #8, serving, KD ---------------------
-    escan = time_enhanced_scan(check_enhanced_scan(
-        make_variant_decoder("enhanced", dev), dev))
+    e_decoder = make_variant_decoder("enhanced", dev)
+    escan = time_enhanced_scan(check_enhanced_scan(e_decoder, dev))
+    check_enhanced_batches(e_decoder, dev)
+    del e_decoder
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = write_student(tmp, "enhanced")
         e_launches, e_rate, _, e_model32 = serve_variant(
@@ -2196,7 +2304,8 @@ def main() -> int:
     floors = chain_floors(dev)
     usage = {src: ptxas_usage(src, kernel) for src, kernel in (
         ("greedy_decode", "greedy_kernel"), ("decoder_scan", "scan_kernel"),
-        ("decoder_scan_bwd", "chain_kernel"))}
+        ("decoder_scan_bwd", "chain_kernel"),
+        ("enhanced_scan", "enhanced_scan_kernel"))}
     print(f"greedy_decode B=32 T=20 bf16: kernel {greedy_ms:.4f} ms, "
           f"plain {greedy_plain_ms:.4f} ms")
     print_scan_times(scan_t, scan_b)
@@ -2234,8 +2343,9 @@ def main() -> int:
           f"plain {cscan['plain_ms']:.4f} ms; its plain backward "
           f"{cscan['bwd_plain_ms']:.4f} ms")
     print(f"enhanced_scan T={KD_T} B={KD_B} bf16 with masks: kernel "
-          f"{escan['ms']:.4f} ms, plain {escan['plain_ms']:.4f} ms; its plain "
-          f"backward {escan['bwd_plain_ms']:.4f} ms")
+          f"{escan['ms']:.4f} ms (float32 {escan['f32_ms']:.4f}), plain "
+          f"{escan['plain_ms']:.4f} ms; its plain backward "
+          f"{escan['bwd_plain_ms']:.4f} ms")
     lstm, bt = "pallas_lstm.py", beam_t["f32"]
     attn_by_path = dict(
         launches_serving=launches["attention_core"],
@@ -2268,7 +2378,10 @@ def main() -> int:
               escan["plain_ms"], escan["bound"],
               plain_backward_ms=escan["bwd_plain_ms"],
               float32_max_abs_err=escan["f32_err"],
-              plain_f64_vs_f32_max_abs_err=escan["floor"]),
+              plain_f64_vs_f32_max_abs_err=escan["floor"],
+              float32_ms=escan["f32_ms"],
+              chain_floor_ms=floors["enhanced_scan"]["floor_ms"],
+              chain=floors["enhanced_scan"], ptxas=usage["enhanced_scan"]),
         entry("greedy_decode", "greedy_decode.cu", "pallas_greedy.py:258",
               launches["greedy_decode"], greedy_diff, greedy_ms,
               greedy_plain_ms, greedy_bound,

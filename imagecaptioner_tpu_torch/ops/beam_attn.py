@@ -14,10 +14,10 @@ the product with v, the context accumulates in float32, and the output
 
 ``beam_self_attention`` and ``beam_cross_attention`` dispatch on the device:
 a CPU tensor takes the plain version, a CUDA tensor the kernel in
-``csrc/beam_attention.cu`` (hd = 64, S <= 64, L <= 256, float32 or bfloat16),
-which raises on anything it does not take.  The kernels read q through its
-row stride, so q may be a column block of a packed projection.  Serving
-only: no gradient, as in the JAX package.
+``csrc/beam_attention.cu`` (hd = 64, S <= 64, L <= 256, float32 or bfloat16,
+the memory 16-byte aligned), which raises on anything it does not take.
+The kernels read q through its row stride, so q may be a column block of a
+packed projection.  Serving only: no gradient, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -34,9 +34,26 @@ HEAD_DIM = 64
 MAX_S = 64     # cache positions the self kernel takes
 MAX_L = 256    # memory tokens the cross kernel takes
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_SCALE = 1.0 / HEAD_DIM ** 0.5
 
 launches_self = 0   # kernel launches by beam_self_attention_cuda
 launches_cross = 0  # kernel launches by beam_cross_attention_cuda
+_KERNELS = None  # (library, its entry points with argtypes set), at first use
+
+
+def _kernels():
+    global _KERNELS
+    if _KERNELS is None:
+        lib = _build.library("beam_attention")
+        fns = {"self": lib.ic_beam_self_attention,
+               "cross": lib.ic_beam_cross_attention}
+        i, p, f = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
+        fns["self"].argtypes = [i, p, i, p, p, p, p, i, i, i, i, i, i, f, p]
+        fns["cross"].argtypes = [i, p, i, p, p, p, i, i, i, i, i, f, p]
+        for fn in fns.values():
+            fn.restype = ctypes.c_int
+        _KERNELS = lib, fns
+    return _KERNELS
 
 
 def beam_self_attention_plain(q: torch.Tensor, kv: Dict[str, torch.Tensor],
@@ -78,10 +95,14 @@ def beam_cross_attention_plain(q: torch.Tensor, mem_kv: Dict[str, torch.Tensor],
     return out.transpose(1, 2).reshape(R, 1, E)
 
 
+def _require_cuda(q: torch.Tensor) -> None:
+    if not q.is_cuda:
+        raise ValueError(f"q must be a CUDA tensor; got one on {q.device}")
+
+
 def _check_q(q: torch.Tensor, num_heads: int, dtype: torch.dtype) -> None:
-    if not q.is_cuda or q.dim() != 3 or q.shape[1] != 1:
-        raise ValueError(f"q must be a CUDA tensor (R, 1, E); got "
-                         f"{tuple(q.shape)} on {q.device}")
+    if q.dim() != 3 or q.shape[1] != 1:
+        raise ValueError(f"q must be (R, 1, E); got {tuple(q.shape)}")
     if dtype not in _DTYPES or q.dtype != dtype:
         raise TypeError(f"q and the cache must share float32 or bfloat16; "
                         f"got {q.dtype} and {dtype}")
@@ -110,6 +131,7 @@ def beam_self_attention_cuda(q: torch.Tensor, kv: Dict[str, torch.Tensor],
                              ) -> torch.Tensor:
     """Launch the ancestry self-attention kernel on the current stream."""
     global launches_self
+    _require_cuda(q)
     _check_q(q, num_heads, kv["k"].dtype)
     R, _, E = q.shape
     N, K, S = anc.shape
@@ -124,19 +146,11 @@ def beam_self_attention_cuda(q: torch.Tensor, kv: Dict[str, torch.Tensor],
         raise ValueError(f"kernel takes 0 <= pos < S <= {MAX_S}; got "
                          f"pos={pos}, S={S}")
     out = torch.empty((R, 1, E), dtype=q.dtype, device=q.device)
-    lib = _build.library("beam_attention")
-    fn = lib.ic_beam_self_attention
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(_DTYPES[q.dtype], q.data_ptr(), q.stride(0),
-                 kv["k"].data_ptr(), kv["v"].data_ptr(), anc.data_ptr(),
-                 out.data_ptr(), E, R, K, num_heads, S, pos,
-                 1.0 / HEAD_DIM ** 0.5, stream)
+    lib, fns = _kernels()
+    err = _build.call_on(q.device, fns["self"], _DTYPES[q.dtype], q.data_ptr(),
+                         q.stride(0), kv["k"].data_ptr(), kv["v"].data_ptr(),
+                         anc.data_ptr(), out.data_ptr(), E, R, K, num_heads, S,
+                         pos, _SCALE)
     _build.check(lib, err, "beam_self_attention")
     launches_self += 1
     return out
@@ -147,6 +161,7 @@ def beam_cross_attention_cuda(q: torch.Tensor, mem_kv: Dict[str, torch.Tensor],
                               ) -> torch.Tensor:
     """Launch the grouped cross-attention kernel on the current stream."""
     global launches_cross
+    _require_cuda(q)
     _check_q(q, num_heads, mem_kv["k"].dtype)
     R, _, E = q.shape
     K = int(mem_group)
@@ -156,20 +171,15 @@ def beam_cross_attention_cuda(q: torch.Tensor, mem_kv: Dict[str, torch.Tensor],
     _check_cache("mem_kv", mem_kv, q, (N, num_heads, L, HEAD_DIM))
     if not 0 < L <= MAX_L:
         raise ValueError(f"kernel takes 0 < L <= {MAX_L}; got L={L}")
+    if mem_kv["k"].data_ptr() % 16 or mem_kv["v"].data_ptr() % 16:
+        raise ValueError("mem_kv must be 16-byte aligned: the kernel brings "
+                         "each head in by bulk asynchronous copies")
     out = torch.empty((R, 1, E), dtype=q.dtype, device=q.device)
-    lib = _build.library("beam_attention")
-    fn = lib.ic_beam_cross_attention
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                   ctypes.c_void_p]
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(_DTYPES[q.dtype], q.data_ptr(), q.stride(0),
-                 mem_kv["k"].data_ptr(), mem_kv["v"].data_ptr(),
-                 out.data_ptr(), E, N, K, num_heads, L,
-                 1.0 / HEAD_DIM ** 0.5, stream)
+    lib, fns = _kernels()
+    err = _build.call_on(q.device, fns["cross"], _DTYPES[q.dtype], q.data_ptr(),
+                         q.stride(0), mem_kv["k"].data_ptr(),
+                         mem_kv["v"].data_ptr(), out.data_ptr(), E, N, K,
+                         num_heads, L, _SCALE)
     _build.check(lib, err, "beam_cross_attention")
     launches_cross += 1
     return out

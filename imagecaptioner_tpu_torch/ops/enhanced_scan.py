@@ -20,12 +20,17 @@ kernel's are (that serves its compiler's lane alignment): head ``h`` is rows
 
 ``enhanced_decoder_scan`` returns ``(h_tops (T,B,H) dt, enh (T,B,H) dt, attn
 (T,B,L) f32)``.  For a CPU tensor it runs ``enhanced_scan_plain`` under
-ordinary autograd.  For a CUDA tensor it launches ``csrc/enhanced_scan.cu``,
-which always writes the five residual trajectories as well; the backward is
+ordinary autograd.  For a CUDA tensor it launches ``csrc/enhanced_scan.cu``
+(one cooperative launch over the card, rows in chunks of 16; E and H
+divisible by 16, L <= 512, min(B, 16) x nh attention jobs at most one a
+block), which always writes the five residual
+trajectories as well; the backward is
 ``enhanced_scan_bwd_plain``, plain PyTorch over those residuals on either
 device: the JAX package has no backward kernel here either (its custom VJP
 is an XLA reverse scan).  Nothing falls back: a shape or layout the kernel
-does not take raises.
+does not take raises.  ``layer_norm_partials`` mirrors the kernel's
+LayerNorm statistics (per-block partials combined in block order) in plain
+PyTorch for the CPU tests; nothing on the card calls it.
 """
 
 from __future__ import annotations
@@ -37,8 +42,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from imagecaptioner_tpu_torch.ops import _build
-from imagecaptioner_tpu_torch.ops.lstm_scan import (MAX_SMEM_BYTES, _DTYPES,
-                                                    _ptr_array)
+from imagecaptioner_tpu_torch.ops.lstm_scan import _DTYPES, _ptr_array
 
 LN_EPS = 1e-5
 NUM_LAYERS = 3
@@ -72,6 +76,26 @@ def weight_shapes(E: int, H: int) -> dict:
 def _layer_norm_stats(x):
     mu = x.mean(-1, keepdim=True)
     rstd = torch.rsqrt((x - mu).square().mean(-1, keepdim=True) + LN_EPS)
+    return (x - mu) * rstd, rstd
+
+
+def layer_norm_partials(x, blocks: int = 132):
+    """``_layer_norm_stats`` as the kernel takes it: block k of ``blocks``
+    owns the units [k·H // blocks, (k+1)·H // blocks) and publishes their
+    mean and sum of squared deviations; the consumer combines them in block
+    order as mean = Σ n_k·mean_k / H and M2 = Σ (M2_k + n_k·(mean_k -
+    mean)²), with rstd = rsqrt(M2 / H + eps).  A test helper: nothing on the
+    card calls it."""
+    H = x.shape[-1]
+    cuts = [k * H // blocks for k in range(blocks + 1)]
+    spans = [(lo, hi) for lo, hi in zip(cuts, cuts[1:]) if hi > lo]
+    n = [float(hi - lo) for lo, hi in spans]
+    means = [x[..., lo:hi].mean(-1, keepdim=True) for lo, hi in spans]
+    m2s = [(x[..., lo:hi] - m).square().sum(-1, keepdim=True)
+           for (lo, hi), m in zip(spans, means)]
+    mu = sum(nk * m for nk, m in zip(n, means)) / H
+    m2 = sum(q + nk * (m - mu).square() for nk, m, q in zip(n, means, m2s))
+    rstd = torch.rsqrt(m2 / H + LN_EPS)
     return (x - mu) * rstd, rstd
 
 
@@ -278,25 +302,53 @@ def enhanced_scan_bwd_plain(res: Sequence[Optional[torch.Tensor]],
 # ---------------------------------------------------------------------------
 
 
-def enhanced_scan_cuda(embp, gate_w, k, v, amask, lmask, *weights):
-    """Launch the forward kernel on the current stream.  Returns the eight
-    ``OUTPUTS``."""
-    global launches
+HIDDEN_PER_BLOCK, E_PER_BLOCK = 6, 3  # csrc/enhanced_scan.cu caps
+CHUNK_ROWS = 16  # batch rows a chunk: the M side of the kernel's mma tiles
+MAX_L = 512   # keys of an attention row: one thread each
+_LIB = None  # (library, its entry points with argtypes set), at first use
+
+
+def _library():
+    global _LIB
+    if _LIB is None:
+        lib = _build.library("enhanced_scan")
+        fns = {"blocks": lib.ic_enhanced_scan_blocks,
+               "workspace": lib.ic_enhanced_scan_workspace_bytes,
+               "scan": lib.ic_enhanced_scan}
+        i, p = ctypes.c_int, ctypes.c_void_p
+        fns["blocks"].restype = fns["scan"].restype = ctypes.c_int
+        fns["workspace"].restype = ctypes.c_longlong
+        fns["blocks"].argtypes = [i] * 5 + [ctypes.POINTER(ctypes.c_longlong)]
+        fns["workspace"].argtypes = [i] * 6
+        fns["scan"].argtypes = [i, p, p] + [i] * 7 + [p]
+        _LIB = lib, fns
+    return _LIB
+
+
+def _require_cuda(embp) -> None:
+    if not embp.is_cuda:
+        raise ValueError(f"enhanced scan kernel: the operands must be CUDA "
+                         f"tensors; got embp on {embp.device}")
+
+
+def _check_operands(embp, gate_w, k, v, amask, lmask, *weights):
+    """Raise on what the kernel does not take; returns (T, B, L, E, H, nh)."""
     if len(weights) != len(WEIGHTS):
         raise ValueError(f"expected the {len(WEIGHTS)} weights {WEIGHTS}")
-    if not embp.is_cuda or embp.dim() != 3 or k.dim() != 4:
-        raise ValueError("enhanced scan kernel: embp (T, B, E) and k "
-                         "(B, nh, L, hd) must be CUDA tensors")
+    _require_cuda(embp)
+    if embp.dim() != 3 or k.dim() != 4:
+        raise ValueError("enhanced scan kernel: embp must be (T, B, E) and k "
+                         "(B, nh, L, hd)")
     dt, dev = embp.dtype, embp.device
     if dt not in _DTYPES:
         raise TypeError(f"enhanced scan kernel: dtype {dt} not supported")
     T, B, E = embp.shape
     nh, L, hd = k.shape[1], k.shape[2], k.shape[3]
     H = weights[WEIGHTS.index("whh0")].shape[1]
-    if E % 8 or H % 8 or nh * hd != E or T < 1:
-        raise ValueError(f"enhanced scan kernel needs E and H divisible by 8 "
-                         f"and nh * hd == E, got E={E}, H={H}, nh={nh}, "
-                         f"hd={hd}, T={T}")
+    if E % 16 or H % 16 or nh * hd != E or T < 1 or not 0 < L <= MAX_L:
+        raise ValueError(f"enhanced scan kernel needs E and H divisible by 16, "
+                         f"nh * hd == E and 0 < L <= {MAX_L}, got E={E}, "
+                         f"H={H}, nh={nh}, hd={hd}, L={L}, T={T}")
     want = {"embp": ((T, B, E), dt), "gate_w": ((T, B, E), torch.float32),
             "k": ((B, nh, L, hd), dt), "v": ((B, nh, L, hd), dt),
             "amask": ((T, B, nh, L), torch.float32),
@@ -312,25 +364,43 @@ def enhanced_scan_cuda(embp, gate_w, k, v, amask, lmask, *weights):
             raise ValueError(f"{name}: {tuple(t.shape)} {t.dtype} on "
                              f"{t.device}, expected contiguous, 16-byte "
                              f"aligned {shape} {dtype} on {dev}")
-    lib = _build.library("enhanced_scan")
-    lib.ic_enhanced_scan_smem_bytes.restype = ctypes.c_longlong
-    lib.ic_enhanced_scan_smem_bytes.argtypes = [ctypes.c_int] * 4
-    smem = lib.ic_enhanced_scan_smem_bytes(L, E, H, nh)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"enhanced scan kernel: {smem} bytes of shared memory "
-                         f"for L={L}, E={E}, H={H}, nh={nh} exceed "
-                         f"{MAX_SMEM_BYTES}")
+    return T, B, L, E, H, nh
+
+
+def enhanced_scan_blocks(dt, dev, L: int, E: int, H: int, nh: int) -> int:
+    """The kernel's cooperative grid on this card (one block an SM); raises
+    if the kernel does not fit or its blocks would own more columns than it
+    takes."""
+    _, fns = _library()
+    return _build.cooperative_grid(
+        ("enhanced_scan", dt, dev, L, E, H, nh),
+        lambda smem: fns["blocks"](_DTYPES[dt], L, E, H, nh, smem),
+        "enhanced scan kernel", (("H", H, HIDDEN_PER_BLOCK),
+                                 ("E", E, E_PER_BLOCK)))
+
+
+def enhanced_scan_cuda(embp, gate_w, k, v, amask, lmask, *weights):
+    """Launch the cooperative forward kernel on the current stream.  Returns
+    the eight ``OUTPUTS``."""
+    global launches
+    ops = (embp, gate_w, k, v, amask, lmask) + tuple(weights)
+    T, B, L, E, H, nh = _check_operands(*ops)
+    dt, dev = embp.dtype, embp.device
+    lib, fns = _library()
+    blocks = enhanced_scan_blocks(dt, dev, L, E, H, nh)
+    jobs = min(B, CHUNK_ROWS) * nh
+    if jobs > blocks:
+        raise ValueError(f"enhanced scan kernel: {blocks} cooperative blocks "
+                         f"hold one (row, head) attention job each, too few "
+                         f"for min(B, {CHUNK_ROWS}) x nh = {jobs}")
+    ws = torch.zeros(fns["workspace"](_DTYPES[dt], L, E, H, nh, blocks),
+                     dtype=torch.uint8, device=dev)
     new = lambda n, d: torch.empty((T, B, n), dtype=d, device=dev)  # noqa: E731
     outs = (new(H, dt), new(H, dt), new(L, torch.float32), new(H, dt),
             new(H, dt), new(H, torch.float32), new(H, torch.float32),
             new(H, torch.float32))
-    fn = lib.ic_enhanced_scan
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 6 + \
-        [ctypes.c_void_p]
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(_DTYPES[dt], _ptr_array(ops + outs), T, B, L, E, H, nh, stream)
+    err = _build.call_on(dev, fns["scan"], _DTYPES[dt], _ptr_array(ops + outs),
+                         ws.data_ptr(), blocks, T, B, L, E, H, nh)
     _build.check(lib, err, "enhanced_scan")
     launches += 1
     return outs

@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
-"""Check and time the hand-written kernels of the full student's paths alone
-on one NVIDIA GPU, with the checks and timers of ``chip_smoke.py``: #2 (the
-attention core), #1 (the cooperative greedy loop), #4/#5 and #6 (the
-decoder scan's forward and its reverse-time backward).  Faster than the
-whole smoke run when only these kernels change.
+"""Check and time hand-written kernels alone on one NVIDIA GPU, with the
+checks and timers of ``chip_smoke.py``: #2 (the attention core), #1 (the
+cooperative greedy loop), #4/#5 and #6 (the decoder scan's forward and its
+reverse-time backward), #9 and #10 (the beam step's attention cores) and #8
+(the enhanced recurrence).  Faster than the whole smoke run when only these
+kernels change.
 
-    python3 scripts/torch_bench_kernels.py [--only attention|greedy|scan[,...]]
+    python3 scripts/torch_bench_kernels.py \
+        [--only attention|greedy|scan|beam|enhanced[,...]]
 
 Prints ptxas' register and spill lines for the sources, each check, the
 timings (the scan's forward forms beside its backward by stage), the chain
@@ -40,10 +42,15 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     sources = {"attention": ["attention_core"], "greedy": ["greedy_decode"],
-               "scan": ["decoder_scan", "decoder_scan_bwd"]}
+               "scan": ["decoder_scan", "decoder_scan_bwd"],
+               "beam": ["beam_attention"], "enhanced": ["enhanced_scan"]}
+    chains = {"greedy": ["greedy_decode"],
+              "scan": ["decoder_scan", "decoder_scan_bwd"],
+              "enhanced": ["enhanced_scan"]}
     picked = only.split(",") if only else list(sources)
     names = sum((sources[p] for p in picked), [])
-    if "greedy" in picked or "scan" in picked:
+    floors = sum((chains.get(p, []) for p in picked), [])
+    if floors:
         names.append(CS.PROBE)  # the chain floors' barrier probe
     print(f"built {names} in {_build.build_all(names):.1f} s", flush=True)
     for src in names:
@@ -67,8 +74,28 @@ def main() -> int:
     if "scan" in picked:
         kept = CS.check_scan(CS.make_decoder(dev), dev)
         CS.print_scan_times(CS.time_scan(kept), CS.scan_bounds(kept))
-    if "greedy" in picked or "scan" in picked:
-        CS.chain_floors(dev)
+    if "beam" in picked:
+        CS.check_beam_attention(dev)
+        for tag, t in CS.time_beam_attention(dev).items():
+            print(f"beam attention N={CS.BEAM_B} {tag}: self {t['self_ms']:.4f}"
+                  f" ms per call, {t['self_queued_ms']:.4f} queued; cross "
+                  f"{t['cross_ms']:.4f} per call, {t['cross_queued_ms']:.4f} "
+                  f"queued (SDPA {t['cross_sdpa_ms']:.4f}, "
+                  f"{t['cross_sdpa_queued_ms']:.4f}; plain "
+                  f"{t['cross_plain_ms']:.4f}; bound "
+                  f"{t['bounds']['cross'][0]:.5f})", flush=True)
+    if "enhanced" in picked:
+        decoder = CS.make_variant_decoder("enhanced", dev)
+        kept = CS.time_enhanced_scan(CS.check_enhanced_scan(decoder, dev))
+        CS.check_enhanced_batches(decoder, dev)
+        print(f"enhanced_scan T={CS.KD_T} B={CS.KD_B} bf16: kernel "
+              f"{kept['ms']:.4f} ms (float32 {kept['f32_ms']:.4f}), plain "
+              f"{kept['plain_ms']:.4f}, bound {kept['bound'][0]:.5f} by "
+              f"{kept['bound'][1]}; ptxas "
+              f"{CS.ptxas_usage('enhanced_scan', 'enhanced_scan_kernel')}",
+              flush=True)
+    if floors:
+        CS.chain_floors(dev, floors)
     print(smi)
     return 0
 

@@ -3,12 +3,13 @@
 
     python3 scripts/torch_chain_probe.py [--against OTHER_CSRC_DIR]
 
-1. Builds a copy of ``csrc/`` in which block 0 of ``greedy_decode.cu`` (#1)
-   and of ``decoder_scan.cu`` (#4/#5) reads %globaltimer after every grid
-   barrier, runs each once at the main path's shapes in bf16 (#1: B=32,
-   T=20; the scan: T=47, B=16, with mask and residuals), and prints the
-   median time from one barrier to the next for each of the five phases of
-   a step (the slowest block's work in that phase plus the barrier).  The
+1. Builds a copy of ``csrc/`` in which block 0 of ``greedy_decode.cu`` (#1),
+   ``decoder_scan.cu`` (#4/#5) and ``enhanced_scan.cu`` (#8) reads
+   %globaltimer after every grid barrier, runs each once at the main path's
+   shapes in bf16 (#1: B=32, T=20; the scans: T=47, B=16, with masks and
+   residuals), and prints the median time from one barrier to the next for
+   each phase of a step (five for #1 and #4/#5, eight for #8: the slowest
+   block's work in that phase plus the barrier).  The
    copy is a temporary directory and builds libraries of their own hash;
    the repository's sources are not touched.
 2. With ``--against``, the ``csrc/`` directory of another checkout: runs
@@ -38,6 +39,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 import chip_smoke as CS  # noqa: E402
 from imagecaptioner_tpu_torch.ops import _build  # noqa: E402
+from imagecaptioner_tpu_torch.ops import enhanced_scan as ES  # noqa: E402
 from imagecaptioner_tpu_torch.ops import greedy as G  # noqa: E402
 from imagecaptioner_tpu_torch.ops import lstm_scan as S  # noqa: E402
 
@@ -51,6 +53,9 @@ READER = ('extern "C" int ic_probe_read(unsigned long long* t, int* n) {\n'
           "  return (int)cudaMemcpyToSymbol(probe_n, &zero, sizeof(int));\n}\n")
 PHASES = ("1 h products", "2 attention (and logits)", "3 x0 (and token)",
           "4 layer 0", "5 layer 1")
+ENH_PHASES = ("1 h2, highway, q, W_hh2", "2 qh, W_hh0", "3 attention, W_hh1",
+              "4 ctx, attn", "5 gate, x0", "6 layer 0", "7 layer 1",
+              "8 layer 2")
 
 
 def stamped_copy() -> Path:
@@ -59,7 +64,7 @@ def stamped_copy() -> Path:
     tmp = Path(tempfile.mkdtemp(prefix="ic_probe_"))
     for f in _build.CSRC.glob("*.cu*"):
         shutil.copy(f, tmp)
-    for name in ("greedy_decode.cu", "decoder_scan.cu"):
+    for name in ("greedy_decode.cu", "decoder_scan.cu", "enhanced_scan.cu"):
         src = (tmp / name).read_text()
         src = src.replace("namespace {\n", "namespace {\n__device__ unsigned long long "
                           "probe_t[16384];\n__device__ int probe_n;\n", 1)
@@ -69,7 +74,7 @@ def stamped_copy() -> Path:
     return tmp
 
 
-def phase_medians(lib, run, steps: int) -> list:
+def phase_medians(lib, run, steps: int, n_phases: int = 5) -> list:
     t = (ctypes.c_ulonglong * 16384)()
     n = ctypes.c_int()
     lib.ic_probe_read(t, ctypes.byref(n))
@@ -79,12 +84,12 @@ def phase_medians(lib, run, steps: int) -> list:
     stamps = list(t)[:n.value]
     gaps = [(b - a) / 1e3 for a, b in zip(stamps, stamps[1:])]
     # gaps[0] runs from the barrier after phase 1 of step 0 to the one after
-    # phase 2; from gap 4 on, gap 4 + i is phase i % 5 + 1 (step 0 and the
-    # tail left out)
-    by_phase = {}
-    for i, g in enumerate(gaps[4:5 * (steps - 1) + 4]):
-        by_phase.setdefault(i % 5, []).append(g)
-    return [statistics.median(by_phase[p]) for p in range(5)]
+    # phase 2; from gap P - 1 on, gap P - 1 + i is phase i % P + 1 (step 0
+    # and the tail left out)
+    P, by_phase = n_phases, {}
+    for i, g in enumerate(gaps[P - 1:P * (steps - 1) + P - 1]):
+        by_phase.setdefault(i % P, []).append(g)
+    return [statistics.median(by_phase[p]) for p in range(P)]
 
 
 def probe_phases(dev) -> None:
@@ -113,6 +118,17 @@ def probe_phases(dev) -> None:
         print(f"#4/#5 decoder_scan T={CS.KD_T} B={CS.KD_B} bf16 train form, "
               f"median us a phase: " + ", ".join(
                   f"{p} {m:.2f}" for p, m in zip(PHASES, med))
+              + f"; a step {sum(med):.2f}", flush=True)
+        ops = CS.enhanced_scan_operands(CS.make_variant_decoder(
+            "enhanced", dev), dev, torch.bfloat16, CS.SEED + 13, True)
+        with torch.no_grad():
+            run = lambda: ES.enhanced_scan_cuda(*ops)  # noqa: E731
+            run()
+            med = phase_medians(_build.library("enhanced_scan"), run, CS.KD_T,
+                                len(ENH_PHASES))
+        print(f"#8 enhanced_scan T={CS.KD_T} B={CS.KD_B} bf16 with masks, "
+              f"median us a phase: " + ", ".join(
+                  f"{p} {m:.2f}" for p, m in zip(ENH_PHASES, med))
               + f"; a step {sum(med):.2f}", flush=True)
     finally:
         _build.CSRC = real

@@ -147,3 +147,90 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="unsupported device"):
         BA.beam_cross_attention(q.to("meta"), kv, mem_group=K, num_heads=H)
     assert BA.launches_self == 0 and BA.launches_cross == 0
+
+
+class StubEntry:
+    """A C entry point in place of the built library's: records its calls
+    and how often its ``argtypes`` are set, returns ``ret`` (0: success)."""
+
+    def __init__(self, ret=0):
+        self.calls, self.typed, self.ret, self.restype = [], 0, ret, None
+        self._argtypes = None
+
+    @property
+    def argtypes(self):
+        return self._argtypes
+
+    @argtypes.setter
+    def argtypes(self, value):
+        self._argtypes = value
+        self.typed += 1
+
+    def __call__(self, *args):
+        self.calls.append(args)
+        return self.ret
+
+
+def stub_launches(monkeypatch, module, cache, names, *, ret=0):
+    """Route ``module``'s launches to stub entry points on the CPU: the
+    library stub (no nvcc), launches without a device switch, the device
+    check off; the module's entry-point cache and counters are restored
+    afterwards.  Returns the stubs by name."""
+    from imagecaptioner_tpu_torch.ops import _build
+    stubs = {n: StubEntry(ret) for n in names}
+    lib = type("StubLibrary", (), dict(stubs))()
+    monkeypatch.setattr(_build, "library", lambda name: lib)
+    monkeypatch.setattr(_build, "call_on", lambda dev, fn, *args: fn(*args, 0))
+    monkeypatch.setattr(module, "_require_cuda", lambda t: None)
+    monkeypatch.setattr(module, cache, None)
+    for counter in [n for n in vars(module) if n.startswith("launches")]:
+        monkeypatch.setattr(module, counter, getattr(module, counter))
+    return stubs
+
+
+def test_entry_points_are_typed_on_the_first_launch_only(monkeypatch):
+    """Both wrappers take their entry points from one table made at the
+    first launch: ``argtypes`` and ``restype`` are set once, not per call
+    (the launches go to stubs, so no nvcc and no card are needed)."""
+    stubs = stub_launches(monkeypatch, BA, "_KERNELS",
+                          ("ic_beam_self_attention", "ic_beam_cross_attention"))
+    anc = torch.from_numpy(_anc_at(_operands(seed=6)["anc"], 3))
+    q = torch.zeros(R, 1, H * BA.HEAD_DIM)
+    kv = {"k": torch.zeros(R, H, S, BA.HEAD_DIM),
+          "v": torch.zeros(R, H, S, BA.HEAD_DIM)}
+    mem = {"k": torch.zeros(N, H, L, BA.HEAD_DIM),
+           "v": torch.zeros(N, H, L, BA.HEAD_DIM)}
+    for _ in range(3):
+        BA.beam_self_attention_cuda(q, kv, anc, 3, num_heads=H)
+        BA.beam_cross_attention_cuda(q, mem, mem_group=K, num_heads=H)
+    for stub in stubs.values():
+        assert stub.typed == 1 and len(stub.calls) == 3
+        assert stub.restype is not None
+    assert BA.launches_self == 3 and BA.launches_cross == 3
+
+
+def test_wrappers_name_the_limits_they_refuse(monkeypatch):
+    """With the device check stubbed off, each refusal names its limit:
+    hd = 64, L <= 256, 16-byte aligned memory (bulk copies), S <= 64."""
+    stub_launches(monkeypatch, BA, "_KERNELS",
+                  ("ic_beam_self_attention", "ic_beam_cross_attention"))
+    d = BA.HEAD_DIM
+    q = torch.zeros(R, 1, H * d)
+    mem = lambda Lm: {"k": torch.zeros(N, H, Lm, d),  # noqa: E731
+                      "v": torch.zeros(N, H, Lm, d)}
+    with pytest.raises(ValueError, match="hd=64"):
+        BA.beam_cross_attention_cuda(torch.zeros(R, 1, H * 32), mem(L),
+                                     mem_group=K, num_heads=H)
+    with pytest.raises(ValueError, match="L <= 256"):
+        BA.beam_cross_attention_cuda(q, mem(BA.MAX_L + 1), mem_group=K,
+                                     num_heads=H)
+    flat = torch.zeros(N * H * L * d + 1)
+    shifted = {"k": flat[1:].view(N, H, L, d), "v": mem(L)["v"]}
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        BA.beam_cross_attention_cuda(q, shifted, mem_group=K, num_heads=H)
+    big = BA.MAX_S + 1
+    kv = {"k": torch.zeros(R, H, big, d), "v": torch.zeros(R, H, big, d)}
+    anc = torch.zeros(N, K, big, dtype=torch.int32)
+    with pytest.raises(ValueError, match="S <= 64"):
+        BA.beam_self_attention_cuda(q, kv, anc, 0, num_heads=H)
+    assert BA.launches_self == 0 and BA.launches_cross == 0

@@ -29,7 +29,6 @@ from imagecaptioner_tpu.distill.projector import \
 from imagecaptioner_tpu.models import lstm as JL
 from imagecaptioner_tpu.models import mobilenet as JMN
 from imagecaptioner_tpu.models import student as JSM
-from imagecaptioner_tpu.models import teacher as JTM
 from imagecaptioner_tpu.ops import decode as JD
 from imagecaptioner_tpu.ops import pallas_lstm as JPL
 from imagecaptioner_tpu.ops.pallas_greedy import pallas_greedy_decode_compact
@@ -95,17 +94,13 @@ def both_configs(variant, vocab=V, **over):
             PC.STUDENT_CONFIGS[variant](vocab, **kw))
 
 
-def both_students(variant, seed=0, jax_init=False, **over):
+def both_students(variant, seed=0, **over):
     """One student in both packages: ``(jcfg, params, state, pcfg, port model
     in eval mode)``.  The trees come from the port's numpy ``student_init``,
     whose layout ``test_numpy_init_and_masks_have_the_jax_layout`` holds
-    against the JAX ``student_init`` (``jax_init``: dear, it compiles every
-    leaf's initializer)."""
+    against the JAX ``student_init``."""
     jcfg, pcfg = both_configs(variant, **over)
-    if jax_init:
-        p, s = np_tree(JSM.student_init(jax.random.PRNGKey(seed), jcfg))
-    else:
-        p, s = student_init(seed, pcfg)
+    p, s = student_init(seed, pcfg)
     model = Student(pcfg)
     model.load_state_dict(CV.jax_student_to_state_dict(p, s, pcfg), strict=True)
     return jcfg, p, s, pcfg, model.eval()
@@ -132,6 +127,12 @@ def assert_rows_differ_and_end(toks, max_length):
     assert any(0 < fp < max_length for fp in first_pad)
     assert len(set(first_pad)) > 1
     assert not (toks == END).any()
+
+
+def jit_encode(jcfg):
+    """``encode_image``'s refined features as one compiled program (eager,
+    a backbone dispatches hundreds of ops one by one)."""
+    return jax.jit(lambda p, s, x: JSM.encode_image(p, s, x, jcfg)[1])
 
 
 def images_u8(seed=7, n=B, size=64):
@@ -208,8 +209,11 @@ def kd_step_both(variant):
     try:
         jt_cfg = JC.TeacherConfig(**TKW)
         js_cfg, s_cfg = both_configs(variant, vocab, dropout=0.0)
-        k1, k3 = jax.random.split(jax.random.PRNGKey(0))
-        t_params = JTM.teacher_init(k1, jt_cfg)
+        _, k3 = jax.random.split(jax.random.PRNGKey(0))
+        # the port's numpy inits (eager JAX inits compile every initializer
+        # on its own; the layouts are held equal by the init tests)
+        t_params = jax.tree.map(jnp.asarray, teacher_init(
+            0, PC.TeacherConfig(**TKW)))
         s_params, s_state = jax.tree.map(jnp.asarray, student_init(0, s_cfg))
         proj, _ = j_projectors(k3, teacher_embed=32, student_embed=E,
                                student_hidden=H,
@@ -221,7 +225,8 @@ def kd_step_both(variant):
         jstep = JS.make_kd_train_step(
             jt_cfg, js_cfg, JC.DistillConfig(), JC.KDTrainConfig(dropout=0.0),
             aug=JT.AugmentConfig(), compute_dtype=jnp.float32)
-        jstate = JS.TrainState(params, JO.adamw_init(params), s_state)
+        # one compiled program, not an eager zeros_like a leaf
+        jstate = JS.TrainState(params, jax.jit(JO.adamw_init)(params), s_state)
         jstate, jmetrics = jstep(
             jstate, t_params, {k: jnp.asarray(v) for k, v in batch.items()},
             jnp.float32(SCHED_T), jnp.int32(0), jax.random.PRNGKey(1))
@@ -341,7 +346,8 @@ def serve_and_train_on_cpu(variant, tmp_path, overrides, jax_decode=True):
     mc = dict(ck["model_config"])
     mc.pop("model_type")
     jcfg = J_CONFIGS[variant](ck["vocab_size"], **mc)
-    init_p, init_s = JSM.student_init(jax.random.PRNGKey(0), jcfg)
+    init_p, init_s = jax.eval_shape(lambda k: JSM.student_init(k, jcfg),
+                                    jax.random.PRNGKey(0))  # layout only
     sd = ck["student_state_dict"]
     assert jax.tree.map(np.shape, init_p) == jax.tree.map(np.shape, sd["params"])
     assert jax.tree.map(np.shape, init_s) == jax.tree.map(np.shape,
@@ -370,9 +376,8 @@ def serve_and_train_on_cpu(variant, tmp_path, overrides, jax_decode=True):
                for w in json.loads(line)["caption"].split())
     if not jax_decode:
         return
-    jimgs = JT.normalize(jnp.asarray(imgs))
-    _, refined, _ = JSM.encode_image(sd["params"], sd["model_state"], jimgs,
-                                     jcfg, train=False)
+    refined = jit_encode(jcfg)(sd["params"], sd["model_state"],
+                               JT.normalize(jnp.asarray(imgs)))
     ref = JD.greedy_decode_student(sd["params"], refined, jcfg, max_length=6)
     np.testing.assert_array_equal(toks, np.asarray(ref))
 
@@ -397,13 +402,21 @@ def test_mobilenet_matches_jax(train):
 
 
 def test_numpy_init_and_masks_have_the_jax_layout():
+    """The port's numpy ``student_init`` has the JAX ``student_init``'s
+    layout (structure, shapes and dtypes, traced by ``jax.eval_shape``
+    without compiling a leaf's initializer); masks agree; the converters
+    round-trip the tree exactly."""
     for refine in (False, True):
         jcfg, p, s, pcfg, model = both_students(
-            "compact", jax_init=True, use_attention_refinement=refine)
+            "compact", use_attention_refinement=refine)
+        ref_p, ref_s = jax.eval_shape(lambda k: JSM.student_init(k, jcfg),
+                                      jax.random.PRNGKey(0))
         p2, s2 = student_init(0, pcfg)
         shapes = lambda t: jax.tree.map(np.shape, t)  # noqa: E731
-        assert jax.tree.structure(p2) == jax.tree.structure(p)
-        assert shapes(p2) == shapes(p) and shapes(s2) == shapes(s)
+        dtypes = lambda t: jax.tree.map(lambda x: np.dtype(x.dtype), t)  # noqa: E731
+        assert jax.tree.structure(p2) == jax.tree.structure(ref_p)
+        assert shapes(p2) == shapes(ref_p) and shapes(s2) == shapes(ref_s)
+        assert dtypes(p2) == dtypes(ref_p) and dtypes(s2) == dtypes(ref_s)
         Student(pcfg).load_state_dict(
             CV.jax_student_to_state_dict(p2, s2, pcfg), strict=True)
         ref = CV.tree_to_state_dict(jax.tree.map(
@@ -492,7 +505,8 @@ def test_compact_scan_gradients_match_jax(Tn, Bn, Lf):
         return f
 
     jc = jnp.asarray(caps)
-    refs = [jax.grad(jloss(fn), argnums=(0, 1))(dec, jnp.asarray(feats))
+    refs = [jax.jit(jax.grad(jloss(fn), argnums=(0, 1)))(dec,
+                                                        jnp.asarray(feats))
             for fn in (
                 lambda p, x: JL.compact_decoder_apply(p, x, jc, jcfg),
                 lambda p, x: JPL.pallas_compact_decoder_scan_train(
@@ -608,8 +622,8 @@ def test_student_forward_and_step_match_jax(students):
     jcfg, p, s, pcfg, model = students
     u8 = images_u8()
     caps = np.random.default_rng(9).integers(0, V, (T, B)).astype(np.int32)
-    ref, _ = JSM.student_apply(p, s, JT.normalize(jnp.asarray(u8)),
-                               jnp.asarray(caps), jcfg)
+    ref, _ = jax.jit(lambda *a: JSM.student_apply(*a, jcfg))(
+        p, s, JT.normalize(jnp.asarray(u8)), jnp.asarray(caps))
     with torch.inference_mode():
         got = model(PT.normalize(torch.from_numpy(u8)),
                     torch.from_numpy(caps).long())
@@ -622,9 +636,10 @@ def test_student_forward_and_step_match_jax(students):
     h, c = (rng.standard_normal((1, B, H)).astype(np.float32) * 0.5
             for _ in range(2))
     feats = rng.standard_normal((B, 49, E)).astype(np.float32)
-    ref_logits, (ref_h, ref_c), ref_attn = JSM.decoder_step(
+    ref_logits, (ref_h, ref_c), ref_attn = jax.jit(
+        lambda *a: JSM.decoder_step(*a, jcfg))(
         p, jnp.asarray(emb), (jnp.asarray(h), jnp.asarray(c)),
-        jnp.asarray(feats), jcfg)
+        jnp.asarray(feats))
     with torch.inference_mode():
         logits, (h2, c2), attn = model.decoder_step(
             torch.from_numpy(emb), (torch.from_numpy(h), torch.from_numpy(c)),
@@ -637,7 +652,7 @@ def test_student_forward_and_step_match_jax(students):
 def test_captions_match_jax_on_both_decode_paths(students):
     jcfg, p, s, pcfg, model = students
     u8 = images_u8(n=6)
-    _, refined, _ = JSM.encode_image(p, s, JT.normalize(jnp.asarray(u8)), jcfg)
+    refined = jit_encode(jcfg)(p, s, JT.normalize(jnp.asarray(u8)))
     ref = np.asarray(JD.best_greedy_decode_student(p, refined, jcfg,
                                                    max_length=T))
     with torch.inference_mode():
@@ -662,7 +677,7 @@ def test_jax_checkpoint_serves_through_the_port(students, tmp_path):
     model, cfg = serve.load_student(path, "cpu")
     assert cfg == pcfg
     u8 = images_u8()
-    _, refined, _ = JSM.encode_image(p, s, JT.normalize(jnp.asarray(u8)), jcfg)
+    refined = jit_encode(jcfg)(p, s, JT.normalize(jnp.asarray(u8)))
     ref = JD.best_greedy_decode_student(p, refined, jcfg, max_length=T)
     toks = serve.make_greedy_captioner(model, cfg, "cpu", max_length=T)(u8)
     np.testing.assert_array_equal(toks, np.asarray(ref))

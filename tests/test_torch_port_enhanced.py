@@ -10,6 +10,8 @@ Shares its helpers with ``tests/test_torch_port_compact.py``.  Tolerances are
 stated where they are used; 1e-4 unless shown otherwise.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -39,8 +41,9 @@ from test_torch_port_compact import (B, E, H, T, V, assert_backbone_stats,
                                      assert_rows_differ_and_end,
                                      backbone_both, both_configs,
                                      both_students, flat, images_u8,
-                                     kd_step_both, np_tree,
+                                     few_threads, kd_step_both, np_tree,
                                      serve_and_train_on_cpu, sharpen)
+from test_torch_port_beam_attn import stub_launches
 
 NH = 8
 
@@ -65,11 +68,19 @@ def test_efficientnet_matches_jax(train):
 
 
 def test_numpy_init_and_masks_have_the_jax_layout():
-    jcfg, p, s, pcfg, model = both_students("enhanced", jax_init=True)
+    """The port's numpy ``student_init`` has the JAX ``student_init``'s
+    layout: tree structure and every leaf's shape and dtype, which
+    ``jax.eval_shape`` traces without compiling a leaf's initializer; the
+    trainable masks agree and the converters round-trip the tree exactly."""
+    jcfg, p, s, pcfg, model = both_students("enhanced")
+    ref_p, ref_s = jax.eval_shape(lambda k: JSM.student_init(k, jcfg),
+                                  jax.random.PRNGKey(0))
     p2, s2 = student_init(0, pcfg)
     shapes = lambda t: jax.tree.map(np.shape, t)  # noqa: E731
-    assert jax.tree.structure(p2) == jax.tree.structure(p)
-    assert shapes(p2) == shapes(p) and shapes(s2) == shapes(s)
+    dtypes = lambda t: jax.tree.map(lambda x: np.dtype(x.dtype), t)  # noqa: E731
+    assert jax.tree.structure(p2) == jax.tree.structure(ref_p)
+    assert shapes(p2) == shapes(ref_p) and shapes(s2) == shapes(ref_s)
+    assert dtypes(p2) == dtypes(ref_p) and dtypes(s2) == dtypes(ref_s)
     sd = CV.jax_student_to_state_dict(p2, s2, pcfg)
     Student(pcfg).load_state_dict(sd, strict=True)
     for k in ("decoder.pos_encoding", "attention_refinement.pos_encoding",
@@ -97,8 +108,11 @@ def test_numpy_init_and_masks_have_the_jax_layout():
 
 
 def _decoder(seed=0, **over):
+    """The port's numpy decoder init (its layout is the JAX init's, see
+    ``test_numpy_init_and_masks_have_the_jax_layout``): the JAX init compiles
+    every initializer on its own."""
     jcfg, pcfg = both_configs("enhanced", **over)
-    dec = np_tree(JSE.enhanced_decoder_init(jax.random.PRNGKey(seed), jcfg))
+    dec = PSE.EnhancedDecoder.init(np.random.default_rng(seed), pcfg)
     port = PSE.EnhancedDecoder(pcfg)
     port.load_state_dict(CV.tree_to_state_dict(dec), strict=True)
     return jcfg, pcfg, dec, port
@@ -110,22 +124,72 @@ def _scan_inputs(Tn, Bn, Lf, seed=1):
             rng.integers(0, V, (Tn, Bn)).astype(np.int32))
 
 
+LN_BLOCKS = 5  # the mirror's blocks at H=24: spans of 4 and 5 units
+
+
+def _apply_ln_partials(port, pcfg, feats, caps, monkeypatch):
+    """The port's forward with every LayerNorm's statistics taken as the
+    CUDA kernel takes them (``layer_norm_partials``)."""
+    with monkeypatch.context() as m, torch.no_grad():
+        m.setattr(ES, "_layer_norm_stats", functools.partial(
+            ES.layer_norm_partials, blocks=LN_BLOCKS))
+        return PSE.enhanced_decoder_apply(port, feats, caps, pcfg)
+
+
 @pytest.mark.parametrize("Tn,Bn,Lf", [(6, 2, 9), (12, 4, 64)])
-def test_enhanced_scan_plain_matches_pallas_and_scan(Tn, Bn, Lf):
+def test_enhanced_scan_plain_matches_pallas_and_scan(Tn, Bn, Lf, monkeypatch):
+    """The plain version, and its LayerNorm statistics from per-block
+    partials as the kernel combines them, against the Pallas kernel in
+    interpret mode and the scan path (1e-4)."""
     jcfg, pcfg, dec, port = _decoder(dropout=0.0)
     feats, caps = _scan_inputs(Tn, Bn, Lf)
     kern = JPE.pallas_enhanced_decoder_scan_train(
         dec, jnp.asarray(feats), jnp.asarray(caps), jcfg, interpret=True)
     scan = JSE.enhanced_decoder_apply(dec, jnp.asarray(feats),
                                       jnp.asarray(caps), jcfg)
+    x, c = torch.from_numpy(feats), torch.from_numpy(caps).long()
     with torch.no_grad():
-        got = PSE.enhanced_decoder_apply(port, torch.from_numpy(feats),
-                                         torch.from_numpy(caps).long(), pcfg)
+        got = PSE.enhanced_decoder_apply(port, x, c, pcfg)
+    mirror = _apply_ln_partials(port, pcfg, x, c, monkeypatch)
     for ref in (kern, scan):
-        for g, r in zip(got, ref):
-            assert g.shape == r.shape
-            np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=1e-4)
+        for out in (got, mirror):
+            for g, r in zip(out, ref):
+                assert g.shape == r.shape
+                np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=1e-4)
     assert ES.launches == 0
+
+
+def test_layer_norm_partials_match_pallas_at_bf16(monkeypatch):
+    """At bf16, where every product reads its input rounded to 8 bits, the
+    plain version with the kernel's LayerNorm statistics against the Pallas
+    kernel in interpret mode: within 1e-2 of each output's largest value
+    (about two bf16 ulps; a float32 sum order that rounds one h the other
+    way moves an output by one ulp)."""
+    jcfg, pcfg, dec, port = _decoder(dropout=0.0)
+    feats, caps = _scan_inputs(6, 2, 9)
+    kern = JPE.pallas_enhanced_decoder_scan_train(
+        dec, jnp.asarray(feats).astype(jnp.bfloat16), jnp.asarray(caps), jcfg,
+        interpret=True)
+    got = _apply_ln_partials(port, pcfg,
+                             torch.from_numpy(feats).to(torch.bfloat16),
+                             torch.from_numpy(caps).long(), monkeypatch)
+    assert got[1].dtype == torch.bfloat16
+    for g, r in zip(got, kern):
+        r = np.asarray(r.astype(jnp.float32))
+        assert g.shape == r.shape
+        np.testing.assert_allclose(g.float().numpy(), r, rtol=0,
+                                   atol=1e-2 * np.abs(r).max())
+
+
+def test_layer_norm_partials_is_the_plain_statistic():
+    """The mirror's combination of partials is exact algebra: it equals the
+    two-pass statistic in float64 at any split, empty spans included."""
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (3, 5, 768)))
+    ref = ES._layer_norm_stats(x)
+    for blocks in (1, 7, 132, 1000):
+        for g, r in zip(ES.layer_norm_partials(x, blocks), ref):
+            np.testing.assert_allclose(g.numpy(), r.numpy(), atol=1e-12)
 
 
 def test_enhanced_scan_positions_beyond_the_learned_table():
@@ -222,7 +286,8 @@ def test_enhanced_gradients_match_jax(Tn, Bn, Lf):
         return f
 
     jc = jnp.asarray(caps)
-    refs = [jax.grad(jloss(fn), argnums=(0, 1))(dec, jnp.asarray(feats))
+    refs = [jax.jit(jax.grad(jloss(fn), argnums=(0, 1)))(dec,
+                                                        jnp.asarray(feats))
             for fn in (
                 lambda p, x: JSE.enhanced_decoder_apply(p, x, jc, jcfg),
                 lambda p, x: JPE.pallas_enhanced_decoder_scan_train(
@@ -254,18 +319,25 @@ def test_enhanced_train_mode_with_the_jax_masks():
     Tn, Bn, Lf = 8, 3, 9
     feats, caps = _scan_inputs(Tn, Bn, Lf)
     rng = jax.random.PRNGKey(11)
-    ref = JSE.enhanced_decoder_apply(dec, jnp.asarray(feats), jnp.asarray(caps),
-                                     jcfg, train=True, rng=rng)
+    ref = jax.jit(lambda d, f, c: JSE.enhanced_decoder_apply(
+        d, f, c, jcfg, train=True, rng=rng))(dec, jnp.asarray(feats),
+                                             jnp.asarray(caps))
     keep_a, keep_l = 1.0 - PSE.ATTN_DROPOUT, 1.0 - jcfg.dropout
-    amask, lmask = [], []
-    for t in range(Tn):
-        r = jax.random.split(jax.random.fold_in(rng, t), 1 + 3)
-        amask.append(np.asarray(jax.random.bernoulli(
-            r[0], keep_a, (Bn, NH, 1, Lf)))[:, :, 0, :] / keep_a)
-        lmask.append([np.asarray(jax.random.bernoulli(
-            r[1 + i], keep_l, (Bn, H))) / keep_l for i in range(3)])
-    proj = np.asarray(jax.random.bernoulli(jax.random.fold_in(rng, Tn), keep_l,
-                                           (Tn, Bn, E)))
+
+    @jax.jit
+    def draws():  # one program, not a compile per eager draw
+        r = [jax.random.split(jax.random.fold_in(rng, t), 1 + 3)
+             for t in range(Tn)]
+        return ([jax.random.bernoulli(r[t][0], keep_a, (Bn, NH, 1, Lf))
+                 for t in range(Tn)],
+                [[jax.random.bernoulli(r[t][1 + i], keep_l, (Bn, H))
+                  for i in range(3)] for t in range(Tn)],
+                jax.random.bernoulli(jax.random.fold_in(rng, Tn), keep_l,
+                                     (Tn, Bn, E)))
+
+    a_draw, l_draw, proj = jax.tree.map(np.asarray, draws())
+    amask = [a[:, :, 0, :] / keep_a for a in a_draw]
+    lmask = [[m / keep_l for m in ms] for ms in l_draw]
     masks = {"attn": torch.from_numpy(np.stack(amask)).float(),
              "lstm": torch.from_numpy(np.stack(lmask)).float().transpose(0, 1),
              "proj": torch.from_numpy(proj)}
@@ -285,6 +357,70 @@ def test_cpu_tensors_never_launch_the_enhanced_kernel():
     with pytest.raises(ValueError, match="23 weights"):
         ES.enhanced_scan_cuda(x, x, x, x, None, None, x)
     assert ES.launches == 0
+
+
+def _kernel_operands(E_=32, H_=32, L_=9, nh=NH, T_=3, B_=2):
+    """Zero operands of the kernel's shapes and dtypes (float32) on the CPU."""
+    shapes = ES.weight_shapes(E_, H_)
+    return (torch.zeros(T_, B_, E_), torch.zeros(T_, B_, E_),
+            torch.zeros(B_, nh, L_, E_ // nh), torch.zeros(B_, nh, L_, E_ // nh),
+            None, None) + tuple(torch.zeros(shapes[n]) for n in ES.WEIGHTS)
+
+
+def test_enhanced_entry_points_are_typed_on_the_first_launch_only(monkeypatch):
+    """The wrapper takes its three entry points from one table made at the
+    first launch: their ``argtypes`` are set once, not per call (launches
+    go to stubs: no nvcc, no card)."""
+    stubs = stub_launches(monkeypatch, ES, "_LIB",
+                          ("ic_enhanced_scan_blocks",
+                           "ic_enhanced_scan_workspace_bytes",
+                           "ic_enhanced_scan"), ret=0)
+    from imagecaptioner_tpu_torch.ops import _build
+    monkeypatch.setattr(_build, "cooperative_grid",
+                        lambda key, query, what, caps=(): 132)
+    ops = _kernel_operands()
+    for _ in range(3):
+        outs = ES.enhanced_scan_cuda(*ops)
+    assert [tuple(o.shape) for o in outs] == [(3, 2, 32)] * 2 + [(3, 2, 9)] \
+        + [(3, 2, 32)] * 5
+    for stub in stubs.values():
+        assert stub.typed == 1
+    assert len(stubs["ic_enhanced_scan"].calls) == 3 and ES.launches == 3
+
+
+@pytest.mark.parametrize("over,limit", [
+    (dict(E_=24), "divisible by 16"), (dict(H_=40), "divisible by 16"),
+    (dict(L_=ES.MAX_L + 1), "L <= 512"), (dict(nh=3, E_=48), "nh \\* hd == E")])
+def test_enhanced_wrapper_names_the_limits_it_refuses(over, limit, monkeypatch):
+    """With the device check stubbed off, a shape the kernel does not take
+    is refused before anything is built, and the message names the limit."""
+    stub_launches(monkeypatch, ES, "_LIB", ())
+    ops = list(_kernel_operands(**over))
+    if "nh" in over:  # heads that do not divide E
+        ops[2] = ops[3] = torch.zeros(2, 3, 9, 15)
+    with pytest.raises(ValueError, match=limit):
+        ES.enhanced_scan_cuda(*ops)
+    assert ES.launches == 0
+
+
+def test_enhanced_wrapper_refuses_more_attention_jobs_than_blocks(monkeypatch):
+    """Each cooperative block holds one (row, head) attention job's K/V for
+    the whole launch: a grid smaller than min(B, 16) x nh is refused, with
+    the limit named, before anything is launched."""
+    stubs = stub_launches(monkeypatch, ES, "_LIB",
+                          ("ic_enhanced_scan_blocks",
+                           "ic_enhanced_scan_workspace_bytes",
+                           "ic_enhanced_scan"), ret=0)
+    from imagecaptioner_tpu_torch.ops import _build
+    monkeypatch.setattr(_build, "cooperative_grid",
+                        lambda key, query, what, caps=(): 2 * NH - 1)
+    with pytest.raises(ValueError, match=r"min\(B, 16\) x nh = %d" % (2 * NH)):
+        ES.enhanced_scan_cuda(*_kernel_operands(B_=2))
+    assert not stubs["ic_enhanced_scan"].calls and ES.launches == 0
+    monkeypatch.setattr(_build, "cooperative_grid",
+                        lambda key, query, what, caps=(): 2 * NH)
+    ES.enhanced_scan_cuda(*_kernel_operands(B_=2))
+    assert len(stubs["ic_enhanced_scan"].calls) == 1 and ES.launches == 1
 
 
 def test_attention_core_takes_head_dim_48():
@@ -311,15 +447,32 @@ def students():
     return out
 
 
-def test_student_forward_and_step_match_jax(students):
+CAPS = np.random.default_rng(9).integers(0, V, (T, B)).astype(np.int32)
+
+
+@pytest.fixture(scope="module")
+def jax_on_images(students):
+    """The JAX student on ``images_u8()``, computed once for the tests that
+    share it, as one compiled program (eager, EfficientNet-B3 dispatches
+    hundreds of ops one by one): ``student_apply``'s 4-tuple with ``CAPS``,
+    and ``encode_image``'s refined features."""
+    jcfg, p, s, _, _ = students
+
+    def run(p, s, x, caps):
+        out, _ = JSM.student_apply(p, s, x, caps, jcfg)
+        return out, JSM.encode_image(p, s, x, jcfg)[1]
+
+    return jax.jit(run)(p, s, JT.normalize(jnp.asarray(images_u8())),
+                        jnp.asarray(CAPS))
+
+
+def test_student_forward_and_step_match_jax(students, jax_on_images):
     """``Student.forward`` in eval mode against ``student_apply``: the
     4-tuple whose feature tap is the compressed refined features; and one
     decoder step."""
     jcfg, p, s, pcfg, model = students
-    u8 = images_u8()
-    caps = np.random.default_rng(9).integers(0, V, (T, B)).astype(np.int32)
-    ref, _ = JSM.student_apply(p, s, JT.normalize(jnp.asarray(u8)),
-                               jnp.asarray(caps), jcfg)
+    u8, caps = images_u8(), CAPS
+    ref = jax_on_images[0]
     with torch.inference_mode():
         x = PT.normalize(torch.from_numpy(u8))
         got = model(x, torch.from_numpy(caps).long())
@@ -335,9 +488,10 @@ def test_student_forward_and_step_match_jax(students):
     h, c = (rng.standard_normal((3, B, H)).astype(np.float32) * 0.5
             for _ in range(2))
     feats = rng.standard_normal((B, 64, E)).astype(np.float32)
-    ref_logits, (ref_h, ref_c), ref_attn = JSM.decoder_step(
+    ref_logits, (ref_h, ref_c), ref_attn = jax.jit(
+        lambda *a: JSM.decoder_step(*a, jcfg))(
         p, jnp.asarray(emb), (jnp.asarray(h), jnp.asarray(c)),
-        jnp.asarray(feats), jcfg)
+        jnp.asarray(feats))
     with torch.inference_mode():
         logits, (h2, c2), attn = model.decoder_step(
             torch.from_numpy(emb), (torch.from_numpy(h), torch.from_numpy(c)),
@@ -374,7 +528,8 @@ def test_greedy_loop_matches_jax(students):
     np.testing.assert_array_equal(got.numpy(), warm)
 
 
-def test_jax_checkpoint_serves_through_the_port(students, tmp_path):
+def test_jax_checkpoint_serves_through_the_port(students, jax_on_images,
+                                                tmp_path):
     jcfg, p, s, pcfg, _ = students
     path = str(tmp_path / "student.npz")
     JCKPT.save_checkpoint(path, {
@@ -386,9 +541,9 @@ def test_jax_checkpoint_serves_through_the_port(students, tmp_path):
     model, cfg = serve.load_student(path, "cpu")
     assert cfg == pcfg
     u8 = images_u8()
-    _, refined, _ = JSM.encode_image(p, s, JT.normalize(jnp.asarray(u8)), jcfg)
-    ref = JD.best_greedy_decode_student(p, refined, jcfg, max_length=T)
-    toks = serve.make_greedy_captioner(model, cfg, "cpu", max_length=T)(u8)
+    ref = JD.best_greedy_decode_student(p, jax_on_images[1], jcfg, max_length=T)
+    with few_threads():
+        toks = serve.make_greedy_captioner(model, cfg, "cpu", max_length=T)(u8)
     np.testing.assert_array_equal(toks, np.asarray(ref))
     assert A.launches == 0
 

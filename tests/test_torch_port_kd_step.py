@@ -90,7 +90,8 @@ def run():
         jstep = JS.make_kd_train_step(jt_cfg, js_cfg, JDistillConfig(), jtr,
                                       aug=JT.AugmentConfig(),
                                       compute_dtype=jnp.float32)
-        jstate = JS.TrainState(params, JO.adamw_init(params), s_state)
+        # one compiled program, not an eager zeros_like a leaf
+        jstate = JS.TrainState(params, jax.jit(JO.adamw_init)(params), s_state)
         jstate, jmetrics = jstep(
             jstate, t_params, {k: jnp.asarray(v) for k, v in batch.items()},
             jnp.float32(SCHED_T), jnp.int32(0), jax.random.PRNGKey(1))

@@ -60,7 +60,7 @@ def images_u8():
 
 def _jax_captions(cfg, p, s, images_u8):
     imgs = JT.normalize(jnp.asarray(images_u8))
-    raw, refined, _ = SM.encode_image(p, s, imgs, cfg, train=False)
+    raw, refined, _ = jax.jit(lambda *a: SM.encode_image(*a, cfg))(p, s, imgs)
     toks = JD.best_greedy_decode_student(p, refined, cfg, max_length=T)
     return raw, refined, np.asarray(toks)
 
@@ -233,8 +233,8 @@ def test_student_forward_matches_jax_student_apply(jax_student, port_student,
     _, model = port_student
     caps = np.random.default_rng(9).integers(0, V, (T, B)).astype(np.int32)
     imgs = JT.normalize(jnp.asarray(images_u8))
-    (logits, raw, hid, attn), _ = SM.student_apply(p, s, imgs,
-                                                   jnp.asarray(caps), cfg)
+    (logits, raw, hid, attn), _ = jax.jit(
+        lambda *a: SM.student_apply(*a, cfg))(p, s, imgs, jnp.asarray(caps))
     with torch.inference_mode():
         got = model(PT.normalize(torch.from_numpy(images_u8)),
                     torch.from_numpy(caps).long())

@@ -140,7 +140,8 @@ def test_checkpoint_reads_in_jax_and_serves_through_the_port(trained, grid):
     mc = dict(ck["model_config"])
     mc.pop("model_type")
     jcfg = j_full(ck["vocab_size"], **mc)
-    init_p, init_s = JSM.student_init(jax.random.PRNGKey(0), jcfg)
+    init_p, init_s = jax.eval_shape(lambda k: JSM.student_init(k, jcfg),
+                                    jax.random.PRNGKey(0))  # layout only
     assert jax.tree.map(np.shape, init_p) == jax.tree.map(np.shape, params)
     assert jax.tree.map(np.shape, init_s) == jax.tree.map(
         np.shape, ck["student_state_dict"]["model_state"])
