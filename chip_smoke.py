@@ -70,7 +70,12 @@ Imports nothing of JAX.  In order it:
      holds the compact greedy kernel against plain at B=32, T=20 (float32
      token-identical, bf16 31 of 32 rows); runs ``train_student_with_kd
      (student_variant="compact")`` for 3 optimizer steps, times 4 more, and
-     compares one float32 step card against CPU;
+     compares one float32 step card against CPU; 20 more runs of each
+     compact kernel at each dtype bit-identical to the first; then the
+     compact greedy kernel at B=40 (two chunks, the second of 8 rows) and
+     B=5 and the compact scan at B=24 (two chunks of 16 and 8) and B=5,
+     against their plain versions with the same limits, each chunked launch
+     against a launch per chunk bit for bit;
  12. the enhanced student (EfficientNet-B3, E=384, H=768, L=64): holds the
      enhanced scan kernel against plain at T=47, B=16 with and without
      dropout multipliers (rates 0.1 and 0.15), all eight outputs, float32 and
@@ -83,21 +88,23 @@ Imports nothing of JAX.  In order it:
      the loop alone with features drawn per row; runs the KD trainer for 3
      steps, times 4 more, compares one float32 step card against CPU;
  13. prints kernel, plain and library times (CUDA events, median after
-     warm-up), each kernel's bound, the chain floor of the four cooperative
-     kernels (#1, #4/#5, #6, #8: the median of 2,000 empty grid barriers at the
-     chain's grid times the barriers a run crosses), ptxas' registers and
-     spills for them, and the end-to-end rates;
+     warm-up), each kernel's bound, the chain floor of the six cooperative
+     kernels (#1, #3, #4/#5, #6, #7, #8: the median of 2,000 empty grid
+     barriers at the chain's grid times the barriers a run crosses), ptxas'
+     registers and spills for them, and the end-to-end rates;
  14. prints the kernels JSON line, the nvidia-smi line, and last
      ``{"ok": true, "device": {...}}``.
 Any failed check exits non-zero before the last line.  ``--mutation`` builds
-eight faulty copies (a scan backward without its dropout mask, a beam
+ten faulty copies (a scan backward without its dropout mask, a beam
 self-attention that ignores the ancestry table, a beam cross-attention whose
 bulk copy of V drops its last 16 keys, an enhanced scan whose attention
 ignores its dropout multiplier, an enhanced scan whose LayerNorms combine
 stale partials, an attention core whose causal mask is off by one, a greedy
 decode whose blocks all read row 0's broadcast context, a scan forward whose
-layer 1 reads the broadcast h0 without its mask) and expects all eight
-checks to fail.
+layer 1 reads the broadcast h0 without its mask, a compact greedy decode
+whose row blocks all reduce row 0's partial argmaxes, a compact scan whose
+cell reads the previous step's recurrent part at even steps) and expects
+all ten checks to fail.
 """
 
 from __future__ import annotations
@@ -553,9 +560,11 @@ def chain_floors(dev, names=None):
     times the barriers a run of the chain crosses at the main path's shapes
     (#1: 5 a step and 2 more for the last token, B=32, T=20; #4/#5: 5 a
     step, T=47; #6's reverse chain: 5 a step less one; #8: 8 a step,
+    T=47; #3: 3 a step and 1 more for the last token, T=20; #7: 3 a step,
     T=47)."""
-    cfg = decoder_cfg()
+    cfg, ccfg = decoder_cfg(), compact_student_config(VOCAB)
     L_, E, H = cfg.feature_tokens, cfg.embed_size, cfg.hidden_size
+    cL, cE, cH = ccfg.feature_tokens, ccfg.embed_size, ccfg.hidden_size
     bf = torch.bfloat16
     chains = {
         "greedy_decode": (lambda: G.greedy_blocks(bf, dev, L_, E, H, VOCAB),
@@ -565,7 +574,11 @@ def chain_floors(dev, names=None):
         "decoder_scan_bwd": (lambda: S.chain_blocks(bf, dev, KD_B, L_, E, H),
                              5 * KD_T - 1),
         "enhanced_scan": (lambda: ES.enhanced_scan_blocks(
-            bf, dev, ENH_L, ENH_E, ENH_H, ENH_NH), 8 * KD_T)}
+            bf, dev, ENH_L, ENH_E, ENH_H, ENH_NH), 8 * KD_T),
+        "greedy_decode_compact": (lambda: G.greedy_compact_blocks(
+            bf, dev, cL, cE, cH, VOCAB), 3 * MAX_LEN + 1),
+        "compact_scan": (lambda: S.compact_scan_blocks(bf, dev, cL, cE, cH),
+                         3 * KD_T)}
     out = {}
     for name, (grid, n_bar) in chains.items():
         if names is not None and name not in names:
@@ -1531,17 +1544,35 @@ def token_power(ref, B, what):
     return distinct, ended
 
 
-def check_greedy_compact(model32, feats32):
-    """Kernel #3 against its plain version at full width (B=32, L=49,
-    E=H=256, V=2994, T=20): float32 token-identical, bf16 in 31 of 32 rows
-    (the floor, two plain decodes that differ in summation precision, is
-    printed beside it).  Returns (max |token diff| at float32, bf16 rows
-    identical, kernel ms, plain ms, the bf16 operands)."""
+def compact_greedy_inputs(dev):
+    """The sharpened full-width compact decoder of the serving path (the
+    same weights ``write_student`` puts in its checkpoint) and features
+    drawn per row."""
+    cfg = compact_student_config(VOCAB)
+    params, _ = student_init(SEED, cfg)
+    sharpen_compact_decoder(params["decoder"])
+    decoder = L.CompactDecoder(cfg)
+    decoder.load_state_dict(CV.tree_to_state_dict(params["decoder"]),
+                            strict=True)
+    feats32 = seeded(np.random.default_rng(SEED + 2),
+                     (BATCH, cfg.feature_tokens, cfg.embed_size), dev)
+    return decoder.to(dev), feats32
+
+
+def check_greedy_compact(decoder, feats32, mutant=False, timed=True):
+    """Kernel #3 against its plain version at full width (L=49, E=H=256,
+    V=2994, T=20; B=32 on the main path): float32 token-identical, bf16 in
+    all rows but one in 32 (the floor, two plain decodes that differ in
+    summation precision, is printed beside it); then the same call REPEATS
+    times, which must repeat bit for bit (a race in the cross-block
+    exchange shows there).  Returns (max |token diff| at float32, fewest
+    bf16 rows identical, kernel ms, plain ms, the bf16 operands), the times
+    only when ``timed``."""
     B = feats32.shape[0]
     max_diff, bf16_rows = 0, B
     for dtype in (torch.float32, torch.bfloat16):
         feats = feats32.to(dtype).contiguous()
-        w = G.greedy_compact_operands(model32.decoder, dtype)
+        w = G.greedy_compact_operands(decoder, dtype)
         for temp in (1.0, 2.0):
             kw = dict(max_length=MAX_LEN, temperature=temp)
             got = G.greedy_decode_compact_cuda(w, feats, **kw)
@@ -1552,7 +1583,7 @@ def check_greedy_compact(model32, feats32):
             distinct, ended = token_power(ref, B, "compact greedy")
             rows = int((got == ref).all(dim=1).sum())
             floor = int((ref64 == ref).all(dim=1).sum())
-            need = B if dtype == torch.float32 else B - 1
+            need = B if dtype == torch.float32 else B - -(-B // 32)
             print(f"greedy_decode_compact B={B} {str(dtype)[6:]} T={temp}: "
                   f"{rows}/{B} rows identical (need {need}; plain f64-vs-f32 "
                   f"sums agree on {floor}); reference has {distinct} distinct "
@@ -1565,6 +1596,12 @@ def check_greedy_compact(model32, feats32):
                                int((got.long() - ref.long()).abs().max()))
             else:
                 bf16_rows = min(bf16_rows, rows)
+        if not mutant:
+            repeats_same(f"greedy_decode_compact B={B} {str(dtype)[6:]}",
+                         [got], lambda: [G.greedy_decode_compact_cuda(
+                             w, feats, **kw)])
+    if mutant or not timed:
+        return max_diff, bf16_rows, None, None, (w, feats)
     kms = median_ms(lambda: G.greedy_decode_compact_cuda(
         w, feats, max_length=MAX_LEN), 20, 3)
     pms = median_ms(lambda: G.greedy_decode_compact_plain(
@@ -1633,25 +1670,26 @@ def check_gradients(what, dtype, fn, plain, bwd_plain, ops, ref, ref64, n_out,
     return report(what, rows, limits[dtype], floor, mean, brief=True)
 
 
-def compact_scan_operands(decoder, dev, dtype, seed):
-    """The seven operands of the compact scan at the KD shapes, prepared as
-    ``compact_decoder_apply`` prepares them."""
+def compact_scan_operands(decoder, dev, dtype, seed, B=KD_B):
+    """The seven operands of the compact scan at the KD shapes (or batch
+    ``B``), prepared as ``compact_decoder_apply`` prepares them."""
     rng = np.random.default_rng(seed)
     cfg = compact_student_config(VOCAB)
-    feats = seeded(rng, (KD_B, cfg.feature_tokens, cfg.embed_size), dev, dtype,
+    feats = seeded(rng, (B, cfg.feature_tokens, cfg.embed_size), dev, dtype,
                    0.3)
-    caps = torch.from_numpy(rng.integers(0, VOCAB, (KD_T, KD_B))).to(dev)
+    caps = torch.from_numpy(rng.integers(0, VOCAB, (KD_T, B))).to(dev)
     with torch.no_grad():
         emb = decoder.embedding(caps).to(dtype).contiguous()
         weights = L.compact_scan_weights(decoder, dtype)
     return (emb, feats.contiguous()) + tuple(w.detach() for w in weights)
 
 
-def check_compact_scan(decoder, dev):
+def check_compact_scan(decoder, dev, mutant=False):
     """Kernel #7 against its plain version at the KD shapes (T=47, B=16,
-    L=49, E=H=256): h, attn and c, float32 and bf16; then the kernel under
-    autograd (plain reverse-time backward over the kernel's residuals)
-    against autograd through the plain forward."""
+    L=49, E=H=256): h, attn and c, float32 and bf16, and REPEATS more runs
+    bit-identical to the first; then the kernel under autograd (plain
+    reverse-time backward over the kernel's residuals) against autograd
+    through the plain forward.  A mutation run checks the forward only."""
     names = ("hs", "attn", "cs")
     kept = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -1666,6 +1704,10 @@ def check_compact_scan(decoder, dev):
             else SCAN_FWD_BF16_LIMIT
         err = report(f"compact_scan {tag}", rel_errs(names, got, ref), limit,
                      rel_errs(names, ref64, ref))
+        if mutant:
+            continue
+        repeats_same(f"compact_scan {tag}", got,
+                     lambda: S.compact_scan_cuda(*ops))
         before = S.launches_compact
         check_gradients(
             f"compact_scan {tag} gradient", dtype, S._CompactScan.apply,
@@ -1675,6 +1717,8 @@ def check_compact_scan(decoder, dev):
             fail("the compact scan under autograd did not launch its kernel")
         if dtype == torch.bfloat16:
             kept = dict(ops=ops, err=err)
+    if mutant:
+        return kept
     ops = kept["ops"]
     with torch.no_grad():
         kept["ms"] = median_ms(lambda: S.compact_scan_cuda(*ops), 20, 3)
@@ -1690,6 +1734,53 @@ def check_compact_scan(decoder, dev):
         nbytes(*ops) + outs,
         T_ * B * (2 * (E * H + 4 * H * (E + H)) + 4 * Lt * E), "bf16")
     return kept
+
+
+COMPACT_GREEDY_BATCHES = (40, 5)  # #3 at two chunks (32 + 8 rows) and one odd chunk
+COMPACT_SCAN_BATCHES = (24, 5)    # #7 at two chunks (16 + 8 rows) and one odd chunk
+
+
+def check_compact_batches(g_decoder, s_decoder, dev):
+    """#3 at the batches of COMPACT_GREEDY_BATCHES and #7 at those of
+    COMPACT_SCAN_BATCHES, which the main path's shapes (B=32, B=16) do not
+    reach: each held against its plain version with the main check's
+    limits, and a launch of several chunks equal to separate launches of
+    each chunk (32 rows for #3, 16 for #7), bit for bit."""
+    for B in COMPACT_GREEDY_BATCHES:
+        feats32 = seeded(np.random.default_rng(SEED + 20 + B),
+                         (B, 49, g_decoder.embedding.weight.shape[1]), dev)
+        with torch.inference_mode():
+            check_greedy_compact(g_decoder, feats32, timed=False)
+            for dtype in (torch.float32, torch.bfloat16):
+                feats = feats32.to(dtype).contiguous()
+                w = G.greedy_compact_operands(g_decoder, dtype)
+                whole = G.greedy_decode_compact_cuda(w, feats,
+                                                     max_length=MAX_LEN)
+                parts = torch.cat([G.greedy_decode_compact_cuda(
+                    w, feats[b:b + 32].contiguous(), max_length=MAX_LEN)
+                    for b in range(0, B, 32)])
+                chunk_same(f"greedy_decode_compact B={B} {str(dtype)[6:]}",
+                           [whole], [parts])
+    names = ("hs", "attn", "cs")
+    for B in COMPACT_SCAN_BATCHES:
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = f"B={B} {str(dtype)[6:]}"
+            ops = compact_scan_operands(s_decoder, dev, dtype, SEED + 30 + B,
+                                        B)
+            cut = lambda b: (ops[0][:, b:b + 16].contiguous(),  # noqa: E731
+                             ops[1][b:b + 16].contiguous()) + ops[2:]
+            with torch.no_grad():
+                got = S.compact_scan_cuda(*ops)
+                ref = S.compact_scan_plain(*ops)
+                ref64 = S.compact_scan_plain(*ops, acc_dtype=torch.float64)
+                parts = [S.compact_scan_cuda(*cut(b)) for b in range(0, B, 16)]
+            torch.cuda.synchronize()
+            report(f"compact_scan {tag}", rel_errs(names, got, ref),
+                   SCAN_LIMIT[dtype] if dtype == torch.float32
+                   else SCAN_FWD_BF16_LIMIT, rel_errs(names, ref64, ref),
+                   brief=True)
+            chunk_same(f"compact_scan {tag}", list(got),
+                       [torch.cat(x, dim=1) for x in zip(*parts)])
 
 
 def make_variant_decoder(variant, dev):
@@ -2019,7 +2110,9 @@ def forget_libraries() -> None:
     ``_build.CSRC``."""
     _build._LIBS.clear()
     _build._GRIDS.clear()
-    A._KERNEL = G._GREEDY = S._FWD = S._BWD = BA._KERNELS = ES._LIB = None
+    _build._WORKSPACES.clear()
+    A._KERNEL = G._GREEDY = G._COMPACT = S._FWD = S._BWD = S._COMPACT = None
+    BA._KERNELS = ES._LIB = None
 
 
 def mutant_caught(source: str, good: str, bad: str, check, what: str) -> bool:
@@ -2054,7 +2147,7 @@ def mutant_caught(source: str, good: str, bad: str, check, what: str) -> bool:
 
 
 def run_mutation(dev) -> int:
-    """Eight planted faults, each of which its check must catch: the scan
+    """Ten planted faults, each of which its check must catch: the scan
     backward without the dropout mask on layer 1's input gradient (``dh0 =
     dh0_c + (dgp1·W_ih1ᵀ) · mask``), a beam self-attention that reads its
     own slot's cache row instead of ``anc[n, i, s]``, an enhanced scan
@@ -2065,10 +2158,13 @@ def run_mutation(dev) -> int:
     build x0, a scan forward whose layer 1 reads the broadcast h0 without
     its dropout mask), an enhanced scan whose blocks publish their
     LayerNorm partials at step 0 only, so that every later LayerNorm
-    combines stale partials, and a beam cross-attention whose bulk copy of
-    V drops the last 16 keys."""
+    combines stale partials, a beam cross-attention whose bulk copy of V
+    drops the last 16 keys, a compact greedy decode whose row blocks all
+    reduce row 0's partial argmaxes, and a compact scan whose cell reads
+    the previous step's recurrent part at even steps."""
     decoder = make_decoder(dev)
     g_decoder, g_feats = greedy_inputs(dev)
+    c_decoder, c_feats = compact_greedy_inputs(dev)
     caught = [
         mutant_caught("greedy_decode.cu",
                       "ctxsrc{a.ctx, E, E, nullptr}",
@@ -2116,6 +2212,21 @@ def run_mutation(dev) -> int:
                           make_variant_decoder("enhanced", dev), dev,
                           mutant=True),
                       "enhanced scan reads stale LayerNorm partials"),
+        mutant_caught("greedy_decode_compact.cu",
+                      "a.best + (size_t)blk * nblk;",
+                      "a.best + (size_t)0 * nblk;",
+                      lambda: check_greedy_compact(c_decoder, c_feats,
+                                                   mutant=True),
+                      "every row block reduces row 0's partial argmaxes"),
+        mutant_caught("compact_scan.cu",
+                      "product(A, M, hh, ldH, GATE_ROWS, rec, GATE_ROWS, part);",
+                      "if (t % 2) product(A, M, hh, ldH, GATE_ROWS, rec, "
+                      "GATE_ROWS, part);",
+                      lambda: check_compact_scan(
+                          make_variant_decoder("compact", dev), dev,
+                          mutant=True),
+                      "the cell reads the previous step's recurrent part at "
+                      "even steps"),
     ]
     return 0 if all(caught) else 1
 
@@ -2273,7 +2384,8 @@ def main() -> int:
 
     # --- 11. the compact student: kernels #3 and #7, serving, KD ------------
     attn48_err = check_attention_48(dev, gen)
-    cscan = check_compact_scan(make_variant_decoder("compact", dev), dev)
+    c_decoder = make_variant_decoder("compact", dev)
+    cscan = check_compact_scan(c_decoder, dev)
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = write_student(tmp, "compact")
         c_launches, c_rate, _, c_model32 = serve_variant(
@@ -2283,7 +2395,8 @@ def main() -> int:
                            (BATCH, 49, c_model32.cfg.embed_size), dev)
         with torch.inference_mode():
             cg_diff, cg_rows, cg_ms, cg_plain_ms, cg_ops = check_greedy_compact(
-                c_model32, c_feats32)
+                c_model32.decoder, c_feats32)
+        check_compact_batches(c_model32.decoder, c_decoder, dev)
         ckd_launches, ckd_rate, _ = run_variant_kd(dev, tmp, "compact")
 
     # --- 12. the enhanced student: kernel #8, serving, KD ---------------------
@@ -2305,7 +2418,9 @@ def main() -> int:
     usage = {src: ptxas_usage(src, kernel) for src, kernel in (
         ("greedy_decode", "greedy_kernel"), ("decoder_scan", "scan_kernel"),
         ("decoder_scan_bwd", "chain_kernel"),
-        ("enhanced_scan", "enhanced_scan_kernel"))}
+        ("enhanced_scan", "enhanced_scan_kernel"),
+        ("greedy_decode_compact", "greedy_compact_kernel"),
+        ("compact_scan", "compact_scan_kernel"))}
     print(f"greedy_decode B=32 T=20 bf16: kernel {greedy_ms:.4f} ms, "
           f"plain {greedy_plain_ms:.4f} ms")
     print_scan_times(scan_t, scan_b)
@@ -2368,11 +2483,16 @@ def main() -> int:
         entry("greedy_decode_compact", "greedy_decode_compact.cu",
               "pallas_greedy.py:214", c_launches["greedy_decode_compact"],
               cg_diff, cg_ms, cg_plain_ms, greedy_compact_bound(*cg_ops),
-              bf16_rows_identical=f"{cg_rows}/{BATCH}"),
+              bf16_rows_identical=f"{cg_rows}/{BATCH}",
+              chain_floor_ms=floors["greedy_decode_compact"]["floor_ms"],
+              chain=floors["greedy_decode_compact"],
+              ptxas=usage["greedy_decode_compact"]),
         entry("compact_scan", "compact_scan.cu", f"{lstm}:680",
               ckd_launches["compact_scan"], cscan["err"], cscan["ms"],
               cscan["plain_ms"], cscan["bound"],
-              plain_backward_ms=cscan["bwd_plain_ms"]),
+              plain_backward_ms=cscan["bwd_plain_ms"],
+              chain_floor_ms=floors["compact_scan"]["floor_ms"],
+              chain=floors["compact_scan"], ptxas=usage["compact_scan"]),
         entry("enhanced_scan", "enhanced_scan.cu", "pallas_enhanced.py:219",
               ekd_launches["enhanced_scan"], escan["err"], escan["ms"],
               escan["plain_ms"], escan["bound"],

@@ -1,5 +1,6 @@
-// Cooperative step chains, shared by greedy_decode.cu, decoder_scan.cu and
-// decoder_scan_bwd.cu.
+// Cooperative step chains, shared by greedy_decode.cu, decoder_scan.cu,
+// decoder_scan_bwd.cu, enhanced_scan.cu, greedy_decode_compact.cu and
+// compact_scan.cu.
 //
 // A recurrence whose steps depend on one another runs as one persistent
 // cooperative launch over the whole card.  Each block owns a slice of the
@@ -293,6 +294,61 @@ __device__ void attend_row(const T* f_proj, const T* feats, const float* hw, int
   }
   __syncthreads();
 }
+
+// Dot attention of one batch row of the compact decoder over its feats (L x
+// E, in shared memory): scores[l] = hp·feats[l, :] (hp float32, written in
+// this kernel), softmax over L in float32 (also stored to attn_out when
+// given), ctx = sum_l w[l] · feats[l, :], and the additive fusion x0 =
+// dtype(emb + ctx) into x0_out.  hp_s (E) and w_s (L) are shared scratch.
+// Ends synchronised.
+template <typename T>
+__device__ void attend_dot_row(const T* feats, const float* hp, const T* emb, int L, int E,
+                               float* hp_s, float* w_s, T* x0_out, float* attn_out) {
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  for (int e = tid; e < E; e += THREADS) hp_s[e] = ld_cg(hp + e);
+  __syncthreads();
+  for (int l = warp; l < L; l += WARPS) {
+    float s = 0.f;
+    for (int e = lane; e < E; e += 32) s = fmaf(hp_s[e], to_f(feats[(size_t)l * E + e]), s);
+    s = warp_sum(s);
+    if (lane == 0) w_s[l] = s;
+  }
+  __syncthreads();
+  if (attn_out)
+    warp0_softmax<true>(w_s, L, attn_out);
+  else
+    warp0_softmax<false>(w_s, L, nullptr);
+  __syncthreads();
+  for (int e = tid; e < E; e += THREADS) {
+    float c = 0.f;
+    for (int l = 0; l < L; ++l) c = fmaf(w_s[l], to_f(feats[(size_t)l * E + e]), c);
+    x0_out[e] = from_f<T>(to_f(emb[e]) + c);
+  }
+  __syncthreads();
+}
+
+// (value, index) of the larger under beats(), across groups of `width`
+// lanes of a warp.
+__device__ __forceinline__ void lanes_argmax(float* best, int* bi, int width) {
+  for (int o = width / 2; o > 0; o >>= 1) {
+    const float ov = __shfl_xor_sync(0xffffffffu, *best, o);
+    const int oi = __shfl_xor_sync(0xffffffffu, *bi, o);
+    if (beats(ov, oi, *best, *bi)) {
+      *best = ov;
+      *bi = oi;
+    }
+  }
+}
+
+// A partial argmax as one word for the blocks' exchange: index << 32 | the
+// value's bits.
+__device__ __forceinline__ unsigned long long pack_best(float v, int i) {
+  return (unsigned long long)(unsigned)i << 32 | __float_as_uint(v);
+}
+__device__ __forceinline__ float best_value(unsigned long long p) {
+  return __uint_as_float((unsigned)p);
+}
+__device__ __forceinline__ int best_index(unsigned long long p) { return (int)(p >> 32); }
 
 // Blocks of a cooperative chain kernel on the current device: one per SM
 // when at least one block of `threads` threads and `smem` dynamic bytes fits

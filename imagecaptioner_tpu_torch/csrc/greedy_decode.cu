@@ -124,19 +124,6 @@ size_t workspace_bytes(int E, int H, int nblk) {
          align16(4 * (size_t)BMAX * E) + align16(8 * (size_t)nblk * BMAX) + 16;
 }
 
-// (value, index) of the larger under beats(), across groups of `width`
-// lanes of a warp.
-__device__ __forceinline__ void lanes_argmax(float* best, int* bi, int width) {
-  for (int o = width / 2; o > 0; o >>= 1) {
-    const float ov = __shfl_xor_sync(0xffffffffu, *best, o);
-    const int oi = __shfl_xor_sync(0xffffffffu, *bi, o);
-    if (beats(ov, oi, *best, *bi)) {
-      *best = ov;
-      *bi = oi;
-    }
-  }
-}
-
 template <typename T>
 __global__ void __launch_bounds__(THREADS, 1) greedy_kernel(const Args<T> a) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -243,7 +230,7 @@ __global__ void __launch_bounds__(THREADS, 1) greedy_kernel(const Args<T> a) {
           }
           lanes_argmax(&best, &bi, 32);
           if (lane == 0)
-            a.best[m * nblk + blk] = (unsigned long long)(unsigned)bi << 32 | __float_as_uint(best);
+            a.best[m * nblk + blk] = pack_best(best, bi);
         }
       }
       if (t < steps)
@@ -267,8 +254,8 @@ __global__ void __launch_bounds__(THREADS, 1) greedy_kernel(const Args<T> a) {
           for (int r = 0; r < 16; ++r)  // all loads first: one round trip
             p[r] = sub + 16 * r < nblk ? __ldcg(row + sub + 16 * r) : 0ull;
           auto consider = [&](unsigned long long pr) {
-            const float v = __uint_as_float((unsigned)pr);
-            const int vi = (int)(pr >> 32);
+            const float v = best_value(pr);
+            const int vi = best_index(pr);
             if (beats(v, vi, best, bi)) {
               best = v;
               bi = vi;

@@ -36,6 +36,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _GRIDS: Dict[tuple, tuple] = {}  # cooperative_grid's answers, by key
+_WORKSPACES: Dict[tuple, torch.Tensor] = {}  # workspace's buffers, by key
 
 
 def nvcc() -> str:
@@ -150,3 +151,21 @@ def cooperative_grid(key: tuple, query, what: str, caps=()) -> int:
                              f"{cap} columns of {name} each, too few for "
                              f"{name}={size}")
     return n
+
+
+def stream_of(dev: torch.device) -> int:
+    """The handle of ``dev``'s current stream (0 off the card)."""
+    return torch._C._cuda_getCurrentRawStream(dev.index) \
+        if dev.type == "cuda" else 0
+
+
+def workspace(key: tuple, nbytes, dev: torch.device) -> torch.Tensor:
+    """A chain kernel's workspace for ``key`` (the kernel's name, dtype,
+    device, shape and stream): ``nbytes()`` zeroed bytes on ``dev``, made at
+    the first call and handed back on every later one.  It holds the grid
+    barrier's words, which are back at zero after every barrier, and the
+    vectors the blocks exchange, which every launch writes before it reads
+    them; launches that share it run in order on the key's stream."""
+    if key not in _WORKSPACES:
+        _WORKSPACES[key] = torch.zeros(nbytes(), dtype=torch.uint8, device=dev)
+    return _WORKSPACES[key]

@@ -13,10 +13,11 @@ float32 and rounds each matmul input to the activation dtype exactly where
 the Pallas kernel does, so at float32 it is token-identical to both JAX
 greedy paths.  Given a ``torch.Generator`` it samples from
 softmax(logits / temperature) instead of taking the argmax.
-``greedy_decode_cuda`` launches ``csrc/greedy_decode.cu``, one cooperative
-kernel over the whole card (one block an SM, asked once per device and
-shape), and raises on anything the kernel does not take, a card too small
-for it included.
+``greedy_decode_cuda`` launches ``csrc/greedy_decode.cu`` and
+``greedy_decode_compact_cuda`` ``csrc/greedy_decode_compact.cu``, each one
+cooperative kernel over the whole card (one block an SM, asked once per
+device and shape), and each raises on anything its kernel does not take, a
+card too small for it included.
 """
 
 from __future__ import annotations
@@ -36,7 +37,6 @@ _ORDER = ("emb", "f_proj", "feats", "w_attn", "w_comb", "b_comb", "w_ih0",
           "fc2_b")
 _FLOAT32_OPERANDS = ("b_comb", "b0", "b1", "fc1_b", "fc2_b")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_SMEM_BYTES = 232448  # per block on the H100
 
 launches = 0  # kernel launches by greedy_decode_cuda
 launches_compact = 0  # kernel launches by greedy_decode_compact_cuda
@@ -308,47 +308,92 @@ def greedy_decode_compact_plain(w: Operands, feats: torch.Tensor, *,
     return out
 
 
+COMPACT_HIDDEN_PER_BLOCK, COMPACT_E_PER_BLOCK, COMPACT_V_PER_BLOCK = 4, 2, 24
+COMPACT_CHUNK = 32  # batch rows a chunk, each attended by a block of its own
+# (csrc/greedy_decode_compact.cu caps)
+
+_COMPACT = None  # (library, its entry points with argtypes set), at first use
+
+
+def _compact_library():
+    global _COMPACT
+    if _COMPACT is None:
+        lib = _build.library("greedy_decode_compact")
+        fns = {"blocks": lib.ic_greedy_compact_blocks,
+               "workspace": lib.ic_greedy_compact_workspace_bytes,
+               "decode": lib.ic_greedy_decode_compact}
+        i, p = ctypes.c_int, ctypes.c_void_p
+        fns["blocks"].argtypes = [i] * 4 + [ctypes.POINTER(ctypes.c_longlong)]
+        fns["workspace"].argtypes = [i] * 4
+        fns["decode"].argtypes = [i, p, p, p] + [i] * 7 + [ctypes.c_float, p]
+        fns["blocks"].restype = fns["decode"].restype = i
+        fns["workspace"].restype = ctypes.c_longlong
+        _COMPACT = lib, fns
+    return _COMPACT
+
+
+def _require_cuda(feats: torch.Tensor) -> None:
+    if not feats.is_cuda:
+        raise ValueError(f"feats must be a CUDA tensor; got one on "
+                         f"{feats.device}")
+
+
+def greedy_compact_blocks(dt: torch.dtype, dev: torch.device, L: int, E: int,
+                          H: int, V: int) -> int:
+    """The compact greedy kernel's cooperative grid on this card (one block
+    an SM); raises if the kernel does not fit, if its blocks would own more
+    columns than it takes, or if there are fewer blocks than the rows of a
+    chunk."""
+    _, fns = _compact_library()
+    n = _build.cooperative_grid(
+        ("greedy_decode_compact", dt, dev, L, E, H),
+        lambda smem: fns["blocks"](_DTYPES[dt], L, E, H, smem),
+        "compact greedy kernel", (("H", H, COMPACT_HIDDEN_PER_BLOCK),
+                                  ("E", E, COMPACT_E_PER_BLOCK),
+                                  ("V", V, COMPACT_V_PER_BLOCK)))
+    if n < COMPACT_CHUNK:
+        raise ValueError(f"compact greedy kernel: {n} cooperative blocks, "
+                         f"fewer than the {COMPACT_CHUNK} rows of a chunk "
+                         f"that each take a block")
+    return n
+
+
 def greedy_decode_compact_cuda(w: Operands, feats: torch.Tensor, *,
                                max_length: int = 20, temperature: float = 1.0
                                ) -> torch.Tensor:
-    """Launch ``csrc/greedy_decode_compact.cu`` on the current stream.
-    Returns (B, max_length) int32."""
+    """Launch the cooperative ``csrc/greedy_decode_compact.cu`` on the
+    current stream (any B: rows beyond 32 run as further chunks inside the
+    launch).  Returns (B, max_length) int32."""
     global launches_compact
-    if not feats.is_cuda or feats.dim() != 3:
-        raise ValueError("feats must be a (B, L, E) CUDA tensor")
+    _require_cuda(feats)
+    if feats.dim() != 3:
+        raise ValueError("feats must be (B, L, E)")
     dt = feats.dtype
     if dt not in _DTYPES:
         raise TypeError(f"compact greedy kernel: dtype {dt} not supported")
     B, L, E = feats.shape
     H, V = w["w_hh"].shape[1], w["emb"].shape[0]
-    if E % 8 or H % 8:
+    if E % 16 or H % 16:
         raise ValueError(f"compact greedy kernel needs E and H divisible by "
-                         f"8, got E={E}, H={H}")
+                         f"16, got E={E}, H={H}")
     ops = dict(w, feats=feats)
     _check_operands(ops, _COMPACT_ORDER, _COMPACT_FLOAT32, {
         "emb": (V, E), "feats": (B, L, E), "w_attn": (E, H), "b_attn": (E,),
         "w_ih": (4 * H, E), "w_hh": (4 * H, H), "b": (4 * H,),
         "out_w": (V, H), "out_b": (V,)}, feats)
-    lib = _build.library("greedy_decode_compact")
-    lib.ic_greedy_compact_smem_bytes.restype = ctypes.c_longlong
-    lib.ic_greedy_compact_smem_bytes.argtypes = [ctypes.c_int] * 4
-    smem = lib.ic_greedy_compact_smem_bytes(L, E, H, V)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"compact greedy kernel: {smem} bytes of shared "
-                         f"memory for L={L}, E={E}, H={H}, V={V} exceed "
-                         f"{MAX_SMEM_BYTES}")
-    out = torch.empty((B, max_length), dtype=torch.int32, device=feats.device)
+    dev = feats.device
+    lib, fns = _compact_library()
+    blocks = greedy_compact_blocks(dt, dev, L, E, H, V)
+    ws = _build.workspace(
+        ("greedy_decode_compact", dt, dev, E, H, blocks, _build.stream_of(dev)),
+        lambda: fns["workspace"](_DTYPES[dt], E, H, blocks), dev)
+    out = torch.empty((B, max_length), dtype=torch.int32, device=dev)
     ptrs = (ctypes.c_void_p * len(_COMPACT_ORDER))(
         *[ops[n].data_ptr() for n in _COMPACT_ORDER])
-    fn = lib.ic_greedy_decode_compact
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p] + \
-        [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
-    with torch.cuda.device(feats.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(_DTYPES[dt], ctypes.cast(ptrs, ctypes.c_void_p),
-                 out.data_ptr(), B, L, E, H, V, max_length,
-                 float(temperature), stream)
+    err = _build.call_on(dev, fns["decode"], _DTYPES[dt],
+                         ctypes.cast(ptrs, ctypes.c_void_p), out.data_ptr(),
+                         ws.data_ptr(), blocks, B, L, E, H, V, max_length,
+                         float(temperature))
     _build.check(lib, err, "greedy_decode_compact")
     launches_compact += 1
     return out

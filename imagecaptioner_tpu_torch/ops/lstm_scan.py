@@ -40,7 +40,6 @@ import torch
 from imagecaptioner_tpu_torch.ops import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_SMEM_BYTES = 232448  # per block on the H100
 MAX_WIDTH = 2048         # widest E or H the transposed product covers
 
 launches_eval = 0   # forward launches without residuals (the eval form)
@@ -334,16 +333,6 @@ def _check_operands(emb_w, f_proj, feats, mask, w_h, w_c, w_ih0, w_hh0, b0,
             raise ValueError(f"{name} must be contiguous (w_h, w_c: unit "
                              "stride along a row) and 16-byte aligned")
     return T, B, L, E, H
-
-
-def _smem_ok(lib, fn_name: str, L: int, E: int, H: int) -> None:
-    fn = getattr(lib, fn_name)
-    fn.restype = ctypes.c_longlong
-    fn.argtypes = [ctypes.c_int] * 3
-    smem = fn(L, E, H)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"decoder scan kernel: {smem} bytes of shared memory "
-                         f"for L={L}, E={E}, H={H} exceed {MAX_SMEM_BYTES}")
 
 
 def _ptr_array(tensors):
@@ -698,20 +687,70 @@ def compact_scan_bwd_plain(res: Sequence[torch.Tensor],
             flat(s["dg"]).t() @ flat(s["hp"]), flat(s["dg"]).sum(0))
 
 
+COMPACT_HIDDEN_PER_BLOCK, COMPACT_E_PER_BLOCK = 4, 2
+COMPACT_CHUNK = 16  # batch rows a chunk, each attended by a block of its own
+# (csrc/compact_scan.cu caps)
+
+_COMPACT = None  # (library, its entry points with argtypes set), at first use
+
+
+def _compact_library():
+    global _COMPACT
+    if _COMPACT is None:
+        lib = _build.library("compact_scan")
+        fns = {"blocks": lib.ic_compact_scan_blocks,
+               "workspace": lib.ic_compact_scan_workspace_bytes,
+               "scan": lib.ic_compact_scan}
+        i, p = ctypes.c_int, ctypes.c_void_p
+        fns["blocks"].argtypes = [i] * 4 + [ctypes.POINTER(ctypes.c_longlong)]
+        fns["workspace"].argtypes = [i] * 3
+        fns["scan"].argtypes = [i, p, p] + [i] * 6 + [p]
+        fns["blocks"].restype = fns["scan"].restype = i
+        fns["workspace"].restype = ctypes.c_longlong
+        _COMPACT = lib, fns
+    return _COMPACT
+
+
+def _require_cuda(feats: torch.Tensor) -> None:
+    if not feats.is_cuda:
+        raise ValueError(f"compact scan kernel: the operands must be CUDA "
+                         f"tensors; got feats on {feats.device}")
+
+
+def compact_scan_blocks(dt, dev, L: int, E: int, H: int) -> int:
+    """The compact scan's cooperative grid on this card (one block an SM);
+    raises if the kernel does not fit, if its blocks would own more columns
+    than it takes, or if there are fewer blocks than the rows of a
+    chunk."""
+    _, fns = _compact_library()
+    n = _build.cooperative_grid(
+        ("compact_scan", dt, dev, L, E, H),
+        lambda smem: fns["blocks"](_DTYPES[dt], L, E, H, smem),
+        "compact scan kernel", (("H", H, COMPACT_HIDDEN_PER_BLOCK),
+                                ("E", E, COMPACT_E_PER_BLOCK)))
+    if n < COMPACT_CHUNK:
+        raise ValueError(f"compact scan kernel: {n} cooperative blocks, "
+                         f"fewer than the {COMPACT_CHUNK} rows of a chunk "
+                         f"that each take a block")
+    return n
+
+
 def compact_scan_cuda(emb, feats, w_attn, b_attn, w_ih, w_hh, b):
-    """Launch ``csrc/compact_scan.cu`` on the current stream.  Returns
-    ``(hs, attn, cs)``."""
+    """Launch the cooperative ``csrc/compact_scan.cu`` on the current stream
+    (any B: rows beyond 16 run as further chunks inside the launch).
+    Returns ``(hs, attn, cs)``."""
     global launches_compact
-    if not feats.is_cuda or feats.dim() != 3 or emb.dim() != 3:
-        raise ValueError("compact scan kernel: feats (B, L, E) and emb "
-                         "(T, B, E) must be CUDA tensors")
+    _require_cuda(feats)
+    if feats.dim() != 3 or emb.dim() != 3:
+        raise ValueError("compact scan kernel: feats must be (B, L, E) and "
+                         "emb (T, B, E)")
     dt, dev = feats.dtype, feats.device
     if dt not in _DTYPES:
         raise TypeError(f"compact scan kernel: dtype {dt} not supported")
     T, B, E = emb.shape
     L, H = feats.shape[1], w_hh.shape[1]
-    if E % 8 or H % 8 or T < 1:
-        raise ValueError(f"compact scan kernel needs E and H divisible by 8, "
+    if E % 16 or H % 16 or T < 1:
+        raise ValueError(f"compact scan kernel needs E and H divisible by 16, "
                          f"got E={E}, H={H}, T={T}")
     want = {"emb": ((T, B, E), dt), "feats": ((B, L, E), dt),
             "w_attn": ((E, H), dt), "b_attn": ((E,), torch.float32),
@@ -724,19 +763,16 @@ def compact_scan_cuda(emb, feats, w_attn, b_attn, w_ih, w_hh, b):
             raise ValueError(f"{name}: {tuple(t.shape)} {t.dtype} on "
                              f"{t.device}, expected contiguous, 16-byte "
                              f"aligned {shape} {dtype} on {dev}")
-    lib = _build.library("compact_scan")
-    _smem_ok(lib, "ic_compact_scan_smem_bytes", L, E, H)
+    lib, fns = _compact_library()
+    blocks = compact_scan_blocks(dt, dev, L, E, H)
+    ws = _build.workspace(("compact_scan", dt, dev, E, H, _build.stream_of(dev)),
+                          lambda: fns["workspace"](_DTYPES[dt], E, H), dev)
     hs = torch.empty((T, B, H), dtype=dt, device=dev)
     attn = torch.empty((T, B, L), dtype=torch.float32, device=dev)
     cs = torch.empty((T, B, H), dtype=torch.float32, device=dev)
-    fn = lib.ic_compact_scan
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 5 + \
-        [ctypes.c_void_p]
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(_DTYPES[dt], _ptr_array(ops + (hs, attn, cs)), T, B, L, E, H,
-                 stream)
+    err = _build.call_on(dev, fns["scan"], _DTYPES[dt],
+                         _ptr_array(ops + (hs, attn, cs)), ws.data_ptr(),
+                         blocks, T, B, L, E, H)
     _build.check(lib, err, "compact_scan")
     launches_compact += 1
     return hs, attn, cs

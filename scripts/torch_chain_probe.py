@@ -4,12 +4,14 @@
     python3 scripts/torch_chain_probe.py [--against OTHER_CSRC_DIR]
 
 1. Builds a copy of ``csrc/`` in which block 0 of ``greedy_decode.cu`` (#1),
-   ``decoder_scan.cu`` (#4/#5) and ``enhanced_scan.cu`` (#8) reads
+   ``decoder_scan.cu`` (#4/#5), ``enhanced_scan.cu`` (#8),
+   ``greedy_decode_compact.cu`` (#3) and ``compact_scan.cu`` (#7) reads
    %globaltimer after every grid barrier, runs each once at the main path's
-   shapes in bf16 (#1: B=32, T=20; the scans: T=47, B=16, with masks and
-   residuals), and prints the median time from one barrier to the next for
-   each phase of a step (five for #1 and #4/#5, eight for #8: the slowest
-   block's work in that phase plus the barrier).  The
+   shapes in bf16 (the greedy loops: B=32, T=20; the scans: T=47, B=16,
+   with masks and residuals where they take them), and prints the median
+   time from one barrier to the next for each phase of a step (five for #1
+   and #4/#5, eight for #8, three for #3 and #7: the slowest block's work
+   in that phase plus the barrier) and which phase sets the pace.  The
    copy is a temporary directory and builds libraries of their own hash;
    the repository's sources are not touched.
 2. With ``--against``, the ``csrc/`` directory of another checkout: runs
@@ -56,15 +58,19 @@ PHASES = ("1 h products", "2 attention (and logits)", "3 x0 (and token)",
 ENH_PHASES = ("1 h2, highway, q, W_hh2", "2 qh, W_hh0", "3 attention, W_hh1",
               "4 ctx, attn", "5 gate, x0", "6 layer 0", "7 layer 1",
               "8 layer 2")
+COMPACT_PHASES = ("1 h products (and logits)", "2 attention (and token)",
+                  "3 gates and cell")
+CHAINS = ("greedy_decode.cu", "decoder_scan.cu", "enhanced_scan.cu",
+          "greedy_decode_compact.cu", "compact_scan.cu")
 
 
 def stamped_copy() -> Path:
-    """csrc/ with a %globaltimer stamp after every grid barrier of the two
+    """csrc/ with a %globaltimer stamp after every grid barrier of the
     forward chains."""
     tmp = Path(tempfile.mkdtemp(prefix="ic_probe_"))
     for f in _build.CSRC.glob("*.cu*"):
         shutil.copy(f, tmp)
-    for name in ("greedy_decode.cu", "decoder_scan.cu", "enhanced_scan.cu"):
+    for name in CHAINS:
         src = (tmp / name).read_text()
         src = src.replace("namespace {\n", "namespace {\n__device__ unsigned long long "
                           "probe_t[16384];\n__device__ int probe_n;\n", 1)
@@ -92,6 +98,14 @@ def phase_medians(lib, run, steps: int, n_phases: int = 5) -> list:
     return [statistics.median(by_phase[p]) for p in range(P)]
 
 
+def show(what: str, names, med) -> None:
+    slow = max(range(len(med)), key=med.__getitem__)
+    print(f"{what}, median us a phase: " + ", ".join(
+        f"{p} {m:.2f}" for p, m in zip(names, med))
+        + f"; a step {sum(med):.2f}; the pace is set by phase {names[slow]} "
+        f"({100 * med[slow] / sum(med):.0f}% of a step)", flush=True)
+
+
 def probe_phases(dev) -> None:
     real, tmp = _build.CSRC, stamped_copy()
     try:
@@ -106,19 +120,15 @@ def probe_phases(dev) -> None:
                                                max_length=CS.MAX_LEN)
             run()
             med = phase_medians(_build.library("greedy_decode"), run, CS.MAX_LEN)
-        print(f"#1 greedy_decode B={CS.BATCH} T={CS.MAX_LEN} bf16, median us a "
-              f"phase: " + ", ".join(f"{p} {m:.2f}" for p, m in zip(PHASES, med))
-              + f"; a step {sum(med):.2f}", flush=True)
+        show(f"#1 greedy_decode B={CS.BATCH} T={CS.MAX_LEN} bf16", PHASES, med)
         ops = CS.scan_operands(CS.make_decoder(dev), dev, torch.bfloat16,
                                CS.SEED + 5)
         with torch.no_grad():
             run = lambda: S.decoder_scan_cuda(*ops, residuals=True)  # noqa: E731
             run()
             med = phase_medians(_build.library("decoder_scan"), run, CS.KD_T)
-        print(f"#4/#5 decoder_scan T={CS.KD_T} B={CS.KD_B} bf16 train form, "
-              f"median us a phase: " + ", ".join(
-                  f"{p} {m:.2f}" for p, m in zip(PHASES, med))
-              + f"; a step {sum(med):.2f}", flush=True)
+        show(f"#4/#5 decoder_scan T={CS.KD_T} B={CS.KD_B} bf16 train form",
+             PHASES, med)
         ops = CS.enhanced_scan_operands(CS.make_variant_decoder(
             "enhanced", dev), dev, torch.bfloat16, CS.SEED + 13, True)
         with torch.no_grad():
@@ -126,10 +136,28 @@ def probe_phases(dev) -> None:
             run()
             med = phase_medians(_build.library("enhanced_scan"), run, CS.KD_T,
                                 len(ENH_PHASES))
-        print(f"#8 enhanced_scan T={CS.KD_T} B={CS.KD_B} bf16 with masks, "
-              f"median us a phase: " + ", ".join(
-                  f"{p} {m:.2f}" for p, m in zip(ENH_PHASES, med))
-              + f"; a step {sum(med):.2f}", flush=True)
+        show(f"#8 enhanced_scan T={CS.KD_T} B={CS.KD_B} bf16 with masks",
+             ENH_PHASES, med)
+        c_decoder, c_feats32 = CS.compact_greedy_inputs(dev)
+        feats = c_feats32.to(torch.bfloat16).contiguous()
+        w = G.greedy_compact_operands(c_decoder, torch.bfloat16)
+        with torch.inference_mode():
+            run = lambda: G.greedy_decode_compact_cuda(  # noqa: E731
+                w, feats, max_length=CS.MAX_LEN)
+            run()
+            med = phase_medians(_build.library("greedy_decode_compact"), run,
+                                CS.MAX_LEN, len(COMPACT_PHASES))
+        show(f"#3 greedy_decode_compact B={CS.BATCH} T={CS.MAX_LEN} bf16",
+             COMPACT_PHASES, med)
+        ops = CS.compact_scan_operands(CS.make_variant_decoder(
+            "compact", dev), dev, torch.bfloat16, CS.SEED + 12)
+        with torch.no_grad():
+            run = lambda: S.compact_scan_cuda(*ops)  # noqa: E731
+            run()
+            med = phase_medians(_build.library("compact_scan"), run, CS.KD_T,
+                                len(COMPACT_PHASES))
+        show(f"#7 compact_scan T={CS.KD_T} B={CS.KD_B} bf16", COMPACT_PHASES,
+             med)
     finally:
         _build.CSRC = real
         CS.forget_libraries()

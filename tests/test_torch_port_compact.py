@@ -55,6 +55,7 @@ from imagecaptioner_tpu_torch.train import steps as PS
 from imagecaptioner_tpu_torch.train import train_student_kd as TK
 from imagecaptioner_tpu_torch.utils import convert as CV
 from imagecaptioner_tpu_torch.utils.checkpoint import save_checkpoint
+from test_torch_port_beam_attn import stub_launches
 
 V, E, H, B, T = 50, 16, 24, 2, 8
 J_CONFIGS = {"compact": JC.compact_student_config,
@@ -598,6 +599,117 @@ def test_cpu_tensors_never_launch_the_compact_kernels():
         G.greedy_decode_compact_cuda({}, x)
     with pytest.raises(ValueError, match="CUDA"):
         S.compact_scan_cuda(*[x] * 7)
+    assert G.launches_compact == 0 and S.launches_compact == 0
+
+
+# The two compact chain kernels' wrappers, with their launches routed to stub
+# entry points (no nvcc, no card) and their cooperative grid given.
+GRID = 132  # blocks of the H100's cooperative grid
+_GREEDY_ENTRIES = ("ic_greedy_compact_blocks",
+                   "ic_greedy_compact_workspace_bytes",
+                   "ic_greedy_decode_compact", "ic_error_string")
+_SCAN_ENTRIES = ("ic_compact_scan_blocks", "ic_compact_scan_workspace_bytes",
+                 "ic_compact_scan", "ic_error_string")
+
+
+def _stub_compact(monkeypatch, module, cache, entries, grid_key, blocks=GRID):
+    """``stub_launches`` for a compact wrapper, with the grid ``blocks``
+    given for ``grid_key`` and the workspace cache emptied: a workspace
+    entry point that answers 64 bytes, an error string for a failed
+    launch."""
+    from imagecaptioner_tpu_torch.ops import _build
+    stubs = stub_launches(monkeypatch, module, cache, entries)
+    stubs[entries[1]].ret = 64
+    stubs["ic_error_string"].ret = b"stub failure"
+    monkeypatch.setitem(_build._GRIDS, grid_key, (blocks, 0))
+    monkeypatch.setattr(_build, "_WORKSPACES", {})
+    return stubs
+
+
+def _compact_greedy_operands(En=16, Hn=16, Vn=40):
+    z = torch.zeros
+    return {"emb": z(Vn, En), "w_attn": z(En, Hn), "b_attn": z(En),
+            "w_ih": z(4 * Hn, En), "w_hh": z(4 * Hn, Hn), "b": z(4 * Hn),
+            "out_w": z(Vn, Hn), "out_b": z(Vn)}
+
+
+def _compact_scan_operands(Tn=3, Bn=2, Lf=9, En=16, Hn=16):
+    z = torch.zeros
+    return (z(Tn, Bn, En), z(Bn, Lf, En), z(En, Hn), z(En), z(4 * Hn, En),
+            z(4 * Hn, Hn), z(4 * Hn))
+
+
+def test_compact_entry_points_are_typed_once_and_launches_counted(
+        monkeypatch):
+    """Both compact wrappers take their entry points from one table made at
+    the first launch (``argtypes`` and ``restype`` set once over three
+    launches), ask the workspace's size once and reuse it, and count one
+    launch per kernel launch: a launch the card refuses raises, naming the
+    CUDA error, and is not counted."""
+    cpu = torch.device("cpu")
+    g = _stub_compact(monkeypatch, G, "_COMPACT", _GREEDY_ENTRIES,
+                      ("greedy_decode_compact", torch.float32, cpu, 9, 16, 16))
+    w, feats = _compact_greedy_operands(), torch.zeros(2, 9, 16)
+    for _ in range(3):
+        out = G.greedy_decode_compact_cuda(w, feats, max_length=5)
+    assert out.shape == (2, 5) and out.dtype == torch.int32
+    assert G.launches_compact == 3
+    assert len(g["ic_greedy_decode_compact"].calls) == 3
+    assert len(g["ic_greedy_compact_workspace_bytes"].calls) == 1
+    assert g["ic_greedy_decode_compact"].calls[0][4] == GRID
+    s = _stub_compact(monkeypatch, S, "_COMPACT", _SCAN_ENTRIES,
+                      ("compact_scan", torch.float32, cpu, 9, 16, 16))
+    for _ in range(3):
+        hs, attn, cs = S.compact_scan_cuda(*_compact_scan_operands())
+    assert (hs.shape, attn.shape, cs.shape) == ((3, 2, 16), (3, 2, 9),
+                                                (3, 2, 16))
+    assert S.launches_compact == 3 and len(s["ic_compact_scan"].calls) == 3
+    assert len(s["ic_compact_scan_workspace_bytes"].calls) == 1
+    for stubs in (g, s):
+        for name in stubs:
+            if name != "ic_error_string":
+                assert stubs[name].typed == 1, name
+                assert stubs[name].restype is not None, name
+    g["ic_greedy_decode_compact"].ret = s["ic_compact_scan"].ret = 2
+    with pytest.raises(RuntimeError, match="CUDA error 2"):
+        G.greedy_decode_compact_cuda(w, feats, max_length=5)
+    with pytest.raises(RuntimeError, match="CUDA error 2"):
+        S.compact_scan_cuda(*_compact_scan_operands())
+    assert G.launches_compact == 3 and S.launches_compact == 3
+
+
+@pytest.mark.parametrize("kernel,shape,blocks,limit", [
+    ("greedy", dict(Hn=GRID * 4 + 16), GRID, "at most 4 columns of H"),
+    ("greedy", dict(En=GRID * 2 + 24), GRID, "at most 2 columns of E"),
+    ("greedy", dict(Vn=GRID * 24 + 1), GRID, "at most 24 columns of V"),
+    ("greedy", {}, 31, "fewer than the 32 rows of a chunk"),
+    ("scan", dict(Hn=GRID * 4 + 16), GRID, "at most 4 columns of H"),
+    ("scan", dict(En=GRID * 2 + 24), GRID, "at most 2 columns of E"),
+    ("scan", {}, 15, "fewer than the 16 rows of a chunk"),
+])
+def test_compact_grids_name_the_cap_they_exceed(kernel, shape, blocks, limit,
+                                                monkeypatch):
+    """Each block of a compact chain owns at most 4 hidden units, 2 of E
+    and (#3) 24 of V, and each row of a chunk takes a block of its own: a
+    grid too small for the shape is refused with the cap named, before
+    anything is launched."""
+    cpu, dims = torch.device("cpu"), dict(En=16, Hn=16, Vn=40)
+    dims.update(shape)
+    En, Hn = dims["En"], dims["Hn"]
+    if kernel == "greedy":
+        stubs = _stub_compact(monkeypatch, G, "_COMPACT", _GREEDY_ENTRIES, (
+            "greedy_decode_compact", torch.float32, cpu, 9, En, Hn), blocks)
+        with pytest.raises(ValueError, match=limit):
+            G.greedy_decode_compact_cuda(_compact_greedy_operands(**dims),
+                                         torch.zeros(2, 9, En))
+        launched = stubs["ic_greedy_decode_compact"].calls
+    else:
+        stubs = _stub_compact(monkeypatch, S, "_COMPACT", _SCAN_ENTRIES, (
+            "compact_scan", torch.float32, cpu, 9, En, Hn), blocks)
+        with pytest.raises(ValueError, match=limit):
+            S.compact_scan_cuda(*_compact_scan_operands(En=En, Hn=Hn))
+        launched = stubs["ic_compact_scan"].calls
+    assert not launched
     assert G.launches_compact == 0 and S.launches_compact == 0
 
 
