@@ -49,9 +49,12 @@ Imports nothing of JAX.  In order it:
   9. holds the two beam-step attention kernels against their plain versions
      at the teacher's full width (N=16 and 32 images, K=5 beams, 8 heads,
      S=21 cache positions, L=197 memory tokens), float32 and bf16, random
-     ancestry, pos 0, 7 and 20, q as a column block of a packed projection;
-     20 more runs of the cross kernel at each N and dtype bit-identical to
-     the first;
+     ancestry at pos 0, 7 and 20, lineages built as the beam search builds
+     them and a table converged to one slot a position at pos 7 and 20,
+     K=10 at S=21 and at S=64, pos=63 (the self kernel's rows staged in two
+     chunks at float32), q as a column block of a packed projection; the
+     self kernel's plan against the wrapper's; 20 more runs of each kernel
+     at the last position bit-identical to the first;
  10. drives teacher beam serving: a ViT-S/16 teacher from a numpy seed with
      its cross-attention scaled up and its END bias raised (so that beams
      finish at different lengths), written as a JAX-format checkpoint,
@@ -91,12 +94,14 @@ Imports nothing of JAX.  In order it:
      warm-up), each kernel's bound, the chain floor of the six cooperative
      kernels (#1, #3, #4/#5, #6, #7, #8: the median of 2,000 empty grid
      barriers at the chain's grid times the barriers a run crosses), ptxas'
-     registers and spills for them, and the end-to-end rates;
+     registers and spills for them and for #9 (with #9's launch plan), and
+     the end-to-end rates;
  14. prints the kernels JSON line, the nvidia-smi line, and last
      ``{"ok": true, "device": {...}}``.
 Any failed check exits non-zero before the last line.  ``--mutation`` builds
-ten faulty copies (a scan backward without its dropout mask, a beam
-self-attention that ignores the ancestry table, a beam cross-attention whose
+eleven faulty copies (a scan backward without its dropout mask, a beam
+self-attention that ignores the ancestry table, one that stages every chunk
+of rows from position 0, a beam cross-attention whose
 bulk copy of V drops its last 16 keys, an enhanced scan whose attention
 ignores its dropout multiplier, an enhanced scan whose LayerNorms combine
 stale partials, an attention core whose causal mask is off by one, a greedy
@@ -104,7 +109,7 @@ decode whose blocks all read row 0's broadcast context, a scan forward whose
 layer 1 reads the broadcast h0 without its mask, a compact greedy decode
 whose row blocks all reduce row 0's partial argmaxes, a compact scan whose
 cell reads the previous step's recurrent part at even steps) and expects
-all ten checks to fail.
+all eleven checks to fail.
 """
 
 from __future__ import annotations
@@ -966,21 +971,44 @@ def scan_bounds(kept):
                      T_ * B * (3 * 2 * macs + 3 * attn), "f32"))
 
 
-def beam_operands(dev, N, dtype, pos, seed, K=BEAM_K):
+def beam_ancestry(rng, N, K, S, pos, table):
+    """An ancestry table (N, K, S) with the identity at ``pos``: "random"
+    draws every entry; "lineage" is built step by step as
+    ``beam_decode_packed_kv`` builds it (each step's rows written by the
+    current slots, then every slot inherits a random origin's row), so beams
+    share their ancestors' prefixes; "converged" names one slot for all K
+    beams at each position < pos, one distinct row a position."""
+    slots = np.arange(K, dtype=np.int32)
+    if table == "random":
+        anc = rng.integers(0, K, (N, K, S)).astype(np.int32)
+    elif table == "lineage":
+        anc = np.broadcast_to(slots[None, :, None], (N, K, S)).copy()
+        for t in range(pos):
+            anc[:, :, t] = slots
+            origin = rng.integers(0, K, (N, K))
+            anc = np.take_along_axis(anc, origin[:, :, None], axis=1)
+    else:
+        anc = np.repeat(rng.integers(0, K, (N, 1, S)).astype(np.int32), K, 1)
+    anc[:, :, pos] = slots[None]
+    return anc
+
+
+def beam_operands(dev, N, dtype, pos, seed, K=BEAM_K, S=BEAM_S,
+                  table="random"):
     """One beam step's attention operands at the teacher's full width from a
     numpy seed: q as the first column block of a packed (R, 1, 3E)
     projection (how ``decoder_step_cached`` hands it over), a random cache
-    and memory, a random ancestry table with the identity at ``pos``."""
+    and memory, an ancestry table (``beam_ancestry``) with the identity at
+    ``pos``."""
     rng = np.random.default_rng(seed)
-    H, S, L = BEAM_H, BEAM_S, BEAM_L
+    H, L = BEAM_H, BEAM_L
     R, E = N * K, BEAM_H * 64
 
     def t(*shape):
         return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
                                 ).to(dev).to(dtype)
 
-    anc = rng.integers(0, K, (N, K, S)).astype(np.int32)
-    anc[:, :, pos] = np.arange(K, dtype=np.int32)[None]
+    anc = beam_ancestry(rng, N, K, S, pos, table)
     return dict(q=t(R, 1, 3 * E).chunk(3, dim=-1)[0],
                 kv={"k": t(R, H, S, 64), "v": t(R, H, S, 64)},
                 mem_kv={"k": t(N, H, L, 64), "v": t(N, H, L, 64)},
@@ -1006,19 +1034,33 @@ def beam_close(what, got, ref, N, K, dtype, pos):
 
 def check_beam_attention(dev, mutant=False):
     """The two beam-step kernels against their plain versions at full width,
-    and at the last position REPEATS more runs of the cross kernel
-    bit-identical to the first.  K=2*BEAM_K beams take the cross kernel's
-    second group of query rows (8 + 2) over the same resident K/V.  Returns
+    and at the cache's last position REPEATS more runs of each kernel
+    bit-identical to the first.  Ancestry tables: random ones at N=16 and
+    32, pos 0, 7 and 20; lineages built as the beam search builds them; one
+    converged to one slot a position; K=2*BEAM_K beams (self: two blocks a
+    head, 8 + 2 beams; cross: a second group of query rows over the same
+    resident K/V), and at S=64, pos=63 the self kernel's rows staged in
+    chunks at float32 (the check fails if that plan has one chunk).  The
+    self kernel's plan must be the one ``BA.self_plan`` computes.  Returns
     the largest errors of the main path's case (N=16, K=5, float32)."""
     main_err = {"self": 0.0, "cross": 0.0}
-    cases = [(N, BEAM_K, dtype, pos, SEED + 20 + pos)
-             for N in (BEAM_B, 2 * BEAM_B)
-             for dtype in (torch.float32, torch.bfloat16)
+    both = (torch.float32, torch.bfloat16)
+    cases = [(N, BEAM_K, BEAM_S, dtype, pos, SEED + 20 + pos, "random")
+             for N in (BEAM_B, 2 * BEAM_B) for dtype in both
              for pos in (0, 7, BEAM_S - 1)]
-    cases += [(BEAM_B, 2 * BEAM_K, dtype, BEAM_S - 1, SEED + 60)
-              for dtype in (torch.float32, torch.bfloat16)]
-    for N, K, dtype, pos, seed in cases:
-        o = beam_operands(dev, N, dtype, pos, seed, K=K)
+    cases += [(BEAM_B, BEAM_K, BEAM_S, dtype, pos, SEED + 40 + pos, table)
+              for table in ("lineage", "converged") for dtype in both
+              for pos in (7, BEAM_S - 1)]
+    cases += [(BEAM_B, 2 * BEAM_K, S, dtype, S - 1, SEED + 60, "random")
+              for S in (BEAM_S, BA.MAX_S) for dtype in both]
+    for N, K, S, dtype, pos, seed, table in cases:
+        plan = BA.self_plan(K, pos, dtype)
+        if BA.self_plan_built(K, pos, dtype) != plan:
+            fail(f"the self kernel's plan {BA.self_plan_built(K, pos, dtype)}"
+                 f" is not the wrapper's {plan}")
+        if S == BA.MAX_S and dtype == torch.float32 and plan["chunks"] < 2:
+            fail(f"the chunked case takes one chunk: {plan}")
+        o = beam_operands(dev, N, dtype, pos, seed, K=K, S=S, table=table)
         got_s = BA.beam_self_attention_cuda(
             o["q"], o["kv"], o["anc"], pos, num_heads=BEAM_H)
         ref_s = BA.beam_self_attention_plain(
@@ -1028,13 +1070,18 @@ def check_beam_attention(dev, mutant=False):
         ref_c = BA.beam_cross_attention_plain(
             o["q"], o["mem_kv"], mem_group=K, num_heads=BEAM_H)
         torch.cuda.synchronize()
+        print(f"beam ancestry {table} S={S}: self plan {plan}", flush=True)
         for what, got, ref in (("self", got_s, ref_s), ("cross", got_c, ref_c)):
             err = beam_close(what, got, ref, N, K, dtype, pos)
             if N == BEAM_B and K == BEAM_K and dtype == torch.float32:
                 main_err[what] = max(main_err[what], err)
-        if pos == BEAM_S - 1 and not mutant:
-            repeats_same(f"beam_cross_attention N={N} K={K} "
-                         f"{str(dtype)[6:]}", [got_c],
+        if pos == S - 1 and table == "random" and not mutant:
+            tag = f"N={N} K={K} S={S} {str(dtype)[6:]}"
+            repeats_same(f"beam_self_attention {tag}", [got_s],
+                         lambda: [BA.beam_self_attention_cuda(
+                             o["q"], o["kv"], o["anc"], pos,
+                             num_heads=BEAM_H)])
+            repeats_same(f"beam_cross_attention {tag}", [got_c],
                          lambda: [BA.beam_cross_attention_cuda(
                              o["q"], o["mem_kv"], mem_group=K,
                              num_heads=BEAM_H)])
@@ -1059,22 +1106,57 @@ def beam_bounds(o):
         cross=bound_ms(cross_bytes, 4 * R * H * BEAM_L * 64, kind))
 
 
+def all_slots_operands(o):
+    """The self kernel's function in the form the TPU kernel computes it, as
+    ``scaled_dot_product_attention`` takes it: each query (N, H, K, 64)
+    scores the K slots x (pos + 1) positions of its image, keys and values
+    (N, H, K * (pos + 1), 64), under a boolean mask (N, 1, K, K * (pos + 1))
+    that is true where ``anc[n, i, s] == j``.  Built outside any timing."""
+    q, kv, anc, pos = o["q"], o["kv"], o["anc"], o["pos"]
+    N, K, _ = anc.shape
+    P = pos + 1
+
+    def slots(c):
+        c = c.reshape(N, K, BEAM_H, -1, 64)[:, :, :, :P]
+        return c.transpose(1, 2).reshape(N, BEAM_H, K * P, 64).contiguous()
+
+    qh = q.reshape(N, K, BEAM_H, 64).transpose(1, 2).contiguous()
+    j = torch.arange(K, device=anc.device)
+    mask = (anc[:, :, None, :P] == j[None, None, :, None]).reshape(
+        N, 1, K, K * P)
+    return qh, slots(kv["k"]), slots(kv["v"]), mask
+
+
 def time_beam_attention(dev):
-    """CUDA-event medians of the two kernels, their plain versions and, for
-    the cross kernel, ``scaled_dot_product_attention`` on the same operands
-    (a yardstick: the port never calls it), at N=16 and the loop's last
-    position; float32 is the main path's dtype, bf16 is timed beside it."""
+    """CUDA-event medians of the two kernels, their plain versions and
+    ``scaled_dot_product_attention`` on the same function (a yardstick: the
+    port never calls it; for the self kernel over the all-slots form of
+    ``all_slots_operands``, built before the timing), at N=16 and the loop's
+    last position; float32 is the main path's dtype, bf16 is timed beside
+    it.  ``self_sdpa_err`` is that yardstick's largest difference from the
+    plain version."""
     out = {}
     for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         o = beam_operands(dev, BEAM_B, dtype, MAX_LEN - 1, SEED + 30)
         q, kv, mkv, anc, pos = (o[k] for k in ("q", "kv", "mem_kv", "anc",
                                                "pos"))
         qh = q.reshape(BEAM_B, BEAM_K, BEAM_H, 64).transpose(1, 2).contiguous()
+        sq, sk, sv, smask = all_slots_operands(o)
+
+        def self_sdpa():
+            return F.scaled_dot_product_attention(sq, sk, sv, attn_mask=smask,
+                                                  scale=0.125)
+
+        sdpa_err = (self_sdpa().transpose(1, 2).reshape(q.shape).float()
+                    - BA.beam_self_attention_plain(
+                        q, kv, anc, pos, num_heads=BEAM_H).float()
+                    ).abs().max().item()
         out[tag] = dict(
             self_ms=median_ms(lambda: BA.beam_self_attention_cuda(
                 q, kv, anc, pos, num_heads=BEAM_H), 200),
             self_plain_ms=median_ms(lambda: BA.beam_self_attention_plain(
                 q, kv, anc, pos, num_heads=BEAM_H), 50),
+            self_sdpa_ms=median_ms(self_sdpa, 200),
             cross_ms=median_ms(lambda: BA.beam_cross_attention_cuda(
                 q, mkv, mem_group=BEAM_K, num_heads=BEAM_H), 200),
             cross_plain_ms=median_ms(lambda: BA.beam_cross_attention_plain(
@@ -1083,12 +1165,13 @@ def time_beam_attention(dev):
                 qh, mkv["k"], mkv["v"], scale=0.125), 200),
             self_queued_ms=queued_ms(lambda: BA.beam_self_attention_cuda(
                 q, kv, anc, pos, num_heads=BEAM_H)),
+            self_sdpa_queued_ms=queued_ms(self_sdpa),
             cross_queued_ms=queued_ms(lambda: BA.beam_cross_attention_cuda(
                 q, mkv, mem_group=BEAM_K, num_heads=BEAM_H)),
             cross_sdpa_queued_ms=queued_ms(
                 lambda: F.scaled_dot_product_attention(
                     qh, mkv["k"], mkv["v"], scale=0.125)),
-            bounds=beam_bounds(o))
+            self_sdpa_err=sdpa_err, bounds=beam_bounds(o))
     return out
 
 
@@ -2147,10 +2230,13 @@ def mutant_caught(source: str, good: str, bad: str, check, what: str) -> bool:
 
 
 def run_mutation(dev) -> int:
-    """Ten planted faults, each of which its check must catch: the scan
+    """Eleven planted faults, each of which its check must catch: the scan
     backward without the dropout mask on layer 1's input gradient (``dh0 =
     dh0_c + (dgp1·W_ih1ᵀ) · mask``), a beam self-attention that reads its
-    own slot's cache row instead of ``anc[n, i, s]``, an enhanced scan
+    own slot's cache row instead of ``anc[n, i, s]``, one that stages each
+    chunk of cache rows from position 0 instead of the chunk's first
+    position (only the chunked case, K=10 at S=64 in float32, can see it),
+    an enhanced scan
     whose attention heads ignore their dropout multiplier ``amask``, an
     attention core whose causal mask lets each row see one key ahead, two
     faults in the cross-block exchange of the cooperative chains (a greedy
@@ -2188,10 +2274,16 @@ def run_mutation(dev) -> int:
                       lambda: check_scan(decoder, dev, mutant="bwd"),
                       "no dropout mask on d(h0)"),
         mutant_caught("beam_attention.cu",
-                      "rows[s] = n * K + anc[(size_t)r * S + s];",
-                      "rows[s] = r;",
+                      "a[u] = live && s < len ? anc[(size_t)r * S + s] : 0;",
+                      "a[u] = live && s < len ? g0 + warp : 0;",
                       lambda: check_beam_attention(dev, mutant=True),
                       "beam self-attention ignores anc"),
+        mutant_caught("beam_attention.cu",
+                      "* H + h) * S + ch.s0) * D, bytes",
+                      "* H + h) * S) * D, bytes",
+                      lambda: check_beam_attention(dev, mutant=True),
+                      "beam self-attention stages every chunk from position "
+                      "0"),
         mutant_caught("beam_attention.cu",
                       "bulk_load(v_s, mv + nh * L * D, bytes, &bar[1]);",
                       "bulk_load(v_s, mv + nh * L * D, bytes - 16 * D * "
@@ -2445,13 +2537,18 @@ def main() -> int:
     for tag, t in beam_t.items():
         print(f"beam attention N={BEAM_B} K={BEAM_K} pos={MAX_LEN - 1} {tag}: "
               f"self kernel {t['self_ms']:.4f} ms (plain "
-              f"{t['self_plain_ms']:.4f}, bound {t['bounds']['self'][0]:.5f} by "
-              f"{t['bounds']['self'][1]}); cross kernel {t['cross_ms']:.4f} ms "
+              f"{t['self_plain_ms']:.4f}, all-slots SDPA "
+              f"{t['self_sdpa_ms']:.4f} off the plain version by "
+              f"{t['self_sdpa_err']:.3e}, bound {t['bounds']['self'][0]:.5f} "
+              f"by {t['bounds']['self'][1]}); cross kernel "
+              f"{t['cross_ms']:.4f} ms "
               f"(plain {t['cross_plain_ms']:.4f}, SDPA {t['cross_sdpa_ms']:.4f}"
               f", bound {t['bounds']['cross'][0]:.5f} by "
               f"{t['bounds']['cross'][1]}); with the stream kept full: self "
-              f"{t['self_queued_ms']:.4f} ms, cross {t['cross_queued_ms']:.4f}"
-              f" ms, SDPA {t['cross_sdpa_queued_ms']:.4f} ms")
+              f"{t['self_queued_ms']:.4f} ms (SDPA "
+              f"{t['self_sdpa_queued_ms']:.4f}), cross "
+              f"{t['cross_queued_ms']:.4f} ms (SDPA "
+              f"{t['cross_sdpa_queued_ms']:.4f})")
     print(f"greedy_decode_compact B=32 T=20 bf16: kernel {cg_ms:.4f} ms, "
           f"plain {cg_plain_ms:.4f} ms")
     print(f"compact_scan T={KD_T} B={KD_B} bf16: kernel {cscan['ms']:.4f} ms, "
@@ -2531,9 +2628,15 @@ def main() -> int:
         entry("beam_self_attention", "beam_attention.cu",
               "pallas_beam_attn.py:166", beam_launches["beam_self_attention"],
               beam_err["self"], bt["self_ms"], bt["self_plain_ms"],
-              bt["bounds"]["self"], queued_ms=bt["self_queued_ms"],
+              bt["bounds"]["self"], bt["self_sdpa_ms"],
+              queued_ms=bt["self_queued_ms"],
+              library_queued_ms=bt["self_sdpa_queued_ms"],
               bf16_ms=beam_t["bf16"]["self_ms"],
-              bf16_queued_ms=beam_t["bf16"]["self_queued_ms"]),
+              bf16_queued_ms=beam_t["bf16"]["self_queued_ms"],
+              bf16_library_ms=beam_t["bf16"]["self_sdpa_ms"],
+              bf16_library_queued_ms=beam_t["bf16"]["self_sdpa_queued_ms"],
+              plan=BA.self_plan(BEAM_K, MAX_LEN - 1, torch.float32),
+              ptxas=ptxas_usage("beam_attention", "beam_self_kernel")),
         entry("beam_cross_attention", "beam_attention.cu",
               "pallas_beam_attn.py:249", beam_launches["beam_cross_attention"],
               beam_err["cross"], bt["cross_ms"], bt["cross_plain_ms"],

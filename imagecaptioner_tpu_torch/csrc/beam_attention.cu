@@ -19,10 +19,35 @@
 // beam's lineage.  The TPU kernel scores every query against all K slots
 // and masks the others to -inf because its compiler wants 2-D tiles;
 // exp(-inf) is exactly 0, so the same function is a gather: query (n, i, h)
-// attends, at each s <= pos, row n*K + anc[n, i, s].  One warp per (row,
-// head): per position the 32 lanes split the 64-wide dot (two neighbouring
-// values a lane) and reduce with shuffles, one softmax over the lineage in
-// float32, weights rounded to the cache type, context summed in float32.
+// attends, at each s <= pos, row n*K + anc[n, i, s].  What bounds it on the
+// H100 is bytes (the named rows of k and v, 4.9 MB at N=16, K=5, pos=19,
+// float32: 1.5 us at 3.35 TB/s) and, before that, latency: a warp walking
+// the lineage one global load at a time waits some 40 round trips to L2.
+// So one block takes an image's beams for one head (up to 8 beams, a warp
+// each; more run in groups of 8, a block each), and its first act is to
+// put every byte in flight: for each of the image's K slots, lane 0 of one
+// warp issues one bulk asynchronous copy (cp.async.bulk) of the slot's
+// contiguous rows 0..pos of k and one of v, k's on one mbarrier and v's on
+// the other, while the lineage is still being read.  This stages the rows
+// that no beam names too (1.5x the named rows on a random table, K x on a
+// converged one), but it needs no round trip through the ancestry table
+// before the copies start, and it issues a few large copies: a copy a
+// named row costs the issuing warp one serialised bulk instruction a lane,
+// and 16-byte cp.async pieces cost as many instructions as pieces.
+// Meanwhile lane l of beam i's warp reads anc[n, i, l] and anc[n, i, l+32]
+// into registers.  Once k has landed (v still in flight) lane l scores its
+// positions against the staged row of the slot that anc names, the row and
+// the beam's q (in shared memory) read 16 bytes at a time from a piece
+// rotated by the lane, so a quarter warp hits distinct banks; the warp's
+// softmax over positions 0..pos runs in registers; once v has landed, lane
+// l sums P*V for values 2l, 2l+1 over the positions in order, reading each
+// position's staged row and weight from a table the warp writes to shared
+// memory (eight rows' loads in flight at a time).  Where k and v of all
+// K slots exceed the shared-memory budget they are staged in chunks of
+// positions (of slots too, for a very large K) through the two buffers in
+// turn: k's chunks, the softmax, then v's.  The plan (beams a block, slots
+// and positions a chunk, shared bytes) depends on K, pos and the type only,
+// and ic_beam_self_plan reports it.
 //
 // Cross: an image's K beams are K query rows over that image's memory K/V
 // (N, H, L, 64).  One block per (image, head).  What bounds it on the H100
@@ -47,12 +72,13 @@
 
 namespace {
 
-constexpr int D = 64;      // the teacher's head dimension
-constexpr int MAX_S = 64;  // cache positions the self kernel takes
-constexpr int MAX_L = 256; // memory tokens the cross kernel takes
-constexpr int SELF_WARPS = 4;
+constexpr int D = 64;                 // the teacher's head dimension
+constexpr int MAX_S = 64;             // cache positions the self kernel takes
+constexpr int MAX_L = 256;            // memory tokens the cross kernel takes
+constexpr int MAX_KG = 8;             // beams a self block (a warp each)
+constexpr size_t SELF_SMEM = 232448;  // the H100's opt-in shared memory a block
 constexpr int CROSS_THREADS = MAX_L;  // a key a thread
-constexpr int RG = 8;                  // query rows a group (a warp each)
+constexpr int RG = 8;                 // query rows a group (a warp each)
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -72,78 +98,39 @@ __device__ __forceinline__ void store2(float* p, float a, float b) {
 __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
-
-template <typename T>
-__global__ void __launch_bounds__(SELF_WARPS * 32)
-beam_self_kernel(const T* __restrict__ q, int q_stride, const T* __restrict__ kc,
-                 const T* __restrict__ vc, const int* __restrict__ anc,
-                 T* __restrict__ out, int out_stride, int R, int K, int H, int S,
-                 int pos, float scale) {
-  __shared__ float p_s[SELF_WARPS][MAX_S];
-  __shared__ int row_s[SELF_WARPS][MAX_S];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int job = blockIdx.x * SELF_WARPS + warp;  // (row, head)
-  if (job >= R * H) return;                        // uniform across the warp
-  const int r = job / H, h = job % H;
-  const int n = r / K;
-  float* pw = p_s[warp];
-  int* rows = row_s[warp];
-  const int len = pos + 1;
-
-  // the lineage: which cache row holds position s of this beam
-  for (int s = lane; s < len; s += 32) rows[s] = n * K + anc[(size_t)r * S + s];
-  __syncwarp();
-
-  const float2 qv = load2(q + (size_t)r * q_stride + h * D + 2 * lane);
-  for (int s = 0; s < len; ++s) {
-    const T* kr = kc + (((size_t)rows[s] * H + h) * S + s) * D;
-    const float2 kv = load2(kr + 2 * lane);
-    const float sc = warp_sum(fmaf(qv.x, kv.x, qv.y * kv.y)) * scale;
-    if (lane == 0) pw[s] = sc;
-  }
-  __syncwarp();
-
-  float m = -INFINITY;
-  for (int s = lane; s < len; s += 32) m = fmaxf(m, pw[s]);
-  m = warp_max(m);
-  float sum = 0.f;
-  for (int s = lane; s < len; s += 32) {
-    const float e = expf(pw[s] - m);
-    pw[s] = e;
-    sum += e;
-  }
-  sum = warp_sum(sum);
-  for (int s = lane; s < len; s += 32) pw[s] = to_f(from_f<T>(pw[s] / sum));
-  __syncwarp();
-
-  float a0 = 0.f, a1 = 0.f;
-  for (int s = 0; s < len; ++s) {
-    const T* vr = vc + (((size_t)rows[s] * H + h) * S + s) * D;
-    const float2 vv = load2(vr + 2 * lane);
-    const float p = pw[s];
-    a0 = fmaf(p, vv.x, a0);
-    a1 = fmaf(p, vv.y, a1);
-  }
-  store2(out + (size_t)r * out_stride + h * D + 2 * lane, a0, a1);
+__device__ __forceinline__ void copy2(float* dst, const float* src) {
+  *reinterpret_cast<float2*>(dst) = *reinterpret_cast<const float2*>(src);
 }
-
-// --- bulk asynchronous copies into shared memory, completing on an mbarrier
+__device__ __forceinline__ void copy2(__nv_bfloat16* dst, const __nv_bfloat16* src) {
+  *reinterpret_cast<__nv_bfloat162*>(dst) = *reinterpret_cast<const __nv_bfloat162*>(src);
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar)) : "memory");
+__host__ __device__ inline size_t align16(size_t n) { return (n + 15) / 16 * 16; }
+
+// --- bulk asynchronous copies into shared memory, completing on an mbarrier
+
+// A barrier whose phases each complete after `count` arrivals and the
+// bytes that they expect.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count = 1) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
 }
 
-// Thread 0: expect `bytes` on bar and copy them from global src to shared dst
-// (both 16-byte aligned, bytes a multiple of 16).
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
-                                          uint64_t* bar) {
+// Arrive on bar and add `bytes` to what its current phase expects.
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
                "r"(bytes)
                : "memory");
+}
+
+// Copy `bytes` from global src to shared dst (both 16-byte aligned, bytes a
+// multiple of 16), the bytes counted off bar's current phase as they land.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
           "r"(smem_addr(dst)),
@@ -151,19 +138,229 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
       : "memory");
 }
 
-// Wait until the first phase of bar (its copy) has completed.
-__device__ __forceinline__ void bulk_wait(uint64_t* bar) {
+// Thread 0: expect `bytes` on bar and copy them from global src to shared dst
+// (both 16-byte aligned, bytes a multiple of 16).
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  mbar_expect(bar, bytes);
+  bulk_copy(dst, src, bytes, bar);
+}
+
+// Wait until the phase of bar with this parity (its copies) has completed.
+__device__ __forceinline__ void bulk_wait(uint64_t* bar, uint32_t parity = 0) {
   uint32_t done = 0;
   while (!done)
     asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
         " selp.u32 %0, 1, 0, p;\n}\n"
         : "=r"(done)
-        : "r"(smem_addr(bar))
+        : "r"(smem_addr(bar)), "r"(parity)
         : "memory");
 }
 
-__host__ __device__ inline size_t align16(size_t n) { return (n + 15) / 16 * 16; }
+// --- the self kernel
+
+// How a launch of the self kernel is cut: `kg` beams a block (an image's K
+// beams in `groups` blocks a head, a warp a beam); its rows staged in
+// `chunks` of `slots` slots x `positions` positions (one chunk unless the
+// whole lineage of k and v exceeds the budget); `smem` bytes of dynamic
+// shared memory: the two buffers' mbarriers, the group's q rows, a table of
+// 64 (row, weight) pairs a beam, then two buffers of slots x positions
+// rows.
+struct SelfPlan {
+  int kg, groups, slots, positions, chunks;
+  size_t smem;
+};
+
+inline SelfPlan self_plan(int K, int len, size_t item) {
+  SelfPlan p;
+  p.kg = K < MAX_KG ? K : MAX_KG;
+  p.groups = (K + p.kg - 1) / p.kg;
+  const size_t fixed = 16 + (size_t)p.kg * (D * item + MAX_S * 8);
+  const size_t pair = 2 * (size_t)D * item;  // a row of each buffer
+  const size_t rows = (SELF_SMEM - fixed) / pair;
+  p.slots = (size_t)K <= rows ? K : (int)rows;
+  const size_t fit = rows / p.slots;
+  p.positions = fit < (size_t)len ? (int)fit : len;
+  p.chunks = (K + p.slots - 1) / p.slots * ((len + p.positions - 1) / p.positions);
+  p.smem = fixed + pair * p.slots * p.positions;
+  return p;
+}
+
+// Dot of a staged row with a q row (64 values each) in float32, 16 bytes of
+// each at a time starting at piece `rot` of the row, in four running sums.
+__device__ __forceinline__ float row_dot(const float* kr, const float* qr, int rot) {
+  const float4* k4 = reinterpret_cast<const float4*>(kr);
+  const float4* q4 = reinterpret_cast<const float4*>(qr);
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+  for (int i = 0; i < D / 4; ++i) {
+    const int c = (i + rot) & (D / 4 - 1);
+    const float4 k = k4[c], q = q4[c];
+    acc.x = fmaf(q.x, k.x, acc.x);
+    acc.y = fmaf(q.y, k.y, acc.y);
+    acc.z = fmaf(q.z, k.z, acc.z);
+    acc.w = fmaf(q.w, k.w, acc.w);
+  }
+  return (acc.x + acc.y) + (acc.z + acc.w);
+}
+__device__ __forceinline__ float dot_bf2(uint32_t q, uint32_t k, float acc) {
+  acc = fmaf(__uint_as_float(q << 16), __uint_as_float(k << 16), acc);
+  return fmaf(__uint_as_float(q & 0xffff0000u), __uint_as_float(k & 0xffff0000u), acc);
+}
+__device__ __forceinline__ float row_dot(const __nv_bfloat16* kr, const __nv_bfloat16* qr,
+                                         int rot) {
+  const uint4* k4 = reinterpret_cast<const uint4*>(kr);
+  const uint4* q4 = reinterpret_cast<const uint4*>(qr);
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) {
+    const int c = (i + rot) & (D / 8 - 1);
+    const uint4 k = k4[c], q = q4[c];
+    acc.x = dot_bf2(q.x, k.x, acc.x);
+    acc.y = dot_bf2(q.y, k.y, acc.y);
+    acc.z = dot_bf2(q.z, k.z, acc.z);
+    acc.w = dot_bf2(q.w, k.w, acc.w);
+  }
+  return (acc.x + acc.y) + (acc.z + acc.w);
+}
+
+// The chunk of a stage: slots [j0, j1), positions [s0, s1).  Chunks run
+// slot range by slot range, positions in order within each.
+struct Chunk {
+  int j0, j1, s0, s1;
+};
+__device__ __forceinline__ Chunk chunk_of(int c, int K, int len, int J, int C) {
+  const int per = (len + C - 1) / C;  // position chunks a slot range
+  const int j0 = c / per * J, s0 = c % per * C;
+  return {j0, min(K, j0 + J), s0, min(len, s0 + C)};
+}
+
+template <typename T>
+__global__ void __launch_bounds__(MAX_KG * 32)
+beam_self_kernel(const T* __restrict__ q, int q_stride, const T* __restrict__ kc,
+                 const T* __restrict__ vc, const int* __restrict__ anc,
+                 T* __restrict__ out, int out_stride, int K, int H, int S, int pos,
+                 float scale, int kg, int groups, int J, int C) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int PIECES = D * sizeof(T) / 16;
+  constexpr uint32_t ROW = D * sizeof(T);
+  const int len = pos + 1;
+  const int nc = (K + J - 1) / J * ((len + C - 1) / C);
+  const int buf_elems = J * C * D;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);  // buffer 0's, buffer 1's
+  T* q_s = reinterpret_cast<T*>(smem + 16);           // a row a beam
+  int2* pv_s = reinterpret_cast<int2*>(q_s + kg * D);  // a (row, weight) table a beam
+  T* const buf0 = reinterpret_cast<T*>(pv_s + kg * MAX_S);  // buffer 1 follows it
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int nh = blockIdx.x / groups, n = nh / H, h = nh % H;
+  const int g0 = blockIdx.x % groups * kg;
+  const bool live = warp < K - g0;  // the last group may have fewer beams than warps
+
+  // Stage t < nc is k's chunk t, stage nc + c is v's chunk c; it goes to
+  // buffer t % 2 (slot j's rows of the chunk contiguous, as in the cache)
+  // on that buffer's barrier.  Lane 0 of warp w copies the slots j = w mod
+  // warps and then arrives expecting the bytes it copied, so what a barrier
+  // waits for is always what was issued.
+  auto stage = [&](int t) {
+    const Chunk ch = chunk_of(t < nc ? t : t - nc, K, len, J, C);
+    const T* cache = t < nc ? kc : vc;
+    T* buf = buf0 + (t & 1) * buf_elems;
+    uint32_t total = 0;
+    for (int j = ch.j0 + warp; j < ch.j1; j += kg) {
+      const uint32_t bytes = (ch.s1 - ch.s0) * ROW;
+      bulk_copy(buf + (j - ch.j0) * C * D,
+                cache + ((((size_t)n * K + j) * H + h) * S + ch.s0) * D, bytes, &bar[t & 1]);
+      total += bytes;
+    }
+    mbar_expect(&bar[t & 1], total);
+  };
+  if (threadIdx.x == 0) {
+    mbar_init(&bar[0], kg);  // a phase: every warp's arrival and the bytes it expects
+    mbar_init(&bar[1], kg);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // warp w takes beam g0 + w, lane l its positions l and l + 32: the slot
+  // that holds each (its load in flight while the copies are issued), its
+  // score, then its weight
+  const int r = n * K + g0 + warp;
+  int a[2];
+  float x[2];
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const int s = lane + 32 * u;
+    a[u] = live && s < len ? anc[(size_t)r * S + s] : 0;
+    x[u] = -INFINITY;
+  }
+  __syncthreads();  // the barriers are initialised before any copy
+  if (lane == 0) {
+    stage(0);
+    stage(1);
+  }
+  if (live) copy2(q_s + warp * D + 2 * lane, q + (size_t)r * q_stride + h * D + 2 * lane);
+  __syncthreads();  // every beam's q is in place
+
+  float a0 = 0.f, a1 = 0.f;
+  for (int t = 0; t < 2 * nc; ++t) {
+    bulk_wait(&bar[t & 1], (t >> 1) & 1);  // stage t has landed
+    const Chunk ch = chunk_of(t < nc ? t : t - nc, K, len, J, C);
+    const T* buf = buf0 + (t & 1) * buf_elems;
+    if (live && t < nc) {
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int s = lane + 32 * u;
+        if (s >= ch.s0 && s < ch.s1 && a[u] >= ch.j0 && a[u] < ch.j1)
+          x[u] = row_dot(buf + ((a[u] - ch.j0) * C + s - ch.s0) * D, q_s + warp * D,
+                         lane & (PIECES - 1)) *
+                 scale;
+      }
+      if (t == nc - 1) {
+        // softmax over positions 0..pos in float32, weights rounded
+        const float m = warp_max(fmaxf(x[0], x[1]));
+        const float e0 = expf(x[0] - m), e1 = expf(x[1] - m);
+        const float sum = warp_sum(e0 + e1);
+        x[0] = to_f(from_f<T>(e0 / sum));
+        x[1] = to_f(from_f<T>(e1 / sum));
+      }
+    } else if (live) {
+      // lane l: values 2l, 2l + 1, summed over the chunk's positions in
+      // order, eight positions' rows in flight at a time; each position's
+      // staged row and weight first go to the warp's table (a position
+      // whose slot is in another chunk weighs 0 and names a staged row)
+      int2* pv = pv_s + warp * MAX_S;
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int s = lane + 32 * u;
+        const bool in = a[u] >= ch.j0 && a[u] < ch.j1;
+        if (s >= ch.s0 && s < ch.s1)
+          pv[s] = make_int2(((in ? a[u] - ch.j0 : 0) * C + s - ch.s0) * D,
+                            __float_as_int(in ? x[u] : 0.f));
+      }
+      __syncwarp();
+      for (int s8 = ch.s0; s8 < ch.s1; s8 += 8) {
+        float2 v[8];
+        float w[8];
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          const int2 e = pv[min(s8 + u, ch.s1 - 1)];
+          v[u] = load2(buf + e.x + 2 * lane);
+          w[u] = s8 + u < ch.s1 ? __int_as_float(e.y) : 0.f;
+        }
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          a0 = fmaf(w[u], v[u].x, a0);
+          a1 = fmaf(w[u], v[u].y, a1);
+        }
+      }
+      __syncwarp();  // the table is read before the next chunk's is written
+    }
+    if (t + 2 < 2 * nc) {
+      __syncthreads();  // buffer t % 2 is read: stage t + 2 may overwrite it
+      if (lane == 0) stage(t + 2);
+    }
+  }
+  if (live) store2(out + (size_t)r * out_stride + h * D + 2 * lane, a0, a1);
+}
 
 // Dynamic shared memory of the cross kernel: K and V as they lie in memory
 // (L x 64 each), then RG query rows and RG rows of L weights in float32.
@@ -274,40 +471,42 @@ beam_cross_kernel(const T* __restrict__ q, int q_stride, const T* __restrict__ m
   }
 }
 
-template <typename T>
-int launch_self(const void* q, int q_stride, const void* kc, const void* vc,
-                const int* anc, void* out, int out_stride, int R, int K, int H,
-                int S, int pos, float scale, cudaStream_t stream) {
-  const int jobs = R * H;
-  beam_self_kernel<T><<<(jobs + SELF_WARPS - 1) / SELF_WARPS, SELF_WARPS * 32, 0,
-                        stream>>>(
-      static_cast<const T*>(q), q_stride, static_cast<const T*>(kc),
-      static_cast<const T*>(vc), anc, static_cast<T*>(out), out_stride, R, K, H,
-      S, pos, scale);
-  return (int)cudaGetLastError();
-}
+constexpr int MAX_DEVICES = 64;
 
-// Raise the cross kernel's shared-memory ceiling to what L = MAX_L needs,
-// once per type and device.
-template <typename T>
-cudaError_t cross_ceiling() {
-  constexpr int MAX_DEVICES = 64;
-  static bool raised[MAX_DEVICES];
+// Raise `kernel`'s dynamic shared-memory ceiling to `bytes`, once per
+// device; `raised` is the kernel's record of the devices done.
+template <typename Kernel>
+cudaError_t raise_ceiling(Kernel kernel, int bytes, bool* raised) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < MAX_DEVICES && raised[dev]) return cudaSuccess;
-  err = cudaFuncSetAttribute(beam_cross_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)cross_smem<T>(MAX_L));
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err == cudaSuccess && dev < MAX_DEVICES) raised[dev] = true;
   return err;
+}
+
+template <typename T>
+int launch_self(const void* q, int q_stride, const void* kc, const void* vc,
+                const int* anc, void* out, int out_stride, int R, int K, int H,
+                int S, int pos, float scale, cudaStream_t stream) {
+  static bool raised[MAX_DEVICES];  // the ceiling is the whole budget, whatever the plan
+  const cudaError_t err = raise_ceiling(beam_self_kernel<T>, (int)SELF_SMEM, raised);
+  if (err != cudaSuccess) return (int)err;
+  const SelfPlan p = self_plan(K, pos + 1, sizeof(T));
+  beam_self_kernel<T><<<R / K * H * p.groups, p.kg * 32, p.smem, stream>>>(
+      static_cast<const T*>(q), q_stride, static_cast<const T*>(kc),
+      static_cast<const T*>(vc), anc, static_cast<T*>(out), out_stride, K, H, S,
+      pos, scale, p.kg, p.groups, p.slots, p.positions);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_cross(const void* q, int q_stride, const void* mk, const void* mv,
                  void* out, int out_stride, int N, int K, int H, int L,
                  float scale, cudaStream_t stream) {
-  const cudaError_t err = cross_ceiling<T>();
+  static bool raised[MAX_DEVICES];  // the ceiling is what L = MAX_L needs
+  const cudaError_t err = raise_ceiling(beam_cross_kernel<T>, (int)cross_smem<T>(MAX_L), raised);
   if (err != cudaSuccess) return (int)err;
   beam_cross_kernel<T><<<N * H, CROSS_THREADS, cross_smem<T>(L), stream>>>(
       static_cast<const T*>(q), q_stride, static_cast<const T*>(mk),
@@ -320,8 +519,9 @@ int launch_cross(const void* q, int q_stride, const void* mk, const void* mv,
 
 // dtype codes: 0 = float32, 1 = bfloat16 (q, the caches and out share one
 // type).  Strides are in elements and must be even, like every pointer's
-// offset (two values are loaded at once); the cross kernel's memory K and V
-// must be 16-byte aligned (bulk copies).  Both return a cudaError_t.
+// offset (two values are loaded at once); the self kernel's cache and the
+// cross kernel's memory K and V must be 16-byte aligned (16-byte and bulk
+// asynchronous copies).  Both return a cudaError_t.
 extern "C" int ic_beam_self_attention(int dtype, const void* q, int q_stride,
                                       const void* kc, const void* vc,
                                       const void* anc, void* out, int out_stride,
@@ -329,7 +529,8 @@ extern "C" int ic_beam_self_attention(int dtype, const void* q, int q_stride,
                                       float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (S > MAX_S || pos < 0 || pos >= S || K <= 0 || R % K != 0 ||
-      q_stride % 2 != 0 || out_stride % 2 != 0)
+      q_stride % 2 != 0 || out_stride % 2 != 0 ||
+      reinterpret_cast<uintptr_t>(kc) % 16 || reinterpret_cast<uintptr_t>(vc) % 16)
     return (int)cudaErrorInvalidValue;
   const int* a = static_cast<const int*>(anc);
   if (dtype == 0)
@@ -339,6 +540,22 @@ extern "C" int ic_beam_self_attention(int dtype, const void* q, int q_stride,
     return launch_self<__nv_bfloat16>(q, q_stride, kc, vc, a, out, out_stride,
                                       R, K, H, S, pos, scale, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// The self kernel's plan for K beams at position pos: out[0..5] = beams a
+// block, blocks a head and image, slots and positions a chunk, chunks,
+// dynamic shared bytes a block.  Returns a cudaError_t.
+extern "C" int ic_beam_self_plan(int dtype, int K, int pos, long long* out) {
+  if (K <= 0 || pos < 0 || pos >= MAX_S || (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  const SelfPlan p = self_plan(K, pos + 1, dtype == 0 ? sizeof(float) : sizeof(__nv_bfloat16));
+  out[0] = p.kg;
+  out[1] = p.groups;
+  out[2] = p.slots;
+  out[3] = p.positions;
+  out[4] = p.chunks;
+  out[5] = (long long)p.smem;
+  return 0;
 }
 
 extern "C" int ic_beam_cross_attention(int dtype, const void* q, int q_stride,

@@ -15,7 +15,9 @@ the product with v, the context accumulates in float32, and the output
 ``beam_self_attention`` and ``beam_cross_attention`` dispatch on the device:
 a CPU tensor takes the plain version, a CUDA tensor the kernel in
 ``csrc/beam_attention.cu`` (hd = 64, S <= 64, L <= 256, float32 or bfloat16,
-the memory 16-byte aligned), which raises on anything it does not take.
+the cache and the memory 16-byte aligned), which raises on anything it does
+not take.  The self kernel takes any K: ``self_plan`` says how a launch is
+cut into blocks and chunks of staged rows.
 The kernels read q through its row stride, so q may be a column block of a
 packed projection.  Serving only: no gradient, as in the JAX package.
 """
@@ -33,6 +35,8 @@ from imagecaptioner_tpu_torch.ops.attention import attention_core_plain
 HEAD_DIM = 64
 MAX_S = 64     # cache positions the self kernel takes
 MAX_L = 256    # memory tokens the cross kernel takes
+MAX_KG = 8     # beams a block of the self kernel (a warp each)
+SELF_SMEM = 232448  # the H100's opt-in shared memory a block, the self budget
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SCALE = 1.0 / HEAD_DIM ** 0.5
 
@@ -54,6 +58,39 @@ def _kernels():
             fn.restype = ctypes.c_int
         _KERNELS = lib, fns
     return _KERNELS
+
+
+def self_plan(K: int, pos: int, dtype: torch.dtype) -> Dict[str, int]:
+    """How the self kernel cuts a launch (``csrc/beam_attention.cu``
+    ``self_plan``): ``beams`` a block (an image's K beams in ``groups``
+    blocks a head), its k and v rows staged in ``chunks`` of ``slots`` slots
+    x ``positions`` positions, and the dynamic shared ``smem`` bytes a
+    block: two mbarriers, the beams' q rows, a table of 64 (row, weight)
+    pairs a beam and two buffers of slots x positions rows."""
+    item = torch.tensor([], dtype=dtype).element_size()
+    length = pos + 1
+    kg = min(K, MAX_KG)
+    fixed = 16 + kg * (HEAD_DIM * item + MAX_S * 8)
+    pair = 2 * HEAD_DIM * item
+    rows = (SELF_SMEM - fixed) // pair
+    slots = min(K, rows)
+    positions = min(length, rows // slots)
+    return dict(beams=kg, groups=-(-K // kg), slots=slots, positions=positions,
+                chunks=-(-K // slots) * -(-length // positions),
+                smem=fixed + pair * slots * positions)
+
+
+def self_plan_built(K: int, pos: int, dtype: torch.dtype) -> Dict[str, int]:
+    """The built library's own plan (``ic_beam_self_plan``), with the keys
+    of ``self_plan``: the two must agree.  A check, not a launch path."""
+    lib = _kernels()[0]
+    fn = lib.ic_beam_self_plan
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_longlong * 6)()
+    _build.check(lib, fn(_DTYPES[dtype], K, pos, out), "beam_self_plan")
+    return dict(zip(("beams", "groups", "slots", "positions", "chunks",
+                     "smem"), out))
 
 
 def beam_self_attention_plain(q: torch.Tensor, kv: Dict[str, torch.Tensor],
@@ -145,6 +182,9 @@ def beam_self_attention_cuda(q: torch.Tensor, kv: Dict[str, torch.Tensor],
     if not 0 <= pos < S or S > MAX_S:
         raise ValueError(f"kernel takes 0 <= pos < S <= {MAX_S}; got "
                          f"pos={pos}, S={S}")
+    if kv["k"].data_ptr() % 16 or kv["v"].data_ptr() % 16:
+        raise ValueError("kv must be 16-byte aligned: the kernel stages the "
+                         "cache rows by 16-byte asynchronous copies")
     out = torch.empty((R, 1, E), dtype=q.dtype, device=q.device)
     lib, fns = _kernels()
     err = _build.call_on(q.device, fns["self"], _DTYPES[q.dtype], q.data_ptr(),

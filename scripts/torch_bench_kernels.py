@@ -76,9 +76,16 @@ def main() -> int:
         CS.print_scan_times(CS.time_scan(kept), CS.scan_bounds(kept))
     if "beam" in picked:
         CS.check_beam_attention(dev)
+        print(f"  beam_attention ptxas: "
+              f"{CS.ptxas_usage('beam_attention', 'beam_self_kernel')} (self), "
+              f"{CS.ptxas_usage('beam_attention', 'beam_cross_kernel')} "
+              f"(cross)", flush=True)
         for tag, t in CS.time_beam_attention(dev).items():
             print(f"beam attention N={CS.BEAM_B} {tag}: self {t['self_ms']:.4f}"
-                  f" ms per call, {t['self_queued_ms']:.4f} queued; cross "
+                  f" ms per call, {t['self_queued_ms']:.4f} queued (all-slots "
+                  f"SDPA {t['self_sdpa_ms']:.4f}, {t['self_sdpa_queued_ms']:.4f}"
+                  f"; plain {t['self_plain_ms']:.4f}; bound "
+                  f"{t['bounds']['self'][0]:.5f}); cross "
                   f"{t['cross_ms']:.4f} per call, {t['cross_queued_ms']:.4f} "
                   f"queued (SDPA {t['cross_sdpa_ms']:.4f}, "
                   f"{t['cross_sdpa_queued_ms']:.4f}; plain "

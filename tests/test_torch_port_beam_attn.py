@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import beam_ancestry
 from imagecaptioner_tpu.models import transformer as JTD
 from imagecaptioner_tpu.ops import pallas_beam_attn as JBA
 from imagecaptioner_tpu_torch.ops import beam_attn as BA
@@ -51,12 +52,23 @@ def _np(t):
     return t.float().numpy()
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("pos", [0, 5, S - 1])
-@pytest.mark.parametrize("k", [3, 5])
-def test_self_attention_plain_matches_pallas_and_xla(k, pos, dtype):
+# (k, pos, dtype, ancestry table): random tables at every position, and
+# tables built step by step as the beam search builds them ("lineage") or
+# converged to one slot a position, as the card's checks use them
+SELF_CASES = [(k, pos, dtype, "random") for k in (3, 5) for pos in (0, 5, S - 1)
+              for dtype in ("float32", "bfloat16")]
+SELF_CASES += [(k, S - 1, dtype, table) for table in ("lineage", "converged")
+               for k in (3, 5) for dtype in ("float32", "bfloat16")]
+
+
+@pytest.mark.parametrize(
+    "k,pos,dtype,table", SELF_CASES,
+    ids=[f"{k}-{p}-{d}" + ("" if t == "random" else f"-{t}")
+         for k, p, d, t in SELF_CASES])
+def test_self_attention_plain_matches_pallas_and_xla(k, pos, dtype, table):
     o = _operands(k)
-    anc = _anc_at(o["anc"], pos)
+    anc = (_anc_at(o["anc"], pos) if table == "random" else beam_ancestry(
+        np.random.default_rng(7), N, k, S, pos, table))
     jkv = {"k": _j(o["k"], dtype), "v": _j(o["v"], dtype)}
     ker = JBA.fused_beam_self_attention(
         _j(o["q"], dtype), jkv, jnp.asarray(anc), jnp.int32(pos), num_heads=H,
@@ -211,7 +223,8 @@ def test_entry_points_are_typed_on_the_first_launch_only(monkeypatch):
 
 def test_wrappers_name_the_limits_they_refuse(monkeypatch):
     """With the device check stubbed off, each refusal names its limit:
-    hd = 64, L <= 256, 16-byte aligned memory (bulk copies), S <= 64."""
+    hd = 64, L <= 256, 16-byte aligned memory and cache (bulk copies),
+    S <= 64."""
     stub_launches(monkeypatch, BA, "_KERNELS",
                   ("ic_beam_self_attention", "ic_beam_cross_attention"))
     d = BA.HEAD_DIM
@@ -233,4 +246,39 @@ def test_wrappers_name_the_limits_they_refuse(monkeypatch):
     anc = torch.zeros(N, K, big, dtype=torch.int32)
     with pytest.raises(ValueError, match="S <= 64"):
         BA.beam_self_attention_cuda(q, kv, anc, 0, num_heads=H)
+    flat = torch.zeros(R * H * S * d + 1)
+    kv = {"k": flat[1:].view(R, H, S, d), "v": torch.zeros(R, H, S, d)}
+    with pytest.raises(ValueError, match="kv must be 16-byte aligned"):
+        BA.beam_self_attention_cuda(q, kv, torch.zeros(N, K, S, dtype=torch.int32),
+                                    0, num_heads=H)
     assert BA.launches_self == 0 and BA.launches_cross == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_self_plan_fits_the_budget_and_chunks_only_what_does_not_fit(dtype):
+    """The self kernel's plan (mirrored from ``csrc/beam_attention.cu``,
+    which ``chip_smoke.py`` holds it against): every shape fits the shared
+    memory budget; the serving shape (K=5, pos=19) and K=5 at the longest
+    cache stage every row in one chunk; K=10 at pos=63 needs two chunks of
+    positions at float32 and one at bf16; beams beyond 8 go to more blocks;
+    a K whose slots do not fit one position still gets a plan."""
+    item = torch.tensor([], dtype=dtype).element_size()
+    for K in (1, 2, 5, 8, 9, 10, 64, 500, 1000):
+        for pos in (0, 19, BA.MAX_S - 1):
+            p = BA.self_plan(K, pos, dtype)
+            assert p["smem"] <= BA.SELF_SMEM
+            assert p["beams"] == min(K, BA.MAX_KG)
+            assert p["groups"] * p["beams"] >= K > (p["groups"] - 1) * p["beams"]
+            assert p["slots"] * p["positions"] * 2 * BA.HEAD_DIM * item \
+                <= p["smem"]
+            assert p["chunks"] == -(-K // p["slots"]) * -(-(pos + 1)
+                                                         // p["positions"])
+    main = BA.self_plan(5, 19, dtype)
+    assert (main["beams"], main["groups"], main["slots"], main["positions"],
+            main["chunks"]) == (5, 1, 5, 20, 1)
+    assert BA.self_plan(5, BA.MAX_S - 1, dtype)["chunks"] == 1
+    long = BA.self_plan(10, BA.MAX_S - 1, dtype)
+    assert long["groups"] == 2 and long["slots"] == 10
+    assert long["chunks"] == (2 if dtype == torch.float32 else 1)
+    huge = BA.self_plan(1000, 5, dtype)
+    assert huge["slots"] < 1000 and huge["positions"] == 1
