@@ -40,11 +40,11 @@ Imports nothing of JAX.  In order it:
      the all-plain CPU path on 4 images;
   8. drives the training path: a ViT-S/16 teacher from a numpy seed written
      as a JAX-format checkpoint, the in-memory grid data, and
-     ``train_student_with_kd`` for 3 optimizer steps (A=2 x B=16, T=47, bf16
-     compute, dropout 0.3, ``KD_TRAIN_AUG``) with its preflight and
-     validation pass; then one float32 step on the card against the same
-     step on the CPU with the plain versions (dropout off, augmentation off,
-     B=4).  Each path's launch counts are set to 0 just before it and read
+     ``train_student_with_kd_on_loaders`` for 3 optimizer steps (A=2 x
+     B=16, T=47, bf16 compute, dropout 0.3, ``KD_TRAIN_AUG``) with its
+     preflight and validation pass; then one float32 step on the card
+     against the same step on the CPU with the plain versions (dropout off,
+     augmentation off, B=4).  Each path's launch counts are set to 0 just before it and read
      just after;
   9. holds the two beam-step attention kernels against their plain versions
      at the teacher's full width (N=16 and 32 images, K=5 beams, 8 heads,
@@ -64,22 +64,42 @@ Imports nothing of JAX.  In order it:
      all-plain CPU path on 4 images, the bf16 kernel path against the
      all-plain path on the card; packs of 8, 16 and 32 images and the cost of
      the early-exit read are timed;
- 11. the compact student (MobileNetV2, E=H=256, L=49): holds the attention
+ 11. drives the disk pipeline at full width: 96 grid images written as
+     binary PPM with a Flickr8k-shaped ``captions_clean.csv`` (5 rows an
+     image and 2 rows naming missing files, built so that the vocabulary
+     at the trainer's threshold has exactly 2,994 tokens and T=47); times
+     the loader's cold (decode) and warm (cache) epochs;
+     ``train_student_with_kd(data_root, ...)`` for 3 steps (bf16 compute,
+     float32 teacher) with its metric log, which must launch #2, #4/#5 and
+     #6, take 3 steps, log 3 finite records and land the asynchronously
+     written best checkpoint before it returns; a resume from that
+     checkpoint for a second epoch (steps 3 -> 6, epoch 1 in the log,
+     frozen parameters equal to the checkpoint's bit for bit, every
+     trainable group moved); the student and teacher evaluators on the
+     trained student (32 and 16 rows, float32), whose reports must caption
+     every image (no failure absorbed by the per-image fallback), hold only
+     finite numbers and launch #1, #2, #9 and #10; then, on a sharpened
+     student and teacher, the batched greedy kernel (B=16) against the
+     per-image one (B=1) on 8 images, the packed beam against the
+     per-image beam on 4, and the card's report captions against the same
+     evaluators on the CPU on 4 images (3 of 4 rows each), rows differing;
+ 12. the compact student (MobileNetV2, E=H=256, L=49): holds the attention
      kernel against plain at the enhanced refinement's shape (B=16, 8 heads,
      64x64, hd=48); the compact scan kernel against plain at T=47, B=16 (h,
      attn, c; float32 and bf16) and, under autograd, its gradients; serves 8
      batches of 32 images in bf16 through ``make_greedy_captioner`` (the
      compact greedy kernel) and holds float32 card against CPU on 4 images;
      holds the compact greedy kernel against plain at B=32, T=20 (float32
-     token-identical, bf16 31 of 32 rows); runs ``train_student_with_kd
-     (student_variant="compact")`` for 3 optimizer steps, times 4 more, and
-     compares one float32 step card against CPU; 20 more runs of each
+     token-identical, bf16 31 of 32 rows); runs
+     ``train_student_with_kd_on_loaders(student_variant="compact")`` for 3
+     optimizer steps, times 4 more, and compares one float32 step card
+     against CPU; 20 more runs of each
      compact kernel at each dtype bit-identical to the first; then the
      compact greedy kernel at B=40 (two chunks, the second of 8 rows) and
      B=5 and the compact scan at B=24 (two chunks of 16 and 8) and B=5,
      against their plain versions with the same limits, each chunked launch
      against a launch per chunk bit for bit;
- 12. the enhanced student (EfficientNet-B3, E=384, H=768, L=64): holds the
+ 13. the enhanced student (EfficientNet-B3, E=384, H=768, L=64): holds the
      enhanced scan kernel against plain at T=47, B=16 with and without
      dropout multipliers (rates 0.1 and 0.15), all eight outputs, float32 and
      bf16 (20 more runs of each bit-identical to the first), and its
@@ -90,13 +110,13 @@ Imports nothing of JAX.  In order it:
      the refinement) and holds float32 card against CPU, on 4 images and on
      the loop alone with features drawn per row; runs the KD trainer for 3
      steps, times 4 more, compares one float32 step card against CPU;
- 13. prints kernel, plain and library times (CUDA events, median after
+ 14. prints kernel, plain and library times (CUDA events, median after
      warm-up), each kernel's bound, the chain floor of the six cooperative
      kernels (#1, #3, #4/#5, #6, #7, #8: the median of 2,000 empty grid
      barriers at the chain's grid times the barriers a run crosses), ptxas'
      registers and spills for them and for #9 (with #9's launch plan), and
      the end-to-end rates;
- 14. prints the kernels JSON line, the nvidia-smi line, and last
+ 15. prints the kernels JSON line, the nvidia-smi line, and last
      ``{"ok": true, "device": {...}}``.
 Any failed check exits non-zero before the last line.  ``--mutation`` builds
 eleven faulty copies (a scan backward without its dropout mask, a beam
@@ -140,9 +160,14 @@ from imagecaptioner_tpu_torch.core.config import (STUDENT_CONFIGS,
                                                   enhanced_student_config,
                                                   full_student_config)
 from imagecaptioner_tpu_torch.data import transforms as T
-from imagecaptioner_tpu_torch.data.synthetic import make_grid_loaders
+from imagecaptioner_tpu_torch.data.dataset import CaptionDataset, write_ppm
+from imagecaptioner_tpu_torch.data.loader import BatchLoader
+from imagecaptioner_tpu_torch.data.synthetic import (make_grid_dataset,
+                                                     make_grid_loaders)
 from imagecaptioner_tpu_torch.data.vocabulary import (END, PAD, SPECIALS,
                                                       START, Vocabulary)
+from imagecaptioner_tpu_torch.eval import evaluate_student as EVS
+from imagecaptioner_tpu_torch.eval import evaluate_teacher as EVT
 from imagecaptioner_tpu_torch.eval import serve
 from imagecaptioner_tpu_torch.distill.projector import (
     create_feature_projectors, make_projectors)
@@ -1419,7 +1444,8 @@ def zero_counters():
 
 
 def run_kd(dev, tmp, variant="full"):
-    """The training path at full width through ``train_student_with_kd``;
+    """The training path at full width through
+    ``train_student_with_kd_on_loaders`` on the in-memory grid data;
     returns (launch counts, trained state, student config, teacher
     checkpoint path, train loader)."""
     train_loader, val_loader, vocab = make_grid_loaders(
@@ -1437,7 +1463,7 @@ def run_kd(dev, tmp, variant="full"):
     torch.cuda.synchronize()
     zero_counters()
     t0 = time.perf_counter()
-    state, s_cfg, _ = TK.train_student_with_kd(
+    state, s_cfg, _ = TK.train_student_with_kd_on_loaders(
         train_loader, val_loader, vocab, ckpt, out, num_epochs=1,
         compute_dtype=torch.bfloat16, seed=SEED, device=dev, verbose=False,
         student_variant=variant, data_parallel=False)
@@ -1468,17 +1494,7 @@ def run_kd(dev, tmp, variant="full"):
     # (the compact student has no refinement: its "others" are the projectors)
     p0, s0 = student_init(SEED, s_cfg)
     start = CV.jax_student_to_state_dict(p0, s0, s_cfg)
-    moved, frozen = {"encoder": 0, "decoder": 0}, 0
-    for name, q in state.student.named_parameters():
-        same = torch.equal(q.detach().cpu(), start[name])
-        if not q.requires_grad:
-            frozen += 1
-            if not same:
-                fail(f"frozen parameter {name} moved")
-            continue
-        group = name.split(".")[0]
-        group = group if group in moved else "others"
-        moved[group] = moved.get(group, 0) + int(not same)
+    moved, frozen = moved_groups(state.student, start)
     first_bn = next(n for n, _ in state.student.named_buffers()
                     if n.endswith("running_mean"))
     stats_moved = not torch.equal(
@@ -2159,7 +2175,7 @@ def check_enhanced_loop(model32, dev):
 
 
 def run_variant_kd(dev, tmp, variant):
-    """3 optimizer steps of ``train_student_with_kd`` at full width, a few
+    """3 optimizer steps of ``train_student_with_kd_on_loaders`` at full width, a few
     timed steps, and one float32 step card against CPU, for a variant.
     Returns (launch counts, images/s, per-step seconds)."""
     launches, state, s_cfg, ckpt, loader = run_kd(dev, tmp, variant)
@@ -2185,6 +2201,277 @@ def compare_card_cpu(both, variant):
         if not ok:
             fail(f"the card's float32 {variant} KD step disagrees with the "
                  "CPU's")
+
+
+# ---------------------------------------------------------------------------
+# The disk pipeline: CSV/PPM dataset -> trainer -> resume -> evaluators
+# ---------------------------------------------------------------------------
+
+DISK_IMAGES, DISK_CAPTIONS, DISK_MISSING = 96, 5, 2   # Flickr8k: 5 per image
+DISK_SIZE, DISK_STEPS, DISK_MAX_WORDS = 224, 3, 46     # 46 words: T = 47
+
+
+def write_disk_dataset(root: str) -> str:
+    """96 grid images as binary PPM under ``root/Images`` and a
+    ``captions_clean.csv`` of 5 rows an image plus 2 rows naming missing
+    files, whose vocabulary at the trainer's threshold (5) has exactly
+    ``VOCAB`` tokens: each caption is the image's grid caption followed by
+    filler words, every filler word used 5 times.  Returns the CSV path."""
+    images, grid_caps = make_grid_dataset(DISK_IMAGES, image_size=DISK_SIZE,
+                                          seed=SEED + 21)
+    os.makedirs(os.path.join(root, "Images"))
+    names = [f"img_{i:04d}.ppm" for i in range(DISK_IMAGES)]
+    for name, im in zip(names, images):
+        write_ppm(os.path.join(root, "Images", name), im)
+    rows = [(n, c) for n, c in zip(names, grid_caps)
+            for _ in range(DISK_CAPTIONS)]
+    rows += [(f"missing_{i}.ppm", "") for i in range(DISK_MISSING)]
+    grid_words = {w for c in grid_caps for w in c.split()}
+    fill = [f"w{i:04d}" for i in range(VOCAB - len(SPECIALS) - len(grid_words))]
+    tokens = fill * 5
+    per_row = -(-len(tokens) // len(rows))
+    lines = ["image,caption"]
+    for k, (name, cap) in enumerate(rows):
+        words = cap.split() + tokens[k * per_row:(k + 1) * per_row]
+        lines.append(f"{name},{' '.join(words)}")
+    csv_path = os.path.join(root, "captions_clean.csv")
+    with open(csv_path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    ds = CaptionDataset(root, csv_path)
+    longest = max(len(c.split()) for c in ds.captions)
+    if len(ds.vocab) != VOCAB or longest > DISK_MAX_WORDS:
+        fail(f"the disk dataset has V={len(ds.vocab)} (want {VOCAB}) and "
+             f"captions of up to {longest} words (want <= {DISK_MAX_WORDS})")
+    return csv_path
+
+
+def loader_rates(root: str, csv_path: str) -> dict:
+    """Rows a second of the loader's cold epoch (PPM decode in the thread
+    pool) and warm epoch (the RAM cache), batches of 16, host clock."""
+    loader = BatchLoader(CaptionDataset(root, csv_path, image_size=DISK_SIZE),
+                         batch_size=KD_B, shuffle=False)
+    rates = {}
+    for tag in ("cold", "warm"):
+        t0 = time.perf_counter()
+        n = sum(len(b["lengths"]) for b in loader)
+        rates[tag] = n / (time.perf_counter() - t0)
+    return rates
+
+
+def moved_groups(student, reference: dict) -> tuple:
+    """Trainable parameters that moved from ``reference``, counted by group
+    (encoder, decoder, others), and the frozen ones that did not move."""
+    moved, frozen = {"encoder": 0, "decoder": 0}, 0
+    for name, q in student.named_parameters():
+        same = torch.equal(q.detach().cpu(), reference[name])
+        if not q.requires_grad:
+            frozen += 1
+            if not same:
+                fail(f"frozen parameter {name} moved")
+            continue
+        group = name.split(".")[0]
+        group = group if group in moved else "others"
+        moved[group] = moved.get(group, 0) + int(not same)
+    return moved, frozen
+
+
+def metric_records(path: str) -> list:
+    recs = [json.loads(line) for line in open(path).read().splitlines()]
+    if not all(np.isfinite([v for k, v in r.items() if k != "epoch"]).all()
+               for r in recs):
+        fail(f"a per-step metric record is not finite: {recs}")
+    return recs
+
+
+def finite_numbers(report, where: str) -> int:
+    """Fail on a non-finite number anywhere in a report; count the None
+    ratios (a zero denominator) to print them."""
+    nones = 0
+    stack = [report]
+    while stack:
+        x = stack.pop()
+        if isinstance(x, dict):
+            stack.extend(x.values())
+        elif isinstance(x, (list, tuple)):
+            stack.extend(x)
+        elif x is None:
+            nones += 1
+        elif isinstance(x, (int, float)) and not math.isfinite(x):
+            fail(f"{where} holds a non-finite number: {x}")
+    return nones
+
+
+def check_reports(student_rep: dict, teacher_rep: dict, n_student: int,
+                  n_teacher: int) -> None:
+    """Every image captioned by both models in both reports (no failure is
+    absorbed by the per-image fallback), finite numbers throughout."""
+    failures = {m: round(n_student * (1 - student_rep[m]["success_rate"]))
+                for m in ("student", "teacher")}
+    failures["teacher report"] = teacher_rep["num_samples"] - n_teacher
+    rates = [student_rep[m]["success_rate"] for m in ("student", "teacher")]
+    rates.append(teacher_rep["success_rate"])
+    nones = finite_numbers(student_rep, "the comparison report") \
+        + finite_numbers(teacher_rep, "the teacher report")
+    s, t = student_rep["student"], student_rep["teacher"]
+    print(f"disk evaluators: failures {failures}, success rates {rates}; "
+          f"student BLEU-1 {s['bleu1']:.4f} METEOR {s['meteor']:.4f}, teacher "
+          f"BLEU-1 {t['bleu1']:.4f} METEOR {t['meteor']:.4f}; summary "
+          f"{student_rep['summary']} ({nones} ratios None: a zero "
+          f"denominator)", flush=True)
+    if any(failures.values()) or rates != [1.0, 1.0, 1.0] \
+            or student_rep["num_samples"] != n_student:
+        fail("an evaluator lost an image to its per-image fallback")
+    if not (s["avg_inference_time_s"] and t["avg_inference_time_s"]):
+        fail("the comparison report has no latency")
+
+
+def check_evaluator_rows(dev, tmp, root, csv_path, vocab_path) -> None:
+    """Float32 rows on a sharpened student and teacher (written as the
+    serving phases write them): the batched greedy kernel (B=16) against
+    the per-image one (B=1) on 8 images, the packed beam against the
+    per-image beam on 4, and the card's report captions against the same
+    evaluator on the CPU (all plain versions) on 4 images."""
+    s_ckpt, t_ckpt = write_student(tmp, "full"), os.path.join(tmp, "bt.npz")
+    write_beam_teacher(t_ckpt)
+    ev = EVS.load_student_evaluator(s_ckpt, t_ckpt, vocab_path, device=dev)
+    ds = CaptionDataset(root, csv_path, vocab=ev.vocab, image_size=DISK_SIZE)
+    images = EVT.to_images(np.stack([ds.load_image(DISK_CAPTIONS * i)
+                                    for i in range(KD_B)]), dev, torch.float32)
+    batched = ev.student_captions_batch(images)
+    single = [ev.student_caption(images[i:i + 1]) for i in range(8)]
+    packed = ev.teacher_captions_batch(images[:4])
+    beams = [ev.teacher_caption(images[i:i + 1]) for i in range(4)]
+    ds.select([DISK_CAPTIONS * i for i in range(4)])
+    kw = dict(max_samples=4, measure_latency_samples=0, verbose=False)
+    card = ev.compare_models_on_dataset(ds, **kw)["comparisons"]
+    cpu = EVS.load_student_evaluator(s_ckpt, t_ckpt, vocab_path, device="cpu"
+                                    ).compare_models_on_dataset(ds, **kw)
+    agree = {m: sum(a[m] == b[m] for a, b in zip(card, cpu["comparisons"]))
+             for m in ("student", "teacher")}
+    distinct = {"student": len(set(batched)), "teacher": len(set(packed))}
+    ok = (batched[:8] == single and packed == beams
+          and min(agree.values()) >= 3 and min(distinct.values()) > 1)
+    print(f"disk evaluator rows fp32: greedy B=16 vs B=1 "
+          f"{sum(a == b for a, b in zip(batched, single))}/8 identical, "
+          f"packed vs per-image beam "
+          f"{sum(a == b for a, b in zip(packed, beams))}/4, card vs CPU "
+          f"report captions {agree} of 4 (need 3); distinct captions "
+          f"{distinct}; e.g. student {batched[0][:60]!r}, teacher "
+          f"{packed[0][:60]!r} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail("the evaluators' captions disagree across batch sizes or with "
+             "the CPU, or have no power")
+
+
+def run_disk_pipeline(dev, tmp, smi):
+    """The disk pipeline at full width: a Flickr8k-shaped CSV/PPM dataset,
+    ``train_student_with_kd(data_root, ...)`` for 3 steps with the metric
+    log, a resume for a second epoch, and both evaluators on the trained
+    student.  Returns the launch counts of its three runs and its times."""
+    root = os.path.join(tmp, "flickr")
+    csv_path = write_disk_dataset(root)
+    rates = loader_rates(root, csv_path)
+    t_ckpt = os.path.join(tmp, "teacher.npz")
+    t_cfg = TeacherConfig(vocab_size=VOCAB)
+    mc = dataclasses.asdict(t_cfg)
+    mc.pop("vocab_size")
+    save_checkpoint(t_ckpt, {
+        "model_state_dict": {"params": teacher_init(SEED + 3, t_cfg)},
+        "vocab_size": VOCAB, "model_config": mc})
+    out, log = os.path.join(tmp, "disk_out"), os.path.join(tmp, "m.jsonl")
+    kw = dict(num_epochs=1, max_steps_per_epoch=DISK_STEPS, metrics_jsonl=log,
+              compute_dtype=torch.bfloat16, seed=SEED, device=dev,
+              verbose=False, data_parallel=False, image_size=DISK_SIZE)
+
+    torch.cuda.synchronize()
+    zero_counters()
+    t0 = time.perf_counter()
+    state, s_cfg, vocab = TK.train_student_with_kd(root, csv_path, t_ckpt,
+                                                   out, **kw)
+    best = os.path.join(out, "best_student_model.npz")
+    landed = os.path.exists(best)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train = kd_counters("full")
+    recs = metric_records(log)
+    hist = json.load(open(os.path.join(out, "student_training_history.json")))
+    numbers = [*hist["train_losses"], *hist["val_losses"],
+               *(v for vs in hist["loss_components"].values() for v in vs)]
+    print(f"disk train: V={len(vocab)}, {len(recs)} metric records, step "
+          f"{state.opt_state.step}, best checkpoint landed {landed}, launches "
+          f"{train}; train loss {hist['train_losses']}, val loss "
+          f"{hist['val_losses']} ({train_s:.2f} s with the preflight, "
+          f"{DISK_STEPS} steps of {KD_A} x {KD_B}, the validation pass over "
+          f"30 batches and the checkpoints)", flush=True)
+    if min(train.values()) < 1:
+        fail(f"a kernel of the disk training run was not launched: {train}")
+    if state.opt_state.step != DISK_STEPS or len(recs) != DISK_STEPS \
+            or not landed or not numbers or not np.isfinite(numbers).all() \
+            or len(vocab) != VOCAB:
+        fail("the disk training run did not take its steps, log them, land "
+             "its best checkpoint or keep its history finite")
+
+    ck = load_checkpoint(best)
+    sd = ck["student_state_dict"]
+    at_best = CV.jax_student_to_state_dict(sd["params"], sd["model_state"],
+                                           s_cfg)
+    zero_counters()
+    t0 = time.perf_counter()
+    state, _, _ = TK.train_student_with_kd(
+        root, csv_path, t_ckpt, os.path.join(tmp, "disk_resumed"),
+        resume_from=best, **dict(kw, num_epochs=2))
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t0
+    resume = kd_counters("full")
+    new = metric_records(log)[DISK_STEPS:]
+    moved, frozen = moved_groups(state.student, at_best)
+    print(f"disk resume: from step {int(ck['optimizer_state_dict']['step'])} "
+          f"at epoch {int(ck['epoch'])} to step {state.opt_state.step}; new "
+          f"records at epochs {sorted({r['epoch'] for r in new})}, steps "
+          f"{[r['step'] for r in new]}; moved per group {moved}, {frozen} "
+          f"frozen ones equal the checkpoint's; launches {resume} "
+          f"({resume_s:.2f} s)", flush=True)
+    if int(ck["optimizer_state_dict"]["step"]) != DISK_STEPS \
+            or state.opt_state.step != 2 * DISK_STEPS or len(new) != DISK_STEPS \
+            or any(r["epoch"] != 1 for r in new) or min(moved.values()) < 1 \
+            or frozen < 1 or min(resume[k] for k in resume
+                                 if k != "decoder_scan") < 1:
+        fail("the resumed run did not go on from the checkpoint")
+
+    vocab_path = os.path.join(out, "vocab.json")
+    ev = EVS.load_student_evaluator(best, t_ckpt, vocab_path, device=dev)
+    ds = CaptionDataset(root, csv_path, vocab=ev.vocab, image_size=DISK_SIZE)
+    torch.cuda.synchronize()
+    zero_counters()
+    student_rep = ev.generate_comparison_report(
+        ds, os.path.join(tmp, "student_vs_teacher_report.json"),
+        max_samples=2 * KD_B, eval_batch=KD_B, measure_latency_samples=2,
+        verbose=False)
+    teacher_rep = EVT.load_teacher_evaluator(t_ckpt, vocab_path, device=dev
+                                            ).generate_report(
+        ds, os.path.join(tmp, "evaluation_report.json"), max_samples=KD_B,
+        verbose=False)
+    evaluate = {"greedy_decode": G.launches, "attention_core": A.launches,
+                "beam_self_attention": BA.launches_self,
+                "beam_cross_attention": BA.launches_cross}
+    print(f"disk evaluators launches: {evaluate}", flush=True)
+    if min(evaluate.values()) < 1:
+        fail(f"a kernel of the evaluators was not launched: {evaluate}")
+    check_reports(student_rep, teacher_rep, 2 * KD_B, KD_B)
+    check_evaluator_rows(dev, tmp, root, csv_path, vocab_path)
+    times = dict(train_s=train_s, resume_s=resume_s,
+                 student_latency_s=student_rep["student"]["avg_inference_time_s"],
+                 teacher_latency_s=student_rep["teacher"]["avg_inference_time_s"],
+                 loader_cold_images_per_s=rates["cold"],
+                 loader_warm_images_per_s=rates["warm"])
+    print(f"disk pipeline times ({smi}): train {train_s:.3f} s, resume "
+          f"{resume_s:.3f} s; evaluator latency a image: student "
+          f"{1e3 * times['student_latency_s']:.3f} ms, teacher "
+          f"{1e3 * times['teacher_latency_s']:.3f} ms (float32, B=1, host "
+          f"clock to tokens on the host); loader {rates['cold']:.1f} images/s "
+          f"cold (PPM decode), {rates['warm']:.1f} warm (cache), batches of "
+          f"{KD_B}", flush=True)
+    return {"train": train, "resume": resume, "evaluate": evaluate}, times
 
 
 def forget_libraries() -> None:
@@ -2454,7 +2741,7 @@ def main() -> int:
     if not ok:
         fail("the card's float32 path disagrees with the CPU reference")
 
-    # --- 8. the training path: train_student_with_kd at full width --------
+    # --- 8. the training path: the KD trainer at full width ---------------
     with tempfile.TemporaryDirectory() as tmp:
         kd_launches, kd_state, s_cfg, t_ckpt, kd_loader = run_kd(dev, tmp)
         step_s = time_kd_steps(dev, kd_state, s_cfg, t_ckpt, kd_loader)
@@ -2474,7 +2761,15 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         beam_launches, beam_rates, beam_split = run_beam(dev, tmp)
 
-    # --- 11. the compact student: kernels #3 and #7, serving, KD ------------
+    # --- 11. the disk pipeline: CSV/PPM data, trainer, resume, evaluators ----
+    with tempfile.TemporaryDirectory() as tmp:
+        disk_launches, disk_times = run_disk_pipeline(dev, tmp, smi)
+    disk = {k: sum(d.get(k, 0) for d in disk_launches.values())
+            for k in ("attention_core", "greedy_decode", "decoder_scan",
+                      "decoder_scan_train", "decoder_scan_bwd",
+                      "beam_self_attention", "beam_cross_attention")}
+
+    # --- 12. the compact student: kernels #3 and #7, serving, KD ------------
     attn48_err = check_attention_48(dev, gen)
     c_decoder = make_variant_decoder("compact", dev)
     cscan = check_compact_scan(c_decoder, dev)
@@ -2491,7 +2786,7 @@ def main() -> int:
         check_compact_batches(c_model32.decoder, c_decoder, dev)
         ckd_launches, ckd_rate, _ = run_variant_kd(dev, tmp, "compact")
 
-    # --- 12. the enhanced student: kernel #8, serving, KD ---------------------
+    # --- 13. the enhanced student: kernel #8, serving, KD ---------------------
     e_decoder = make_variant_decoder("enhanced", dev)
     escan = time_enhanced_scan(check_enhanced_scan(e_decoder, dev))
     check_enhanced_batches(e_decoder, dev)
@@ -2505,7 +2800,7 @@ def main() -> int:
         ekd_launches, ekd_rate, _ = run_variant_kd(dev, tmp, "enhanced")
     del c_model32, e_model32
 
-    # --- 13./14. timings, bounds and the result lines ----------------------
+    # --- 14./15. timings, bounds and the result lines ----------------------
     floors = chain_floors(dev)
     usage = {src: ptxas_usage(src, kernel) for src, kernel in (
         ("greedy_decode", "greedy_kernel"), ("decoder_scan", "scan_kernel"),
@@ -2565,7 +2860,13 @@ def main() -> int:
         launches_beam=beam_launches["attention_core"],
         launches_compact_kd=ckd_launches["attention_core"],
         launches_enhanced_serving=e_launches["attention_core"],
-        launches_enhanced_kd=ekd_launches["attention_core"])
+        launches_enhanced_kd=ekd_launches["attention_core"],
+        launches_disk_pipeline=disk["attention_core"])
+
+    def with_disk(name, n):
+        """A kernel's launches on its main path plus the disk pipeline's."""
+        return dict(n=n + disk[name], launches_disk_pipeline=disk[name])
+
     kernels = [
         entry("attention_core", "attention_core.cu", "pallas_attention.py:198",
               sum(attn_by_path.values()),
@@ -2600,24 +2901,29 @@ def main() -> int:
               chain_floor_ms=floors["enhanced_scan"]["floor_ms"],
               chain=floors["enhanced_scan"], ptxas=usage["enhanced_scan"]),
         entry("greedy_decode", "greedy_decode.cu", "pallas_greedy.py:258",
-              launches["greedy_decode"], greedy_diff, greedy_ms,
-              greedy_plain_ms, greedy_bound,
+              err=greedy_diff, ms=greedy_ms, plain=greedy_plain_ms,
+              bound=greedy_bound,
+              **with_disk("greedy_decode", launches["greedy_decode"]),
               bf16_rows_identical=f"{bf16_rows}/{BATCH}",
               chain_floor_ms=floors["greedy_decode"]["floor_ms"],
               chain=floors["greedy_decode"], ptxas=usage["greedy_decode"]),
         entry("decoder_scan", "decoder_scan.cu", f"{lstm}:267",
-              kd_launches["decoder_scan"], scan["fwd_err"],
-              scan_t["eval_ms"], scan_t["plain_eval_ms"], scan_b["eval"],
+              err=scan["fwd_err"], ms=scan_t["eval_ms"],
+              plain=scan_t["plain_eval_ms"], bound=scan_b["eval"],
+              **with_disk("decoder_scan", kd_launches["decoder_scan"]),
               chain_floor_ms=floors["decoder_scan"]["floor_ms"],
               chain=floors["decoder_scan"], ptxas=usage["decoder_scan"]),
         entry("decoder_scan_train", "decoder_scan.cu", f"{lstm}:339",
-              kd_launches["decoder_scan_train"], scan["fwd_err"],
-              scan_t["train_ms"], scan_t["plain_train_ms"], scan_b["train"],
+              err=scan["fwd_err"], ms=scan_t["train_ms"],
+              plain=scan_t["plain_train_ms"], bound=scan_b["train"],
+              **with_disk("decoder_scan_train",
+                          kd_launches["decoder_scan_train"]),
               chain_floor_ms=floors["decoder_scan"]["floor_ms"],
               ptxas=usage["decoder_scan"]),
         entry("decoder_scan_bwd", "decoder_scan_bwd.cu", f"{lstm}:1037",
-              kd_launches["decoder_scan_bwd"], scan["bwd_err"],
-              scan_t["bwd_ms"], scan_t["plain_bwd_ms"], scan_b["bwd"],
+              err=scan["bwd_err"], ms=scan_t["bwd_ms"],
+              plain=scan_t["plain_bwd_ms"], bound=scan_b["bwd"],
+              **with_disk("decoder_scan_bwd", kd_launches["decoder_scan_bwd"]),
               chain_floor_ms=floors["decoder_scan_bwd"]["floor_ms"],
               chain=floors["decoder_scan_bwd"],
               ptxas=usage["decoder_scan_bwd"],
@@ -2626,9 +2932,11 @@ def main() -> int:
               reductions_ms=scan_t["bwd_stage2_ms"],
               weights_ms=scan_t["bwd_weights_ms"]),
         entry("beam_self_attention", "beam_attention.cu",
-              "pallas_beam_attn.py:166", beam_launches["beam_self_attention"],
-              beam_err["self"], bt["self_ms"], bt["self_plain_ms"],
-              bt["bounds"]["self"], bt["self_sdpa_ms"],
+              "pallas_beam_attn.py:166", err=beam_err["self"],
+              ms=bt["self_ms"], plain=bt["self_plain_ms"],
+              bound=bt["bounds"]["self"], library=bt["self_sdpa_ms"],
+              **with_disk("beam_self_attention",
+                          beam_launches["beam_self_attention"]),
               queued_ms=bt["self_queued_ms"],
               library_queued_ms=bt["self_sdpa_queued_ms"],
               bf16_ms=beam_t["bf16"]["self_ms"],
@@ -2638,9 +2946,11 @@ def main() -> int:
               plan=BA.self_plan(BEAM_K, MAX_LEN - 1, torch.float32),
               ptxas=ptxas_usage("beam_attention", "beam_self_kernel")),
         entry("beam_cross_attention", "beam_attention.cu",
-              "pallas_beam_attn.py:249", beam_launches["beam_cross_attention"],
-              beam_err["cross"], bt["cross_ms"], bt["cross_plain_ms"],
-              bt["bounds"]["cross"], bt["cross_sdpa_ms"],
+              "pallas_beam_attn.py:249", err=beam_err["cross"],
+              ms=bt["cross_ms"], plain=bt["cross_plain_ms"],
+              bound=bt["bounds"]["cross"], library=bt["cross_sdpa_ms"],
+              **with_disk("beam_cross_attention",
+                          beam_launches["beam_cross_attention"]),
               queued_ms=bt["cross_queued_ms"],
               library_queued_ms=bt["cross_sdpa_queued_ms"],
               bf16_ms=beam_t["bf16"]["cross_ms"],
@@ -2656,7 +2966,8 @@ def main() -> int:
                       "enhanced_images_per_s": e_rate,
                       "enhanced_kd_images_per_s": ekd_rate,
                       "beam_images_per_s": beam_rates,
-                      "beam_batch_ms": beam_split}))
+                      "beam_batch_ms": beam_split,
+                      "disk_pipeline": disk_times}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

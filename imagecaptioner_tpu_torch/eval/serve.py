@@ -3,8 +3,10 @@
 ``imagecaptioner_tpu/eval/serve.py`` with the same flags: ``--model
 student`` captions by greedy decode (the full, compact or enhanced student,
 as the checkpoint's ``model_type`` says), ``--model teacher`` by packed beam
-search in the parameters' dtype as loaded (float32).  The flags whose paths
-are not ported yet (int8, data-parallel) exit with an error that says so.
+search in the parameters' dtype as loaded (float32).  ``--data-parallel``
+is a no-op on one card and on the CPU, as the reference serves without a
+mesh on one device; the flags whose paths are not ported yet (int8, data
+parallelism over more than one card) exit with an error that says so.
 Images are decoded with PIL, imported only here, so ``make_greedy_captioner``
 and ``make_beam_captioner`` (which take uint8 arrays) run on a machine
 without PIL.  Runs on ``--device`` (default ``cuda``): without a card it
@@ -147,7 +149,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.int8 or args.int8_full or args.int8_calibrate:
         raise _not_ported("int8 serving", "item 12")
-    if args.data_parallel:
+    if (args.data_parallel and torch.device(args.device).type == "cuda"
+            and torch.cuda.device_count() > 1):
         raise _not_ported("data-parallel serving", "item 13")
 
     device = resolve_device(args.device)

@@ -1,17 +1,33 @@
 """Shared trainer plumbing (``imagecaptioner_tpu/train/common.py``):
-accumulation stacking, early stopping, history, progress lines.  The mesh
-helpers belong to multi-GPU (ROADMAP Queue 1 item 13).
+accumulation stacking, per-step metric lists, early stopping, history,
+progress lines, a wall-clock timer.  The mesh helpers belong to multi-GPU
+(ROADMAP Queue 1 item 13).
 """
 
 from __future__ import annotations
 
 import json
 import os
+import time
 from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 
 from imagecaptioner_tpu_torch.distill.losses import LOSS_NAMES
+
+
+def flatten_step_metrics(fetched: List[Dict]) -> List[Dict]:
+    """One flat per-step list from a mix of per-step metric dicts (scalars)
+    and stacked ones ((k,) arrays, k steps of one chained dispatch)."""
+    out: List[Dict] = []
+    for m in fetched:
+        v0 = next(iter(m.values()))
+        if np.ndim(v0) == 1:
+            out.extend({k: v[i] for k, v in m.items()}
+                       for i in range(len(v0)))
+        else:
+            out.append(m)
+    return out
 
 
 def stacked_batches(loader, accumulation_steps: int) -> Iterator[Dict]:
@@ -67,3 +83,10 @@ def log_progress(epoch, batch_idx, loss_dict, learning_rate, total_batches):
             print(f"  {label}: {float(loss_dict[name]):.4f}")
     print("-" * 50)
 
+
+class Timer:
+    def __init__(self):
+        self.start = time.time()
+
+    def elapsed(self) -> float:
+        return time.time() - self.start

@@ -5,30 +5,34 @@ frozen teacher checkpoint with the multi-level distillation loss.
 Reference behaviors preserved: the hardcoded defaults (lr 2e-4, batch 16,
 accumulation 2, ``num_epochs=1``), the preflight
 ``validate_distillation_setup``, three parameter groups (encoder x0.1 /
-decoder / others), clip 1.0 over student and projectors, cosine warm restarts stepped fractionally, validation every 2 epochs with
-monitoring BLEU, best and final checkpoints with the reference's logical
-keys (npz files that both packages' ``utils/checkpoint.py`` read), and
-``student_training_history.json``.
+decoder / others), clip 1.0 over student and projectors, cosine warm
+restarts stepped fractionally, validation every 2 epochs with monitoring
+BLEU, best (written in the background) and final checkpoints with the
+reference's logical keys (npz files that both packages'
+``utils/checkpoint.py`` read), ``student_training_history.json``, resuming
+from a checkpoint of either package (``resume_from``) and a per-step JSONL
+log (``metrics_jsonl``).
 
 Runs on ``device`` (default ``cuda``): without a card it raises, and only a
 caller that asks for ``cpu`` gets the CPU.
 
-Data comes from re-iterable loaders of batches in the loader's layout.  The
-CLI builds them from the in-memory synthetic grid task:
+``train_student_with_kd`` reads a CSV/image dataset (``data/loader.py``);
+``train_student_with_kd_on_loaders`` takes ready loaders, and the CLI's
+``--synthetic-grid N`` feeds it the in-memory grid task:
 
   python -m imagecaptioner_tpu_torch.train.train_student_kd \\
-      --synthetic-grid 256 --teacher-checkpoint saved_models/best_teacher_model.npz \\
+      --data-root data/flickr8k --teacher-checkpoint saved_models/best_teacher_model.npz \\
       --output-dir saved_models [--epochs 1] [--student full|compact|enhanced] \\
-      [--device cuda|cpu]
+      [--resume-from saved_models/best_student_model.npz] \\
+      [--metrics-jsonl metrics.jsonl] [--device cuda|cpu]
 
 Data parallelism is on by default, as in the reference, and a no-op on one
 card (``--no-data-parallel`` turns it off).  Not ported yet, each exiting
-with its roadmap item: the CSV/JPEG loader (``--data-root``),
-``resume_from``, data parallelism over more than one card, ``device_dataset``
-(with its ``stream_steps``) and ``metrics_jsonl``.  On the card each variant's
-teacher-forced recurrence is its kernel: the JAX trainer's table of
-per-variant decoder implementations is a TPU measurement and is not carried
-over.
+with its roadmap item: data parallelism over more than one card (item 13)
+and ``device_dataset`` with its ``stream_steps`` (item 11).  On the card each
+variant's teacher-forced recurrence is its kernel: the JAX trainer's table
+of per-variant decoder implementations is a TPU measurement and is not
+carried over.
 """
 
 from __future__ import annotations
@@ -49,20 +53,36 @@ from imagecaptioner_tpu_torch.core.config import (STUDENT_CONFIGS,
 from imagecaptioner_tpu_torch.core.device import resolve_device
 from imagecaptioner_tpu_torch.core.precision import as_dtype
 from imagecaptioner_tpu_torch.data import transforms as T
+from imagecaptioner_tpu_torch.data.loader import get_loader
 from imagecaptioner_tpu_torch.distill.projector import (
     create_feature_projectors, make_projectors)
 from imagecaptioner_tpu_torch.distill.validate import validate_distillation_setup
 from imagecaptioner_tpu_torch.eval.metrics import monitoring_bleu
 from imagecaptioner_tpu_torch.models.student import Student, student_init
 from imagecaptioner_tpu_torch.models import teacher as TM
-from imagecaptioner_tpu_torch.train import common, steps
+from imagecaptioner_tpu_torch.train import common, optim as O, steps
 from imagecaptioner_tpu_torch.utils import checkpoint as CKPT
 from imagecaptioner_tpu_torch.utils import convert as CV
+from imagecaptioner_tpu_torch.utils.logging import MetricLogger
 
 
 def not_ported(what: str, item: str) -> SystemExit:
     return SystemExit(f"{what} is not ported yet (ROADMAP Queue 1 {item}); "
                       "use python -m imagecaptioner_tpu.train.train_student_kd")
+
+
+def check_options(*, data_parallel: bool, device, device_dataset: bool,
+                  student_variant: str) -> None:
+    """Refuse what is not ported, before any data or card is touched."""
+    if (data_parallel and torch.device(device).type == "cuda"
+            and torch.cuda.device_count() > 1):
+        # on one device data parallelism is a no-op, as the reference's
+        # maybe_mesh makes it; a CPU run has one device
+        raise not_ported("data-parallel KD training", "item 13")
+    if device_dataset:
+        raise not_ported("the device-resident dataset", "item 11")
+    if student_variant not in STUDENT_CONFIGS:
+        raise ValueError(f"unknown student_variant {student_variant!r}")
 
 
 def load_teacher(teacher_checkpoint: str, vocab_size: int, device):
@@ -98,6 +118,91 @@ def validate_student(eval_step, state, val_loader, vocab, device, *,
 
 
 def train_student_with_kd(
+    data_root: str = "data/flickr8k",
+    captions_file: Optional[str] = None,
+    teacher_checkpoint: str = "saved_models/best_teacher_model.npz",
+    output_dir: str = "saved_models",
+    *,
+    train_cfg: Optional[KDTrainConfig] = None,
+    distill_cfg: Optional[DistillConfig] = None,
+    num_epochs: Optional[int] = None,
+    max_caption_len: int = 48,
+    image_size: int = 224,
+    compute_dtype=torch.bfloat16,
+    seed: int = 0,
+    max_steps_per_epoch: Optional[int] = None,
+    resume_from: Optional[str] = None,
+    data_parallel: bool = True,
+    metrics_jsonl: Optional[str] = None,
+    freeze_backbone: bool = True,
+    use_attention_refinement: Optional[bool] = None,
+    student_variant: str = "full",
+    student_cfg_overrides: Optional[dict] = None,
+    aug=None,
+    device_dataset: bool = False,
+    stream_steps: int = 8,
+    verbose: bool = True,
+    device="cuda",
+):
+    """Train from a CSV/image dataset under ``data_root`` (``captions_file``
+    defaults to ``<data_root>/captions_clean.csv``): the train loader
+    shuffled with ``seed``, the validation loader over the same rows in
+    order, with the train vocabulary.  Returns ``(state, s_cfg, vocab)``."""
+    check_options(data_parallel=data_parallel, device=device,
+                  device_dataset=device_dataset,
+                  student_variant=student_variant)
+    device = resolve_device(device)
+    tr = train_cfg or KDTrainConfig()
+    captions_file = captions_file or os.path.join(data_root,
+                                                  "captions_clean.csv")
+    train_loader, dataset = get_loader(
+        data_root, captions_file, batch_size=tr.batch_size,
+        max_caption_len=max_caption_len, shuffle=True, seed=seed,
+        image_size=image_size, host_shard=True)
+    val_loader, _ = get_loader(
+        data_root, captions_file, batch_size=tr.batch_size,
+        max_caption_len=max_caption_len, shuffle=False, vocab=dataset.vocab,
+        image_size=image_size, host_shard=True)
+    return train_student_with_kd_on_loaders(
+        train_loader, val_loader, dataset.vocab, teacher_checkpoint,
+        output_dir, train_cfg=tr, distill_cfg=distill_cfg,
+        num_epochs=num_epochs, compute_dtype=compute_dtype, seed=seed,
+        max_steps_per_epoch=max_steps_per_epoch, resume_from=resume_from,
+        data_parallel=data_parallel, metrics_jsonl=metrics_jsonl,
+        freeze_backbone=freeze_backbone,
+        use_attention_refinement=use_attention_refinement,
+        student_variant=student_variant,
+        student_cfg_overrides=student_cfg_overrides, aug=aug,
+        verbose=verbose, device=device)
+
+
+def resume_train_state(state: steps.TrainState, path: str,
+                       s_cfg, device) -> int:
+    """Load a KD checkpoint of either package into ``state`` in place: the
+    student's parameters and batch-norm statistics, the projectors, the
+    AdamW step and moments.  Returns the epoch to start from."""
+    ck = CKPT.load_checkpoint(path)
+    sd = ck["student_state_dict"]
+    state.student.load_state_dict(CV.jax_student_to_state_dict(
+        sd["params"], sd["model_state"], s_cfg), strict=True)
+    state.projectors.load_state_dict(
+        CV.jax_projectors_to_state_dict(ck["projectors_state_dict"]),
+        strict=True)
+    named = state.named_parameters()
+    step, mu, nu = CV.jax_adamw_to_state(ck["optimizer_state_dict"], named)
+    for n, p in named.items():
+        if mu[n].shape != p.shape or nu[n].shape != p.shape:
+            raise ValueError(f"{path}: optimizer moments of {n} have shape "
+                             f"{tuple(mu[n].shape)}, the parameter "
+                             f"{tuple(p.shape)}")
+    state.opt_state = O.AdamWState(
+        step=step,
+        mu={n: t.to(device=device, dtype=named[n].dtype) for n, t in mu.items()},
+        nu={n: t.to(device=device, dtype=named[n].dtype) for n, t in nu.items()})
+    return int(ck["epoch"]) + 1
+
+
+def train_student_with_kd_on_loaders(
     train_loader,
     val_loader,
     vocab,
@@ -123,22 +228,13 @@ def train_student_with_kd(
     verbose: bool = True,
     device="cuda",
 ):
-    """Train over ``train_loader`` (re-iterable, with ``__len__`` and
-    ``batch_size``; batches in the loader's layout), validate on
-    ``val_loader``.  Returns ``(state, s_cfg, vocab)``."""
-    if resume_from is not None:
-        raise not_ported("resuming a KD run", "item 4, still open")
-    if (data_parallel and torch.device(device).type == "cuda"
-            and torch.cuda.device_count() > 1):
-        # on one device data parallelism is a no-op, as the reference's
-        # maybe_mesh makes it; a CPU run has one device
-        raise not_ported("data-parallel KD training", "item 13")
-    if device_dataset:
-        raise not_ported("the device-resident dataset", "item 11")
-    if metrics_jsonl is not None:
-        raise not_ported("the per-step metrics log", "item 14")
-    if student_variant not in STUDENT_CONFIGS:
-        raise ValueError(f"unknown student_variant {student_variant!r}")
+    """``train_student_with_kd`` over ready loaders: ``train_loader``
+    (re-iterable, with ``__len__`` and ``batch_size``; batches in the
+    loader's layout) and ``val_loader``, tokens of ``vocab``.  Returns
+    ``(state, s_cfg, vocab)``."""
+    check_options(data_parallel=data_parallel, device=device,
+                  device_dataset=device_dataset,
+                  student_variant=student_variant)
     device = resolve_device(device)
     compute_dtype = as_dtype(compute_dtype)
     tr = train_cfg or KDTrainConfig()
@@ -186,6 +282,11 @@ def train_student_with_kd(
         verbose=verbose)
 
     state = steps.init_train_state(student, projectors, s_cfg)
+    start_epoch = 0
+    if resume_from is not None:
+        start_epoch = resume_train_state(state, resume_from, s_cfg, device)
+        if verbose:
+            print(f"Resumed from {resume_from} at epoch {start_epoch}")
     aug_kw = {} if aug is None else {"aug": aug}
     train_step = steps.make_kd_train_step(
         teacher, t_cfg, s_cfg, d_cfg, tr, compute_dtype=compute_dtype,
@@ -201,17 +302,26 @@ def train_student_with_kd(
     train_losses, val_losses, val_bleu_scores = [], [], []
     loss_components_history = defaultdict(list)
     best_val = float("inf")
+    mlog = MetricLogger(metrics_jsonl)
 
     def ckpt_tree(epoch, extra):
         params, model_state = CV.student_to_jax_trees(state.student)
-        named = state.named_parameters()
-        moments = lambda m: CV.state_dict_to_tree(  # noqa: E731
-            {n: m[n] for n in named})
+        names = list(state.projectors)
+
+        def moments(m):        # the JAX trainer's {"student", "projectors"}
+            sd = {n: m[n] for n in state.named_parameters()}
+            pre = "projectors."
+            return dict(CV.state_dict_to_tree(
+                {n: v for n, v in sd.items() if not n.startswith(pre)}),
+                projectors=CV.projectors_to_tree(
+                    {n[len(pre):]: v for n, v in sd.items()
+                     if n.startswith(pre)}, names))
+
         return dict(
             epoch=epoch,
             student_state_dict=dict(params=params, model_state=model_state),
-            projectors_state_dict=CV.state_dict_to_tree(
-                dict(state.projectors.named_parameters())),
+            projectors_state_dict=CV.projectors_to_tree(
+                dict(state.projectors.named_parameters()), names),
             optimizer_state_dict=dict(
                 step=np.asarray(state.opt_state.step, np.int32),
                 mu=moments(state.opt_state.mu),
@@ -228,7 +338,7 @@ def train_student_with_kd(
                                      temperature=d_cfg.temperature),
             **extra)
 
-    for epoch in range(tr.num_epochs):
+    for epoch in range(start_epoch, tr.num_epochs):
         step_metrics = []  # device tensors; one host fetch per epoch
         for idx, stacked in enumerate(
                 common.stacked_batches(train_loader, tr.accumulation_steps)):
@@ -241,7 +351,10 @@ def train_student_with_kd(
             if verbose and idx % 50 == 0:  # sync only at log boundaries
                 common.log_progress(epoch, idx, metrics, float(metrics["lr"]),
                                     steps_per_epoch)
-        fetched = [{k: float(v) for k, v in m.items()} for m in step_metrics]
+        fetched = common.flatten_step_metrics(
+            [{k: float(v) for k, v in m.items()} for m in step_metrics])
+        for si, m in enumerate(fetched):
+            mlog.log_step(epoch * steps_per_epoch + si, m, epoch=epoch)
         nb = len(fetched)
         avg_train = (float(np.mean([m["total_loss"] for m in fetched]))
                      if fetched else float("nan"))
@@ -262,7 +375,9 @@ def train_student_with_kd(
                 print(f"  Val BLEU-1: {val_bleu:.4f}")
             if stopper.update(val_loss):
                 best_val = val_loss
-                CKPT.save_checkpoint(
+                # the snapshot is taken now, the write is off the step's
+                # path; wait_for_saves() below lands it before return
+                CKPT.save_checkpoint_async(
                     os.path.join(output_dir, "best_student_model.npz"),
                     ckpt_tree(epoch, dict(val_loss=val_loss,
                                           val_bleu=val_bleu)))
@@ -277,6 +392,7 @@ def train_student_with_kd(
         elif verbose:
             print(f"Epoch {epoch+1}: Train Loss: {avg_train:.4f}")
 
+    CKPT.wait_for_saves()
     CKPT.save_checkpoint(
         os.path.join(output_dir, "final_student_model.npz"),
         ckpt_tree(tr.num_epochs, dict(
@@ -293,6 +409,7 @@ def train_student_with_kd(
                  embed_size=s_cfg.embed_size, hidden_size=s_cfg.hidden_size,
                  alpha=d_cfg.alpha, beta=d_cfg.beta, gamma=d_cfg.gamma,
                  temperature=d_cfg.temperature)))
+    mlog.close()
     if verbose:
         print("\nTraining completed!")
         print(f"Best validation loss: {best_val:.4f}")
@@ -301,11 +418,11 @@ def train_student_with_kd(
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description="Train the student with KD")
-    ap.add_argument("--data-root", default=None,
-                    help="CSV/JPEG dataset directory (not ported yet)")
+    ap.add_argument("--data-root", default="data/flickr8k")
     ap.add_argument("--captions-file", default=None)
     ap.add_argument("--synthetic-grid", type=int, default=0, metavar="N",
-                    help="train on N in-memory synthetic grid images")
+                    help="train on N in-memory synthetic grid images instead "
+                         "of --data-root")
     ap.add_argument("--teacher-checkpoint",
                     default="saved_models/best_teacher_model.npz")
     ap.add_argument("--output-dir", default="saved_models")
@@ -313,6 +430,8 @@ def main(argv=None):
     ap.add_argument("--image-size", type=int, default=224)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--resume-from", default=None)
+    ap.add_argument("--metrics-jsonl", default=None,
+                    help="append one JSON record per optimizer step")
     ap.add_argument("--student", default="full",
                     choices=["full", "compact", "enhanced"])
     ap.add_argument("--no-data-parallel", dest="data_parallel",
@@ -326,26 +445,26 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
     args = ap.parse_args(argv)
-    if args.data_root is not None or args.captions_file is not None:
-        raise not_ported("the CSV/JPEG loader", "item 4, still open")
+    kw = dict(num_epochs=args.epochs, seed=args.seed,
+              resume_from=args.resume_from, metrics_jsonl=args.metrics_jsonl,
+              student_variant=args.student, data_parallel=args.data_parallel,
+              device_dataset=args.device_dataset,
+              stream_steps=args.stream_steps, device=args.device)
     if args.synthetic_grid <= 0:
-        raise SystemExit("give --synthetic-grid N: the in-memory grid task is "
-                         "the only data source ported so far")
-    device = resolve_device(args.device)
-
+        train_student_with_kd(
+            args.data_root, args.captions_file, args.teacher_checkpoint,
+            args.output_dir, image_size=args.image_size, **kw)
+        return 0
+    resolve_device(args.device)
     from imagecaptioner_tpu_torch.data.synthetic import make_grid_loaders
 
     tr = KDTrainConfig()
     train_loader, val_loader, vocab = make_grid_loaders(
         args.synthetic_grid, image_size=args.image_size, seed=args.seed,
         batch_size=tr.batch_size)
-    train_student_with_kd(
+    train_student_with_kd_on_loaders(
         train_loader, val_loader, vocab, args.teacher_checkpoint,
-        args.output_dir, num_epochs=args.epochs, seed=args.seed,
-        resume_from=args.resume_from, student_variant=args.student,
-        data_parallel=args.data_parallel, device_dataset=args.device_dataset,
-        stream_steps=args.stream_steps,
-        device=device)
+        args.output_dir, **kw)
     return 0
 
 

@@ -10,7 +10,8 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Any, Dict
+import threading
+from typing import Any, Dict, List
 
 import numpy as np
 
@@ -38,7 +39,9 @@ def _flatten(tree: Any, prefix: str, out: Dict[str, np.ndarray]) -> Any:
         return {"__int__": tree}
     if isinstance(tree, float):
         return {"__float__": tree}
-    out[prefix] = np.asarray(tree)
+    if hasattr(tree, "detach"):                  # a torch tensor
+        tree = tree.detach().cpu().numpy()
+    out[prefix] = np.array(tree, copy=True)      # a snapshot, not a view
     return {"__array__": prefix}
 
 
@@ -63,16 +66,59 @@ def _unflatten(node: Any, arrays: Dict[str, np.ndarray]) -> Any:
     raise ValueError(f"corrupt checkpoint node: {node!r}")
 
 
-def save_checkpoint(path: str, tree: Any) -> None:
+def _snapshot(tree: Any) -> Dict[str, np.ndarray]:
+    """Every leaf copied to host numpy now: the trainer updates its tensors
+    in place, so only the disk write may wait."""
     arrays: Dict[str, np.ndarray] = {}
     structure = _flatten(tree, "", arrays)
     arrays["__structure__"] = np.frombuffer(
         json.dumps(structure).encode(), dtype=np.uint8)
+    return arrays
+
+
+def _write_npz(path: str, arrays: Dict[str, np.ndarray]) -> None:
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:
         np.savez(f, **arrays)
     os.replace(tmp, path)
+
+
+def save_checkpoint(path: str, tree: Any) -> None:
+    _write_npz(path, _snapshot(tree))
+
+
+_save_lock = threading.Lock()
+_pending: List[Any] = []
+_executor = None
+
+
+def save_checkpoint_async(path: str, tree: Any):
+    """Snapshot ``tree`` to the host now, write the npz in the background.
+    Returns the Future (a write error surfaces there and in
+    ``wait_for_saves``)."""
+    global _executor
+    arrays = _snapshot(tree)
+    with _save_lock:
+        if _executor is None:
+            from concurrent.futures import ThreadPoolExecutor
+
+            _executor = ThreadPoolExecutor(max_workers=1,
+                                           thread_name_prefix="ckpt-save")
+        fut = _executor.submit(_write_npz, path, arrays)
+        _pending.append(fut)
+    return fut
+
+
+def wait_for_saves() -> None:
+    """Block until every queued checkpoint write has landed; re-raises the
+    first write error.  The trainer calls it before it returns, so a caller
+    that loads ``best_student_model.npz`` next finds the whole file."""
+    with _save_lock:
+        futs = list(_pending)
+        _pending.clear()
+    for f in futs:
+        f.result()
 
 
 def load_checkpoint(path: str) -> Any:

@@ -127,6 +127,17 @@ def state_dict_to_tree(sd: Dict[str, torch.Tensor]) -> Any:
     return listify(root)
 
 
+def projectors_to_tree(values: Dict[str, torch.Tensor], names) -> Dict:
+    """Values keyed ``<projector>.<parameter>`` -> the JAX projectors tree:
+    one subtree per projector in ``names``, empty for a projector without
+    parameters (``create_feature_projectors`` makes it so when the teacher's
+    and the student's widths agree)."""
+    return {name: state_dict_to_tree({k[len(name) + 1:]: v
+                                      for k, v in values.items()
+                                      if k.startswith(name + ".")})
+            for name in names}
+
+
 def student_to_jax_trees(model) -> Tuple[Dict, Dict]:
     """A ``Student`` -> ``(params, model_state)`` in the JAX layout: the
     parameters' tree, and the batch-norm statistics under the backbone's

@@ -334,7 +334,7 @@ def serve_and_train_on_cpu(variant, tmp_path, overrides, jax_decode=True):
         "vocab_size": len(vocab), "model_config": teacher_kw})
     out = str(tmp_path / "kd_out")
     with few_threads():
-        state, s_cfg, _ = TK.train_student_with_kd(
+        state, s_cfg, _ = TK.train_student_with_kd_on_loaders(
             train_loader, val_loader, vocab, ckpt, out, num_epochs=1,
             compute_dtype=torch.float32, seed=0, device="cpu", verbose=False,
             student_variant=variant, student_cfg_overrides=overrides)

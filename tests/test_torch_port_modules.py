@@ -367,3 +367,40 @@ def test_port_file_imports_no_jax_and_picks_no_device(path):
     picks = re.findall(r"is_available\(\)\s*else|if\s+torch\.cuda\.is_available"
                        r"\(\)\s*else|else\s+[\"']cpu[\"']", src)
     assert not picks, f"{path} picks its device by itself: {picks}"
+
+
+class _ImportsRunAtImport(ast.NodeVisitor):
+    """The modules a file imports when it is imported: every import outside
+    a function body (class bodies run at import)."""
+
+    def __init__(self):
+        self.roots = set()
+
+    def visit_FunctionDef(self, node):
+        pass
+
+    visit_AsyncFunctionDef = visit_Lambda = visit_FunctionDef
+
+    def visit_Import(self, node):
+        self.roots.update(a.name.split(".")[0] for a in node.names)
+
+    def visit_ImportFrom(self, node):
+        self.roots.add((node.module or "").split(".")[0])
+
+
+@pytest.mark.parametrize("path", PORT_FILES)
+def test_port_file_imports_no_pandas_pil_or_matplotlib_at_module_level(path):
+    """The card's machine has no pandas, PIL or matplotlib: no file of the
+    port imports pandas at all, and PIL and matplotlib only inside the
+    function that uses them, so importing any module needs none of them."""
+    tree = ast.parse((REPO / path).read_text())
+    anywhere = {(n.module or "") if isinstance(n, ast.ImportFrom) else a.name
+                for n in ast.walk(tree)
+                if isinstance(n, (ast.Import, ast.ImportFrom))
+                for a in (n.names if isinstance(n, ast.Import) else [n])}
+    assert not any(m.split(".")[0] == "pandas" for m in anywhere), \
+        f"{path} imports pandas"
+    top = _ImportsRunAtImport()
+    top.visit(tree)
+    banned = top.roots & {"PIL", "matplotlib", "pandas"}
+    assert not banned, f"{path} imports {banned} at module level"

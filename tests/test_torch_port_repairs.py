@@ -116,18 +116,28 @@ def test_dense_bf16_matches_jax_to_one_ulp(bias):
 
 def test_kd_cli_takes_the_reference_flags(monkeypatch):
     """``--no-data-parallel`` (dest data_parallel, default on) and
-    ``--stream-steps`` reach ``train_student_with_kd``; the port's former
+    ``--stream-steps`` reach the trainer, from a dataset on disk
+    (``train_student_with_kd``) and from the in-memory grid
+    (``train_student_with_kd_on_loaders``); the port's former
     ``--data-parallel`` is no flag of the reference and is refused."""
     seen = []
-    monkeypatch.setattr(TK, "train_student_with_kd",
-                        lambda *a, **kw: seen.append(kw))
-    base = ["--synthetic-grid", "8", "--image-size", "32", "--device", "cpu"]
-    assert TK.main(base) == 0
-    assert TK.main(base + ["--no-data-parallel", "--stream-steps", "3"]) == 0
-    assert (seen[0]["data_parallel"], seen[0]["stream_steps"]) == (True, 8)
-    assert (seen[1]["data_parallel"], seen[1]["stream_steps"]) == (False, 3)
-    with pytest.raises(SystemExit):
-        TK.main(base + ["--data-parallel"])
+    for name in ("train_student_with_kd", "train_student_with_kd_on_loaders"):
+        monkeypatch.setattr(TK, name, lambda *a, _n=name, **kw: seen.append(
+            dict(kw, called=_n)))
+    for base in (["--synthetic-grid", "8", "--image-size", "32"],
+                 ["--data-root", "data/flickr8k"]):
+        base = base + ["--device", "cpu"]
+        seen.clear()
+        assert TK.main(base) == 0
+        assert TK.main(base + ["--no-data-parallel", "--stream-steps", "3"]) \
+            == 0
+        assert (seen[0]["data_parallel"], seen[0]["stream_steps"]) == (True, 8)
+        assert (seen[1]["data_parallel"], seen[1]["stream_steps"]) == (False, 3)
+        assert seen[0]["called"] == ("train_student_with_kd_on_loaders"
+                                     if "--synthetic-grid" in base
+                                     else "train_student_with_kd")
+        with pytest.raises(SystemExit):
+            TK.main(base + ["--data-parallel"])
 
 
 @pytest.mark.parametrize("pred,target", [

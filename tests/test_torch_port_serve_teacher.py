@@ -86,10 +86,30 @@ def test_teacher_cli_default_device_raises_without_a_card(artifacts):
 @pytest.mark.parametrize("extra", [["--int8"], ["--int8-full"],
                                    ["--int8", "--int8-calibrate", "2"],
                                    ["--data-parallel"]])
-def test_unported_teacher_flags_exit(artifacts, extra):
-    with pytest.raises(SystemExit, match="not ported yet"):
-        serve.main(_args(artifacts, artifacts / "x.jsonl", "--device", "cpu",
-                         *extra))
+def test_unported_teacher_flags_exit(artifacts, extra, monkeypatch):
+    """int8 serving exits as not ported; so does data parallelism, but only
+    with more than one card visible (on one device it is a no-op)."""
+    if extra == ["--data-parallel"]:
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+        args = _args(artifacts, artifacts / "x.jsonl", *extra)
+    else:
+        args = _args(artifacts, artifacts / "x.jsonl", "--device", "cpu",
+                     *extra)
+    with pytest.raises(SystemExit, match="not ported yet") as e:
+        serve.main(args)
+    assert ("item 13" in str(e.value)) == (extra == ["--data-parallel"])
+    assert not (artifacts / "x.jsonl").exists()
+
+
+def test_data_parallel_is_a_no_op_on_one_device(artifacts):
+    """On the CPU (one device) ``--data-parallel`` serves exactly as
+    without it, as the reference does on one device."""
+    plain, dp = artifacts / "plain.jsonl", artifacts / "dp.jsonl"
+    assert serve.main(_args(artifacts, plain, "--device", "cpu")) == 0
+    assert serve.main(_args(artifacts, dp, "--device", "cpu",
+                            "--data-parallel")) == 0
+    assert dp.read_text() == plain.read_text()
+    assert len(plain.read_text().splitlines()) == 5
 
 
 def test_load_teacher_and_beam_captioner_contract(artifacts):

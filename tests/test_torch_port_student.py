@@ -151,9 +151,10 @@ def test_port_checkpoint_reads_back_in_jax(tmp_path):
             (7, "x", True, 0.5, (1, 2))
 
 
-def test_unported_variants_and_flags_raise(tmp_path):
+def test_unported_variants_and_flags_raise(tmp_path, monkeypatch):
     """All three variants build; what no kernel takes raises: a layer count
-    other than the variant's, an unknown variant or ``model_type``."""
+    other than the variant's, an unknown variant or ``model_type``; and the
+    serve flags not ported yet exit."""
     for variant, layers in (("full", 2), ("compact", 1), ("enhanced", 3)):
         cfg = PC.STUDENT_CONFIGS[variant](V, embed_size=E, hidden_size=H)
         assert cfg.variant == variant and cfg.num_layers == layers
@@ -172,13 +173,15 @@ def test_unported_variants_and_flags_raise(tmp_path):
                                  "model_config": {"model_type": "tiny"}})
     with pytest.raises(ValueError, match="unknown student model_type"):
         PCKPT.load_student_checkpoint(path)
-    base = ["--checkpoint", "c", "--vocab", "v", "--images", "i",
-            "--device", "cpu"]
-    for extra in (["--model", "teacher", "--int8-full"],
-                  ["--model", "student", "--int8"],
-                  ["--model", "student", "--data-parallel"]):
+    base = ["--checkpoint", "c", "--vocab", "v", "--images", "i"]
+    for extra in (["--model", "teacher", "--int8-full", "--device", "cpu"],
+                  ["--model", "student", "--int8", "--device", "cpu"]):
         with pytest.raises(SystemExit, match="not ported yet"):
             serve.main(base + extra)
+    # data parallelism is a no-op on one device and refused over several
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    with pytest.raises(SystemExit, match="not ported yet.*item 13"):
+        serve.main(base + ["--model", "student", "--data-parallel"])
 
 
 def test_serve_cli_end_to_end(jax_student, tmp_path):
@@ -211,6 +214,13 @@ def test_serve_cli_end_to_end(jax_student, tmp_path):
     words = set(vocab.itos.values())
     assert all(w in words for line in lines
                for w in json.loads(line)["caption"].split())
+    # one device: --data-parallel serves exactly as without it
+    dp = tmp_path / "dp.jsonl"
+    assert serve.main(["--model", "student", "--checkpoint", ckpt, "--vocab",
+                       str(tmp_path / "vocab.json"), "--images", str(img_dir),
+                       "--out", str(dp), "--batch", "2", "--max-length", "5",
+                       "--device", "cpu", "--data-parallel"]) == 0
+    assert dp.read_text() == out.read_text()
 
 
 def test_serve_cli_default_device_raises_without_a_card(tmp_path):

@@ -1,6 +1,8 @@
 """The KD trainer of the port end to end on the CPU at tiny widths: the
-in-memory grid data, a handful of optimizer steps, the checkpoint and
-history it writes, the options that are not ported yet and the device rule.
+in-memory grid data and a CSV/JPEG dataset on disk, a handful of optimizer
+steps, the checkpoint, history and per-step log it writes, resuming from a
+checkpoint of either package, the options that are not ported yet and the
+device rule.
 """
 
 import json
@@ -14,13 +16,21 @@ import torch
 from imagecaptioner_tpu.data.synthetic import make_synthetic_dataset
 from imagecaptioner_tpu.data.vocabulary import Vocabulary as JVocabulary
 from imagecaptioner_tpu.utils import checkpoint as JCKPT
+from imagecaptioner_tpu_torch.core import config as PC
 from imagecaptioner_tpu_torch.core.config import KDTrainConfig, TeacherConfig
 from imagecaptioner_tpu_torch.core.device import resolve_device
 from imagecaptioner_tpu_torch.data import synthetic as PSY
+from imagecaptioner_tpu_torch.data.dataset import CaptionDataset
+from imagecaptioner_tpu_torch.data.loader import BatchLoader
+from imagecaptioner_tpu_torch.distill.projector import \
+    create_feature_projectors
 from imagecaptioner_tpu_torch.eval import serve
+from imagecaptioner_tpu_torch.models.student import student_init
 from imagecaptioner_tpu_torch.models.teacher import teacher_init
 from imagecaptioner_tpu_torch.train import common, train_student_kd as TK
+from imagecaptioner_tpu_torch.utils import convert as CV
 from imagecaptioner_tpu_torch.utils.checkpoint import save_checkpoint
+from test_torch_port_compact import few_threads
 
 S, MAXLEN = 64, 12
 TEACHER = dict(embed_size=32, num_heads=2, num_decoder_layers=1, dropout=0.1,
@@ -53,7 +63,7 @@ def trained(grid, teacher_ckpt, tmp_path_factory):
     threads = torch.get_num_threads()
     torch.set_num_threads(2)
     try:
-        state, s_cfg, _ = TK.train_student_with_kd(
+        state, s_cfg, _ = TK.train_student_with_kd_on_loaders(
             train_loader, val_loader, vocab, teacher_ckpt, out, num_epochs=3,
             train_cfg=KDTrainConfig(learning_rate=1e-3, validate_every=2),
             compute_dtype=torch.float32, seed=0, device="cpu", verbose=False,
@@ -98,8 +108,8 @@ def test_grid_loader_layout(grid):
     stacks = list(common.stacked_batches(train_loader, 3))
     assert len(stacks) == 2 and stacks[0]["images"].shape == (3, 4, S, S, 3)
     assert stacks[0]["captions"].shape == (3, MAXLEN, 4)
-    big = PSY.GridLoader(np.zeros((40, 8, 8, 3), np.uint8), ["red dot"] * 40,
-                         vocab, batch_size=32)
+    big = BatchLoader(PSY.GridDataset(np.zeros((40, 8, 8, 3), np.uint8),
+                                      ["red dot"] * 40, vocab), batch_size=32)
     assert big.batch_size == 16          # the reference's silent cap
 
 
@@ -155,12 +165,10 @@ def test_checkpoint_reads_in_jax_and_serves_through_the_port(trained, grid):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(resume_from="x.npz"), "item 4"),
     (dict(data_parallel=True, device="cuda"), "item 13"),
     # a CPU run has one device: past data parallelism to the next check
     (dict(data_parallel=True, device_dataset=True), "item 11"),
     (dict(device_dataset=True), "item 11"),
-    (dict(metrics_jsonl="m.jsonl"), "item 14"),
     (dict(student_variant="tiny"), "unknown student_variant"),
 ])
 def test_unported_options_exit_with_their_roadmap_item(grid, kw, match,
@@ -174,18 +182,29 @@ def test_unported_options_exit_with_their_roadmap_item(grid, kw, match,
     if "data_parallel" in kw:
         monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     unknown = "student_variant" in kw
-    with pytest.raises(ValueError if unknown else SystemExit,
-                       match=match if unknown else "not ported yet") as e:
-        TK.train_student_with_kd(train_loader, val_loader, vocab, "t.npz",
-                                 "out", **{"device": "cpu", **kw})
-    assert match in str(e.value)
+    for train in (lambda **k: TK.train_student_with_kd_on_loaders(
+                      train_loader, val_loader, vocab, "t.npz", "out", **k),
+                  lambda **k: TK.train_student_with_kd("no/data", None,
+                                                       "t.npz", "out", **k)):
+        with pytest.raises(ValueError if unknown else SystemExit,
+                           match=match if unknown else "not ported yet") as e:
+            train(**{"device": "cpu", **kw})      # before any data is read
+        assert match in str(e.value)
 
 
-def test_cli_arguments(tmp_path):
-    with pytest.raises(SystemExit, match="not ported yet"):
-        TK.main(["--data-root", "data/flickr8k", "--device", "cpu"])
-    with pytest.raises(SystemExit, match="synthetic-grid"):
+def test_cli_arguments(tmp_path, monkeypatch):
+    """``--data-root`` defaults to the reference's ``data/flickr8k`` and
+    is read; ``--synthetic-grid N`` trains on the in-memory grid task."""
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(FileNotFoundError,
+                       match="data/flickr8k/captions_clean.csv"):
         TK.main(["--device", "cpu"])
+    with pytest.raises(FileNotFoundError, match="elsewhere/c.csv"):
+        TK.main(["--data-root", "x", "--captions-file", "elsewhere/c.csv",
+                 "--device", "cpu"])
+    with pytest.raises(FileNotFoundError, match="t.npz"):
+        TK.main(["--synthetic-grid", "4", "--image-size", "32",
+                 "--teacher-checkpoint", "t.npz", "--device", "cpu"])
 
 
 def test_default_device_without_a_card_raises(grid, teacher_ckpt, tmp_path):
@@ -199,8 +218,221 @@ def test_default_device_without_a_card_raises(grid, teacher_ckpt, tmp_path):
     assert resolve_device("cpu").type == "cpu"
     out = tmp_path / "out"
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        TK.train_student_with_kd(train_loader, val_loader, vocab,
-                                 teacher_ckpt, str(out), verbose=False)
+        TK.train_student_with_kd_on_loaders(train_loader, val_loader, vocab,
+                                            teacher_ckpt, str(out),
+                                            verbose=False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        TK.main(["--synthetic-grid", "8", "--output-dir", str(out)])
+        TK.train_student_with_kd("no/data", None, teacher_ckpt, str(out))
+    for data in (["--synthetic-grid", "8"], ["--data-root", "no/data"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            TK.main(data + ["--output-dir", str(out)])
     assert not out.exists()
+
+
+# ---------------------------------------------------------------------------
+# Training from a CSV/JPEG dataset on disk, and resuming
+# ---------------------------------------------------------------------------
+
+SMALL = dict(embed_size=32, hidden_size=32)
+RECORD_KEYS = {"t", "epoch", "step", "grad_norm", "lr", *common.LOSS_NAMES}
+
+
+@pytest.fixture(scope="module")
+def disk(tmp_path_factory):
+    """16 grid images with two caption rows each (two batches of 16, one
+    optimizer step an epoch) as JPEGs and a CSV, and a tiny teacher over
+    the vocabulary the trainer builds from it (threshold 5)."""
+    root = tmp_path_factory.mktemp("disk")
+    data = str(root / "data")
+    PSY.make_synthetic_dataset(data, n_images=16, captions_per_image=2,
+                               image_size=S, seed=0, learnable=True,
+                               task="grid")
+    V = len(CaptionDataset(data, os.path.join(data, "captions_clean.csv"))
+            .vocab)
+    t_path = str(root / "teacher.npz")
+    cfg = TeacherConfig(vocab_size=V, **TEACHER)
+    save_checkpoint(t_path, {"model_state_dict": {"params": teacher_init(0, cfg)},
+                             "vocab_size": V, "model_config": TEACHER})
+    return root, data, t_path, V
+
+
+@pytest.fixture(scope="module")
+def trained_from_disk(disk):
+    root, data, t_path, _ = disk
+    out = str(root / "out")
+    with few_threads():
+        state, s_cfg, vocab = TK.train_student_with_kd(
+            data, None, t_path, out, image_size=S, max_caption_len=MAXLEN,
+            compute_dtype=torch.float32, device="cpu", verbose=False,
+            metrics_jsonl=os.path.join(out, "metrics.jsonl"),
+            student_cfg_overrides=SMALL)
+    return out, state, s_cfg, vocab
+
+
+def _records(path):
+    return [json.loads(line) for line in open(path).read().splitlines()]
+
+
+def test_trainer_from_disk_writes_checkpoints_history_and_metrics(
+        trained_from_disk, disk):
+    out, state, s_cfg, vocab = trained_from_disk
+    _, data, _, V = disk
+    assert len(vocab) == V and s_cfg.embed_size == 32
+    assert state.opt_state.step == 1             # 2 batches / accumulation 2
+    for name in ("best_student_model.npz", "final_student_model.npz",
+                 "vocab.json", "student_training_history.json"):
+        assert os.path.exists(os.path.join(out, name))
+    hist = json.load(open(os.path.join(out, "student_training_history.json")))
+    assert len(hist["train_losses"]) == len(hist["val_losses"]) == 1
+    assert np.isfinite(hist["train_losses"] + hist["val_losses"]).all()
+    recs = _records(os.path.join(out, "metrics.jsonl"))
+    assert len(recs) == 1 and set(recs[0]) == RECORD_KEYS
+    assert recs[0]["epoch"] == 0 and recs[0]["step"] == 0
+    assert recs[0]["total_loss"] == pytest.approx(hist["train_losses"][0])
+    assert JCKPT.load_checkpoint(os.path.join(out, "best_student_model.npz"))[
+        "epoch"] == 0
+
+
+def test_cli_trains_from_disk(disk, tmp_path):
+    """The CLI at the full student's width on the 64x64 disk data."""
+    _, data, t_path, _ = disk
+    out = tmp_path / "cli"
+    with few_threads():
+        assert TK.main(["--data-root", data, "--teacher-checkpoint", t_path,
+                        "--output-dir", str(out), "--image-size", str(S),
+                        "--metrics-jsonl", str(out / "m.jsonl"),
+                        "--device", "cpu"]) == 0
+    ck = JCKPT.load_checkpoint(str(out / "final_student_model.npz"))
+    assert ck["model_config"]["embed_size"] == 256
+    assert int(ck["optimizer_state_dict"]["step"]) == 1
+    assert [set(r) for r in _records(out / "m.jsonl")] == [RECORD_KEYS]
+    assert (out / "best_student_model.npz").exists()
+
+
+def _jax_format_kd_checkpoint(path, V):
+    """A KD checkpoint as the JAX trainer writes it, with moments that are
+    not zero: trees in the layout of the JAX ``student_init`` and
+    ``create_feature_projectors`` (checked by ``jax.eval_shape``), numpy
+    values from the port's initialisers, written by the JAX package's
+    checkpoint writer."""
+    import jax.numpy as jnp
+
+    from imagecaptioner_tpu.core.config import full_student_config as j_full
+    from imagecaptioner_tpu.distill.projector import \
+        create_feature_projectors as j_projectors
+    from imagecaptioner_tpu.models import student as JSM
+
+    cfg = PC.full_student_config(V, dropout=0.3, **SMALL)
+    jcfg = j_full(V, dropout=0.3, **SMALL)
+    p, s = student_init(5, cfg)
+    proj, _ = create_feature_projectors(
+        6, teacher_embed=32, student_embed=32, student_hidden=32,
+        teacher_seq_len=TeacherConfig(**TEACHER).num_tokens)
+    lay_p, lay_s = jax.eval_shape(lambda k: JSM.student_init(k, jcfg),
+                                  jax.random.PRNGKey(0))
+    lay_proj, _ = jax.eval_shape(lambda k: j_projectors(
+        k, teacher_embed=32, student_embed=32, student_hidden=32,
+        teacher_seq_len=TeacherConfig(**TEACHER).num_tokens),
+        jax.random.PRNGKey(0))
+    for tree, layout in ((p, lay_p), (s, lay_s), (proj, lay_proj)):
+        assert jax.tree.structure(tree) == jax.tree.structure(layout)
+        assert jax.tree.map(np.shape, tree) == jax.tree.map(np.shape, layout)
+    params = {"student": p, "projectors": proj}
+    rng = np.random.default_rng(7)
+    mu = jax.tree.map(lambda a: rng.standard_normal(a.shape, np.float32), params)
+    nu = jax.tree.map(lambda a: rng.random(a.shape, np.float32), params)
+    as_jax = lambda t: jax.tree.map(jnp.asarray, t)  # noqa: E731
+    JCKPT.save_checkpoint(path, dict(
+        epoch=0, student_state_dict=as_jax(dict(params=p, model_state=s)),
+        projectors_state_dict=as_jax(proj),
+        optimizer_state_dict=as_jax(dict(step=np.int32(5), mu=mu, nu=nu)),
+        vocab_size=V, model_config=dict(model_type="full", **SMALL)))
+    return cfg, p, s, proj, mu, nu
+
+
+def test_resume_from_a_jax_checkpoint(disk, tmp_path, capsys):
+    """Parameters, batch-norm state, the AdamW step and moments of a
+    JAX-format checkpoint land in the port's state, and training starts at
+    the epoch after the checkpoint's (here the last: no step is taken)."""
+    _, data, t_path, V = disk
+    ck = str(tmp_path / "jax_kd.npz")
+    cfg, p, s, proj, mu, nu = _jax_format_kd_checkpoint(ck, V)
+    with few_threads():
+        state, s_cfg, _ = TK.train_student_with_kd(
+            data, None, t_path, str(tmp_path / "out"), image_size=S,
+            max_caption_len=MAXLEN, num_epochs=1, resume_from=ck,
+            compute_dtype=torch.float32, device="cpu",
+            student_cfg_overrides=SMALL)
+    assert f"Resumed from {ck} at epoch 1" in capsys.readouterr().out
+    assert s_cfg == cfg
+    want = CV.jax_student_to_state_dict(p, s, cfg)
+    got = state.student.state_dict()
+    assert set(got) == set(want)
+    for k, v in want.items():
+        np.testing.assert_array_equal(got[k].numpy(), v.numpy(), err_msg=k)
+    for k, v in CV.jax_projectors_to_state_dict(proj).items():
+        np.testing.assert_array_equal(state.projectors.state_dict()[k].numpy(),
+                                      v.numpy())
+    assert state.opt_state.step == 5
+    for tree, got in ((mu, state.opt_state.mu), (nu, state.opt_state.nu)):
+        want = CV.tree_to_state_dict(tree)
+        assert set(got) == set(want) == set(state.named_parameters())
+        for k, v in want.items():
+            np.testing.assert_array_equal(got[k].numpy(), v.numpy(), err_msg=k)
+    hist = json.load(open(tmp_path / "out" / "student_training_history.json"))
+    assert hist["train_losses"] == []
+
+
+def test_resume_goes_on_from_the_checkpoint(trained_from_disk, disk,
+                                            tmp_path):
+    """The port's best checkpoint (epoch 0, one step) resumed for a second
+    epoch: the step count goes on and the log's records carry epoch 1."""
+    out, _, _, _ = trained_from_disk
+    _, data, t_path, _ = disk
+    log = tmp_path / "m.jsonl"
+    with few_threads():
+        state, _, _ = TK.train_student_with_kd(
+            data, None, t_path, str(tmp_path / "out"), image_size=S,
+            max_caption_len=MAXLEN, num_epochs=2,
+            resume_from=os.path.join(out, "best_student_model.npz"),
+            metrics_jsonl=str(log), compute_dtype=torch.float32,
+            device="cpu", verbose=False, student_cfg_overrides=SMALL)
+    assert state.opt_state.step == 2
+    assert [(r["epoch"], r["step"]) for r in _records(log)] == [(1, 1)]
+
+
+def test_port_checkpoint_coerces_into_the_jax_optimizer(trained_from_disk):
+    """A checkpoint the port wrote goes through the JAX trainer's resume:
+    ``FlatAdamW.coerce_state_tree`` and ``jax.tree.map(jnp.asarray, ...)``
+    give the port's state back."""
+    import jax.numpy as jnp
+
+    from imagecaptioner_tpu.core.config import KDTrainConfig as JKD
+    from imagecaptioner_tpu.core.config import full_student_config as j_full
+    from imagecaptioner_tpu.train import steps as JS
+
+    out, state, s_cfg, vocab = trained_from_disk
+    ck = JCKPT.load_checkpoint(os.path.join(out, "best_student_model.npz"))
+    params = {"student": jax.tree.map(jnp.asarray,
+                                      ck["student_state_dict"]["params"]),
+              "projectors": jax.tree.map(jnp.asarray,
+                                         ck["projectors_state_dict"])}
+    mstate = jax.tree.map(jnp.asarray, ck["student_state_dict"]["model_state"])
+    jcfg = j_full(len(vocab), dropout=s_cfg.dropout, **SMALL)
+    opt = JS.make_kd_opt(params, jcfg, JKD()).coerce_state_tree(
+        ck["optimizer_state_dict"])
+    assert int(opt.step) == state.opt_state.step == 1
+    for tree, named in ((opt.mu, state.opt_state.mu),
+                        (opt.nu, state.opt_state.nu),
+                        (params, state.named_parameters())):
+        assert jax.tree.structure(tree) == jax.tree.structure(params)
+        flat = CV.tree_to_state_dict(jax.tree.map(np.asarray, tree))
+        assert set(flat) == set(named)
+        for k, v in flat.items():
+            np.testing.assert_array_equal(v.numpy(), named[k].detach().numpy(),
+                                          err_msg=k)
+    buffers = CV.jax_student_to_state_dict(
+        ck["student_state_dict"]["params"], jax.tree.map(np.asarray, mstate),
+        s_cfg)
+    for k, v in state.student.state_dict().items():
+        np.testing.assert_array_equal(buffers[k].numpy(), v.numpy(), err_msg=k)
