@@ -13,11 +13,12 @@ Imports nothing of JAX.  In order it:
      float32 result) against its float32 form within one bf16 ulp at the
      serving and KD shapes, forward and gradients, and checks by the
      profiler that the product is a bf16 GEMM; holds the attention-core kernel against its plain version at the
-     refinement, ViT and teacher-decoder shapes (causal, and cross-attention
-     with Lq != Lk) in all four pairings of float32 and bf16, and its
-     gradients under autograd against autograd through the plain version;
-     times it per call and queued at the five shapes where the main paths
-     launch it, beside SDPA;
+     refinement, ViT (B=16, and B=12 as the teacher trainer runs it) and
+     teacher-decoder shapes (causal, and cross-attention with Lq != Lk) in
+     all four pairings of float32 and bf16, and its gradients under
+     autograd against autograd through the plain version; times it per call
+     and queued at the seven shapes where the main paths launch it, beside
+     SDPA;
   5. holds the greedy-decode kernel against its plain version at full width
      (B=32, L=49, E=256, H=512, V=2994, T=20), temperature 1 and 2 (float32
      every row; bf16 at most one row in 32 departing from the float64 plain
@@ -83,6 +84,29 @@ Imports nothing of JAX.  In order it:
      per-image one (B=1) on 8 images, the packed beam against the
      per-image beam on 4, and the card's report captions against the same
      evaluators on the CPU on 4 images (3 of 4 rows each), rows differing;
+ 11b. trains the teacher on the same dataset at full width (ViT-S/16 384 /
+     12 / 6 heads, decoder 512 / 8 / 4, V=2,994, T=47) through
+     ``train_teacher.train``: 3 steps of A=3 x B=12 (bf16 compute,
+     ``TEACHER_TRAIN_AUG``, dropout 0.15), one validation pass, best and
+     final checkpoints; every loss and gradient norm finite, every frozen
+     parameter bit-equal to its initial value, every trainable group moved,
+     the encoder's rate cosine(lr x 0.1) down to the unscaled eta_min, #2
+     launched exactly 36 times a step (12 ViT blocks x 3 micro-batches; the
+     train-mode decoder's attention dropout takes the plain softmax) and 20
+     times a validation batch; resumes from the best checkpoint for one more
+     epoch (epoch time 1.0 first, from the saved optimizer step and first
+     moments bit for bit); beam-serves the final checkpoint on 16 images;
+     one float32 step card against CPU (dropout and augmentation off, A=1,
+     B=2; loss 1e-4, gradient norm 1e-3 relative, no launch on the CPU);
+     times the bf16 step's span by CUDA events and its wall time on the
+     host clock, and #2's plain backward at (12, 6, 197, 64) per call and
+     queued;
+ 11c. exports the beam phase's sharpened teacher and the serving phase's
+     full student to the reference pipeline's key naming, saves each in the
+     reference's checkpoint dict with ``torch.save``, reads it back through
+     ``load_reference_pth`` -> ``*_from_reference`` -> ``strict=True`` and
+     serves one batch each (beam, 16 images; greedy, 32 images, bf16):
+     parameters and outputs must equal the ``.npz`` path's bit for bit;
  12. the compact student (MobileNetV2, E=H=256, L=49): holds the attention
      kernel against plain at the enhanced refinement's shape (B=16, 8 heads,
      64x64, hd=48); the compact scan kernel against plain at T=47, B=16 (h,
@@ -138,6 +162,7 @@ import contextlib
 import ctypes
 import dataclasses
 import functools
+import itertools
 import json
 import math
 import os
@@ -156,6 +181,7 @@ from imagecaptioner_tpu_torch.core import modules as M
 from imagecaptioner_tpu_torch.core.config import (STUDENT_CONFIGS,
                                                   DistillConfig,
                                                   KDTrainConfig, TeacherConfig,
+                                                  TeacherTrainConfig,
                                                   compact_student_config,
                                                   enhanced_student_config,
                                                   full_student_config)
@@ -175,6 +201,7 @@ from imagecaptioner_tpu_torch.models import lstm as L
 from imagecaptioner_tpu_torch.models import student_enhanced as SE
 from imagecaptioner_tpu_torch.models.student import Student, student_init
 from imagecaptioner_tpu_torch.models import transformer as TD
+from imagecaptioner_tpu_torch.models import teacher as TM
 from imagecaptioner_tpu_torch.models.teacher import teacher_init
 from imagecaptioner_tpu_torch.ops import _build
 from imagecaptioner_tpu_torch.ops import attention as A
@@ -184,17 +211,25 @@ from imagecaptioner_tpu_torch.ops import enhanced_scan as ES
 from imagecaptioner_tpu_torch.ops import greedy as G
 from imagecaptioner_tpu_torch.ops import lstm_scan as S
 from imagecaptioner_tpu_torch.train import common, steps
+from imagecaptioner_tpu_torch.train import optim as O
 from imagecaptioner_tpu_torch.train import train_student_kd as TK
+from imagecaptioner_tpu_torch.train import train_teacher as TT
 from imagecaptioner_tpu_torch.utils import convert as CV
+from imagecaptioner_tpu_torch.utils import reference_pth as RP
 from imagecaptioner_tpu_torch.utils.checkpoint import (load_checkpoint,
+                                                       load_student_checkpoint,
                                                        save_checkpoint)
 
 VOCAB = 2994          # bench.py's serving point
 BATCH, N_BATCHES, MAX_LEN = 32, 8, 20
 SEED = 0
-ATTN_SHAPES = [(32, 4, 49, 64), (16, 6, 197, 64)]  # refinement MHA, ViT MHSA
-# the teacher decoder's shapes in a KD step: (B, heads, Lq, Lk, causal)
-ATTN_KD_SHAPES = [(16, 8, 47, 47, True), (16, 8, 47, 197, False)]
+# refinement MHA, ViT MHSA (KD's frozen teacher, beam serving), ViT MHSA in
+# the teacher trainer's step (B=12)
+ATTN_SHAPES = [(32, 4, 49, 64), (16, 6, 197, 64), (12, 6, 197, 64)]
+# the teacher decoder's shapes: (B, heads, Lq, Lk, causal), in a KD step
+# (B=16) and in the teacher trainer's validation step (B=12)
+ATTN_KD_SHAPES = [(16, 8, 47, 47, True), (16, 8, 47, 197, False),
+                  (12, 8, 47, 47, True), (12, 8, 47, 197, False)]
 ATTN_LIMIT = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 # the KD step's shapes (KDTrainConfig defaults; max_caption_len 48)
@@ -274,6 +309,8 @@ ATTN_PATH_SHAPES = {
     "teacher_self": (16, 8, 47, 47, 64, True, torch.float32),
     "teacher_cross": (16, 8, 47, 197, 64, False, torch.float32),
     "enhanced_refinement": (16, 8, 64, 64, 48, False, torch.bfloat16),
+    "teacher_train_vit": (12, 6, 197, 197, 64, False, torch.bfloat16),
+    "teacher_train_vit_f32": (12, 6, 197, 197, 64, False, torch.float32),
 }
 
 
@@ -700,22 +737,29 @@ def bound_ms(bytes_moved: float, flops: float, kind: str):
 
 def check_attention_kd(dev, gen):
     """The teacher decoder's attention shapes (causal self-attention and
-    cross-attention with Lq != Lk), kernel against plain; then the kernel
-    under autograd at the refinement shape: its gradients against autograd
-    through the plain version."""
+    cross-attention with Lq != Lk), kernel against plain in all four
+    pairings of the q/k and v types (the teacher trainer's bf16 validation
+    step gives the cross-attention float32 q/k and bf16 v); then the kernel
+    under autograd at the refinement shape and at the teacher trainer's ViT
+    shape: its gradients (``attention_core_grads``, the plain recompute)
+    against autograd through the plain version."""
     for (B, H, Lq, Lk, causal) in ATTN_KD_SHAPES:
-        for dtype in (torch.float32, torch.bfloat16):
-            q = torch.randn((B, H, Lq, 64), device=dev, generator=gen).to(dtype)
-            k, v = (torch.randn((B, H, Lk, 64), device=dev, generator=gen
-                                ).to(dtype) for _ in range(2))
+        for qk_dt, v_dt in ATTN_DTYPES:
+            q = torch.randn((B, H, Lq, 64), device=dev, generator=gen).to(qk_dt)
+            k = torch.randn((B, H, Lk, 64), device=dev, generator=gen).to(qk_dt)
+            v = torch.randn((B, H, Lk, 64), device=dev, generator=gen).to(v_dt)
             got = A.attention_core_cuda(q, k, v, causal=causal, scale=0.125)
             ref = A.attention_core_plain(q, k, v, causal=causal, scale=0.125)
             torch.cuda.synchronize()
+            if got.dtype != v_dt or got.shape != ref.shape:
+                fail(f"attention ({B},{H},{Lq}x{Lk}) {v_dt}: dtype/shape "
+                     f"contract")
             err = (got.float() - ref.float()).abs().max().item()
-            ok = err <= ATTN_LIMIT[dtype]
-            print(f"attention_core ({B},{H},{Lq}x{Lk},64) {str(dtype)[6:]} "
-                  f"causal={causal}: max_abs_err {err:.3e} (limit "
-                  f"{ATTN_LIMIT[dtype]:g}) {'ok' if ok else 'FAIL'}", flush=True)
+            ok = err <= ATTN_LIMIT[v_dt]
+            print(f"attention_core ({B},{H},{Lq}x{Lk},64) q,k "
+                  f"{str(qk_dt)[6:]} v {str(v_dt)[6:]} causal={causal}: "
+                  f"max_abs_err {err:.3e} (limit {ATTN_LIMIT[v_dt]:g}) "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
             if not ok:
                 fail("attention kernel disagrees with its plain version")
     q = torch.randn((2, 2, 5, 64), device=dev, generator=gen)
@@ -726,8 +770,9 @@ def check_attention_kd(dev, gen):
         pass
     else:
         fail("the attention wrapper took a causal mask with Lq != Lk")
-    shape = (KD_B, 4, 49, 64)
-    for dtype in (torch.float32, torch.bfloat16):
+    for shape, dtype in itertools.product(
+            ((KD_B, 4, 49, 64), (TEACH_B, 6, 197, 64)),
+            (torch.float32, torch.bfloat16)):
         qkv = [torch.randn(shape, device=dev, generator=gen).to(dtype)
                for _ in range(3)]
         g = torch.randn(shape, device=dev, generator=gen).to(dtype)
@@ -2474,6 +2519,398 @@ def run_disk_pipeline(dev, tmp, smi):
     return {"train": train, "resume": resume, "evaluate": evaluate}, times
 
 
+# ---------------------------------------------------------------------------
+# Teacher training: CSV/PPM dataset -> train_teacher.train -> resume -> beam
+# ---------------------------------------------------------------------------
+
+# TeacherTrainConfig defaults: A=3 micro-batches of B=12; 3 steps an epoch
+TEACH_A, TEACH_B, TEACH_STEPS = 3, 12, 3
+TEACH_CPU_B = 2       # images of the float32 card-vs-CPU step
+
+
+@contextlib.contextmanager
+def recording_teacher_steps(records: list):
+    """Record every teacher train step the trainer makes: its epoch time,
+    its metrics, the optimizer step it started from, and the learning rate
+    each lr group got from ``adamw_update``; for a step that started from a
+    restored optimizer (step > 0) the first moments it started from, on
+    the host."""
+    real_make, real_update = steps.make_teacher_train_step, O.adamw_update
+    rates = {}
+
+    def update(grads, state, params, *, lr_fn, lr_scale, trainable, **kw):
+        for scale in {lr_scale[n] for n in params if trainable[n]}:
+            rates[scale] = lr_fn(scale)
+        return real_update(grads, state, params, lr_fn=lr_fn,
+                           lr_scale=lr_scale, trainable=trainable, **kw)
+
+    def make(*args, **kw):
+        step = real_make(*args, **kw)
+
+        def recorded(state, batch, sched_t, gen):
+            rec = dict(sched_t=sched_t, step_before=state.opt_state.step)
+            if rec["step_before"] and not any(r["step_before"]
+                                              for r in records):
+                rec["mu_before"] = {n: m.cpu().clone()
+                                    for n, m in state.opt_state.mu.items()}
+            rates.clear()
+            metrics = step(state, batch, sched_t, gen)
+            rec.update(metrics, rates=dict(rates))
+            records.append(rec)
+            return metrics
+
+        return recorded
+
+    steps.make_teacher_train_step, O.adamw_update = make, update
+    try:
+        yield
+    finally:
+        steps.make_teacher_train_step, O.adamw_update = real_make, real_update
+
+
+def check_teacher_records(records, tr, n_steps, epoch, steps_per_epoch):
+    """Finite losses and gradient norms; epoch time ``epoch + idx /
+    steps_per_epoch``; the encoder's rate cosine(lr x 0.1) down to the
+    unscaled eta_min, the rest cosine(lr).  The two readings of the
+    encoder's rate agree at a restart (t = 0) and differ everywhere else:
+    at every other step it must not be 0.1 x cosine(lr)."""
+    def cos(t, base):
+        return O.cosine_warm_restarts(t, base_lr=base, t0=tr.sched_t0,
+                                      t_mult=tr.sched_t_mult,
+                                      eta_min=tr.sched_eta_min)
+    numbers = [float(r[k]) for r in records for k in ("loss", "grad_norm")]
+    times = [r["sched_t"] for r in records]
+    want_t = [epoch + i / steps_per_epoch for i in range(n_steps)]
+    enc = tr.encoder_lr_scale
+    rates_ok = all(
+        r["rates"] == {enc: cos(r["sched_t"], tr.learning_rate * enc),
+                       1.0: cos(r["sched_t"], tr.learning_rate)}
+        and (r["sched_t"] == 0
+             or r["rates"][enc] != enc * cos(r["sched_t"], tr.learning_rate))
+        for r in records) and any(r["sched_t"] > 0 for r in records)
+    if len(records) != n_steps or not np.isfinite(numbers).all() \
+            or not np.allclose(times, want_t, rtol=0, atol=1e-12) \
+            or not rates_ok:
+        fail(f"teacher steps: {len(records)} of {n_steps}, epoch times "
+             f"{times} (want {want_t}), losses and norms {numbers}, rates "
+             f"{[r['rates'] for r in records]}")
+    return numbers
+
+
+def teacher_groups(teacher, init: dict) -> tuple:
+    """Trainable parameters that moved from ``init``, by group (the ViT's
+    last 4 blocks, the norms of its frozen blocks, its final norm, the
+    projection, the embedding, the decoder, the output norm and head); the
+    frozen ones, each of which must equal ``init`` bit for bit."""
+    depth = teacher.cfg.encoder_depth
+    moved, frozen = {}, 0
+    for name, q in teacher.named_parameters():
+        same = torch.equal(q.detach().cpu(), init[name])
+        if not q.requires_grad:
+            frozen += 1
+            if not same:
+                fail(f"frozen teacher parameter {name} moved")
+            continue
+        parts = name.split(".")
+        group = parts[0]
+        if name.startswith("encoder.blocks."):
+            group = ("encoder.last_blocks" if int(parts[2]) >= depth - 4
+                     else "encoder.frozen_block_norms")
+        elif name.startswith("encoder.norm."):
+            group = "encoder.norm"
+        moved[group] = moved.get(group, 0) + int(not same)
+    return moved, frozen
+
+
+def teacher_card_vs_cpu(dev, root, csv_path):
+    """One float32 teacher step on the card (kernels) against the same step
+    on the CPU (plain versions): dropout off, augmentation off, A=1, B=2 of
+    the disk dataset's images, full width."""
+    cfg = TeacherConfig(vocab_size=VOCAB, dropout=0.0, image_size=DISK_SIZE)
+    p0 = teacher_init(SEED, cfg)
+    loader, _ = TT.get_loader(root, csv_path, batch_size=TEACH_CPU_B,
+                              max_caption_len=KD_T + 1, shuffle=False,
+                              image_size=DISK_SIZE)
+    batch = next(iter(common.stacked_batches(loader, 1)))
+    tr = TeacherTrainConfig(accumulation_steps=1)
+    per_step = cfg.encoder_depth + 2 * cfg.num_decoder_layers
+    results = {}
+    for where in (dev, torch.device("cpu")):
+        teacher = TM.Teacher(cfg)
+        teacher.load_state_dict(CV.jax_teacher_to_state_dict(p0), strict=True)
+        state = steps.init_teacher_train_state(teacher.to(where), cfg)
+        step = steps.make_teacher_train_step(cfg, tr, aug=T.AugmentConfig(),
+                                             compute_dtype=torch.float32)
+        before = A.launches
+        metrics = step(state, steps.batch_to_device(batch, where), 0.0, None)
+        results[where.type] = {k: float(v) for k, v in metrics.items()}
+        launched = A.launches - before
+        if launched != (per_step if where.type == "cuda" else 0):
+            fail(f"the float32 teacher step on {where} launched #2 "
+                 f"{launched} times")
+    for k, limit in (("loss", CARD_CPU_LOSS_LIMIT),
+                     ("grad_norm", CARD_CPU_GNORM_LIMIT)):
+        g, c = results["cuda"][k], results["cpu"][k]
+        rel = abs(g - c) / abs(c)
+        ok = np.isfinite(g) and rel <= limit
+        print(f"fp32 teacher step card vs CPU {k}: {g:.7g} vs {c:.7g}, "
+              f"relative {rel:.3e} (limit {limit:g}) {'ok' if ok else 'FAIL'}",
+              flush=True)
+        if not ok:
+            fail("the card's float32 teacher step disagrees with the CPU's")
+    return results
+
+
+def time_teacher_steps(dev, state, t_cfg, root, csv_path, n=4):
+    """Further bf16 steps on the trained state: host clock around each step
+    (ending in a synchronise) and CUDA events around it; #2's launches a
+    step; the plain backward of #2 at the ViT's training shape (one ViT
+    block's share of the step's backward), per call and queued behind a
+    full stream (``queued_ms``: the card's time, not the host's)."""
+    tr = TeacherTrainConfig()
+    step = steps.make_teacher_train_step(t_cfg, tr,
+                                         compute_dtype=torch.bfloat16)
+    loader, _ = TT.get_loader(root, csv_path, batch_size=TEACH_B,
+                              max_caption_len=KD_T + 1, shuffle=False,
+                              image_size=DISK_SIZE)
+    stacks = list(itertools.islice(common.stacked_batches(loader, TEACH_A),
+                                   3))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    wall, span_ms = [], []
+    for i in range(n + 1):
+        batch = steps.batch_to_device(stacks[i % len(stacks)], dev)
+        torch.cuda.synchronize()
+        if i == 1:
+            zero_counters()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        metrics = step(state, batch, 0.5, gen)
+        end.record()
+        float(metrics["loss"])
+        torch.cuda.synchronize()
+        wall.append(1e3 * (time.perf_counter() - t0))
+        span_ms.append(start.elapsed_time(end))
+    per_step = A.launches / n
+    shape = (TEACH_B, t_cfg.encoder_heads, t_cfg.num_tokens,
+             t_cfg.encoder_dim // t_cfg.encoder_heads)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    bwd, bwd_queued = {}, {}
+    for dt in (torch.bfloat16, torch.float32):
+        q, k, v, g = (torch.randn(shape, device=dev, generator=gen).to(dt)
+                      for _ in range(4))
+
+        def grads():
+            return A.attention_core_grads(q, k, v, g, scale=shape[3] ** -0.5)
+        bwd[str(dt)[6:]] = median_ms(grads, 20)
+        # 8 calls: their enqueueing (about 1 ms each) stays inside the
+        # blocking product's time, so the stream does not run dry
+        bwd_queued[str(dt)[6:]] = queued_ms(grads, 8)
+    out = dict(wall_ms=statistics.median(wall[1:]),
+               span_ms=statistics.median(span_ms[1:]),
+               wall_ms_all=wall[1:], span_ms_all=span_ms[1:],
+               attention_launches_per_step=per_step,
+               plain_backward_ms_bf16=bwd["bfloat16"],
+               plain_backward_ms_f32=bwd["float32"],
+               plain_backward_queued_ms_bf16=bwd_queued["bfloat16"],
+               plain_backward_queued_ms_f32=bwd_queued["float32"])
+    print(f"teacher step bf16 A={TEACH_A} x B={TEACH_B} T={KD_T}: wall "
+          f"{out['wall_ms']:.3f} ms (host clock, synchronised), span "
+          f"{out['span_ms']:.3f} ms (CUDA events around the step, idle gaps "
+          f"included) median of {n}; #2 {per_step:g} launches a step; #2's "
+          f"plain backward at {shape} a ViT block: {bwd['bfloat16']:.4f} ms "
+          f"bf16, {bwd['float32']:.4f} ms float32 per call, "
+          f"{bwd_queued['bfloat16']:.4f} / {bwd_queued['float32']:.4f} ms "
+          f"queued", flush=True)
+    if per_step != TEACH_A * t_cfg.encoder_depth:
+        fail(f"the teacher step launched #2 {per_step} times, not "
+             f"{TEACH_A * t_cfg.encoder_depth}")
+    return out
+
+
+def run_teacher_training(dev, tmp, root, csv_path):
+    """The teacher trainer at full width on the disk dataset: 3 steps of
+    A=3 x B=12 (bf16, ``TEACHER_TRAIN_AUG``, dropout 0.15), a validation
+    pass, best and final checkpoints; a resume from the best for one more
+    epoch; beam serving of the final checkpoint; the float32 step card
+    against CPU; the step's times.  Returns the launch counts and times."""
+    tr = TeacherTrainConfig()
+    kw = dict(max_caption_len=KD_T + 1, image_size=DISK_SIZE,
+              compute_dtype=torch.bfloat16, seed=SEED,
+              max_steps_per_epoch=TEACH_STEPS, data_parallel=False,
+              verbose=False, device=dev)
+    rows = len(CaptionDataset(root, csv_path))
+    val_batches, per_epoch = rows // TEACH_B, max(rows // TEACH_B // TEACH_A, 1)
+    out = os.path.join(tmp, "teacher_out")
+    records = []
+    torch.cuda.synchronize()
+    zero_counters()
+    t0 = time.perf_counter()
+    with recording_teacher_steps(records):
+        state, t_cfg, vocab = TT.train(root, csv_path, out, num_epochs=1,
+                                       **kw)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train = {"attention_core": A.launches}
+    depth, layers = t_cfg.encoder_depth, t_cfg.num_decoder_layers
+    want = TEACH_STEPS * TEACH_A * depth + val_batches * (depth + 2 * layers)
+    numbers = check_teacher_records(records, tr, TEACH_STEPS, 0, per_epoch)
+    best = os.path.join(out, "best_teacher_model.npz")
+    hist = json.load(open(os.path.join(out, "training_history.json")))
+    init = CV.jax_teacher_to_state_dict(teacher_init(SEED, t_cfg))
+    moved, frozen = teacher_groups(state.teacher, init)
+    print(f"teacher train: V={len(vocab)}, {len(records)} steps, losses and "
+          f"gradient norms {numbers}, rates {[r['rates'] for r in records]}; "
+          f"history {hist}; moved per group {moved}, {frozen} frozen ones "
+          f"equal their initial values; #2 launches {train} (want {want}: "
+          f"{TEACH_A * depth} a step, {depth + 2 * layers} a validation batch "
+          f"x {val_batches}); {train_s:.2f} s", flush=True)
+    if train["attention_core"] != want or frozen != 4 + 8 * (depth - 4) \
+            or len(moved) != 8 or min(moved.values()) < 1 \
+            or not os.path.exists(best) or len(vocab) != VOCAB \
+            or not np.isfinite(hist["train_losses"] + hist["val_losses"]).all():
+        fail("the teacher training run did not take its steps, launch #2 as "
+             "expected, freeze and move what it should, or land its "
+             "checkpoints")
+
+    ck = load_checkpoint(best)
+    saved_mu = CV.tree_to_state_dict(ck["optimizer_state_dict"]["mu"])
+    at_best = CV.jax_teacher_to_state_dict(ck["model_state_dict"]["params"])
+    records.clear()
+    zero_counters()
+    t0 = time.perf_counter()
+    with recording_teacher_steps(records):
+        state, _, _ = TT.train(root, csv_path, os.path.join(tmp, "resumed"),
+                               num_epochs=2, resume_from=best, **kw)
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t0
+    resume = {"attention_core": A.launches}
+    check_teacher_records(records, tr, TEACH_STEPS, int(ck["epoch"]) + 1,
+                          per_epoch)
+    first = records[0]
+    same_mu = set(first.get("mu_before", {})) == set(saved_mu) and all(
+        torch.equal(first["mu_before"][n], saved_mu[n]) for n in saved_mu)
+    moved, frozen = teacher_groups(state.teacher, at_best)
+    print(f"teacher resume: from step {int(ck['optimizer_state_dict']['step'])}"
+          f" at epoch {int(ck['epoch'])}: first step at epoch time "
+          f"{first['sched_t']} from optimizer step {first['step_before']}, "
+          f"its first moments the checkpoint's bit for bit: {same_mu}; to "
+          f"step {state.opt_state.step}; moved per group {moved}; #2 "
+          f"launches {resume} ({resume_s:.2f} s)", flush=True)
+    if first["step_before"] != TEACH_STEPS or not same_mu \
+            or state.opt_state.step != 2 * TEACH_STEPS \
+            or resume["attention_core"] != TEACH_STEPS * TEACH_A * depth \
+            or min(moved.values()) < 1:
+        fail("the resumed teacher run did not go on from the checkpoint")
+
+    final = os.path.join(tmp, "resumed", "final_teacher_model.npz")
+    teacher, cfg = serve.load_teacher(final, dev)
+    zero_counters()
+    seqs, scores, lens = serve.make_beam_captioner(
+        teacher, cfg, dev, max_length=MAX_LEN, beam_size=BEAM_K)(
+        beam_images(1, SEED + 31)[0])
+    check_beam_contract(seqs, scores, lens, BEAM_B)
+    beam = {"attention_core": A.launches, "beam_self_attention":
+            BA.launches_self, "beam_cross_attention": BA.launches_cross}
+    print(f"trained teacher beam-served: {BEAM_B} images, "
+          f"{len({tuple(r) for r in seqs[:, 0].tolist()})} distinct best "
+          f"captions, launches {beam}", flush=True)
+    if min(beam.values()) < 1:
+        fail(f"a kernel of the trained teacher's beam path was not launched: "
+             f"{beam}")
+    del teacher
+    both = teacher_card_vs_cpu(dev, root, csv_path)
+    times = time_teacher_steps(dev, state, t_cfg, root, csv_path)
+    times.update(train_s=train_s, resume_s=resume_s)
+    return {"train": train, "resume": resume, "beam": beam}, times, both
+
+
+# ---------------------------------------------------------------------------
+# Reference checkpoints: .pth in the reference's naming -> the port
+# ---------------------------------------------------------------------------
+
+
+def write_reference_pth(path: str, sd: dict) -> None:
+    """A state dict in the reference's key naming, in the reference's
+    checkpoint dict, by ``torch.save``."""
+    torch.save({"epoch": 0, "vocab_size": VOCAB, "model_state_dict": {
+        k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}},
+        path)
+
+
+def same_parameters(a, b) -> bool:
+    sa, sb = a.state_dict(), b.state_dict()
+    return set(sa) == set(sb) and all(torch.equal(sa[k], sb[k]) for k in sa)
+
+
+def run_reference_pth(dev, tmp, batches):
+    """The sharpened teacher of the beam phase and the full student of the
+    serving phase, exported to the reference's naming and read back through
+    ``load_reference_pth`` -> ``*_from_reference`` -> ``strict=True``; each
+    serves one batch, whose outputs must equal the ``.npz`` path's bit for
+    bit.  Returns the launch counts."""
+    npz = os.path.join(tmp, "ref_teacher.npz")
+    write_beam_teacher(npz)
+    cfg = TeacherConfig(vocab_size=VOCAB)
+    pth = os.path.join(tmp, "best_teacher_model.pth")
+    write_reference_pth(pth, RP.teacher_to_reference(
+        load_checkpoint(npz)["model_state_dict"]["params"], cfg))
+    ck = RP.load_reference_pth(pth)
+    t_keys = len(ck["model_state_dict"])
+    r_cfg = TeacherConfig(vocab_size=int(ck["vocab_size"]))
+    r_teacher = TM.Teacher(r_cfg)
+    r_teacher.load_state_dict(CV.jax_teacher_to_state_dict(
+        RP.teacher_from_reference(ck["model_state_dict"], r_cfg)), strict=True)
+    r_teacher = r_teacher.to(dev).eval()
+    n_teacher, n_cfg = serve.load_teacher(npz, dev)
+    images = beam_images(1, SEED + 41)[0]
+    kw = dict(max_length=MAX_LEN, beam_size=BEAM_K)
+    zero_counters()
+    got = serve.make_beam_captioner(r_teacher, r_cfg, dev, **kw)(images)
+    teacher = {"attention_core": A.launches,
+               "beam_self_attention": BA.launches_self,
+               "beam_cross_attention": BA.launches_cross}
+    want = serve.make_beam_captioner(n_teacher, n_cfg, dev, **kw)(images)
+    t_same = all(np.array_equal(a, b) for a, b in zip(got, want))
+    t_params = same_parameters(r_teacher, n_teacher)
+    del r_teacher, n_teacher
+
+    npz = write_student(tmp, "full")
+    params, s_cfg, mstate = load_student_checkpoint(npz)
+    pth = os.path.join(tmp, "best_student_model.pth")
+    write_reference_pth(pth, RP.full_student_to_reference(params, mstate,
+                                                          s_cfg))
+    ck = RP.load_reference_pth(pth)
+    r_cfg = full_student_config(int(ck["vocab_size"]))
+    r_params, r_state = RP.full_student_from_reference(ck["model_state_dict"],
+                                                       r_cfg)
+    r_student = Student(r_cfg)
+    r_student.load_state_dict(CV.jax_student_to_state_dict(r_params, r_state,
+                                                           r_cfg), strict=True)
+    r_student = M.cast_parameters(r_student, torch.bfloat16).to(dev).eval()
+    n_student, n_cfg = serve.load_student(npz, dev, torch.bfloat16)
+    zero_counters()
+    got = serve.make_greedy_captioner(r_student, r_cfg, dev,
+                                      max_length=MAX_LEN)(batches[0])
+    student = {"attention_core": A.launches, "greedy_decode": G.launches}
+    want = serve.make_greedy_captioner(n_student, n_cfg, dev,
+                                       max_length=MAX_LEN)(batches[0])
+    s_same = np.array_equal(got, want)
+    s_params = same_parameters(r_student, n_student)
+    print(f"reference .pth: teacher ({t_keys} keys) parameters identical "
+          f"to the .npz path's {t_params}, beam outputs of {BEAM_B} images "
+          f"bit for bit {t_same}, launches {teacher}; full student "
+          f"({len(ck['model_state_dict'])} keys) parameters identical "
+          f"{s_params}, greedy tokens of {len(got)} images bit for bit "
+          f"{s_same}, launches {student}", flush=True)
+    if not (t_same and t_params and s_same and s_params) \
+            or min(teacher.values()) < 1 or min(student.values()) < 1:
+        fail("a model imported from a reference .pth serves differently from "
+             "its .npz twin")
+    return {"teacher": teacher, "student": student}
+
+
 def forget_libraries() -> None:
     """Drop every loaded kernel library and the grids asked of them, so that
     the next launch loads the library built from the current
@@ -2761,13 +3198,27 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         beam_launches, beam_rates, beam_split = run_beam(dev, tmp)
 
-    # --- 11. the disk pipeline: CSV/PPM data, trainer, resume, evaluators ----
+    # --- 11. the disk pipeline: CSV/PPM data, trainer, resume, evaluators;
+    # then the teacher trainer on the same dataset -------------------------
     with tempfile.TemporaryDirectory() as tmp:
         disk_launches, disk_times = run_disk_pipeline(dev, tmp, smi)
-    disk = {k: sum(d.get(k, 0) for d in disk_launches.values())
-            for k in ("attention_core", "greedy_decode", "decoder_scan",
-                      "decoder_scan_train", "decoder_scan_bwd",
-                      "beam_self_attention", "beam_cross_attention")}
+        root = os.path.join(tmp, "flickr")
+        teach_launches, teach_times, teach_both = run_teacher_training(
+            dev, tmp, root, os.path.join(root, "captions_clean.csv"))
+
+    # --- 11b. reference checkpoints (.pth) -> the port, served ----------------
+    with tempfile.TemporaryDirectory() as tmp:
+        ref_launches = run_reference_pth(dev, tmp, batches)
+
+    def summed(runs):
+        return {k: sum(d.get(k, 0) for d in runs.values())
+                for k in ("attention_core", "greedy_decode", "decoder_scan",
+                          "decoder_scan_train", "decoder_scan_bwd",
+                          "beam_self_attention", "beam_cross_attention")}
+
+    later = {"disk_pipeline": summed(disk_launches),
+             "teacher_training": summed(teach_launches),
+             "reference_pth": summed(ref_launches)}
 
     # --- 12. the compact student: kernels #3 and #7, serving, KD ------------
     attn48_err = check_attention_48(dev, gen)
@@ -2861,11 +3312,13 @@ def main() -> int:
         launches_compact_kd=ckd_launches["attention_core"],
         launches_enhanced_serving=e_launches["attention_core"],
         launches_enhanced_kd=ekd_launches["attention_core"],
-        launches_disk_pipeline=disk["attention_core"])
+        **{f"launches_{k}": d["attention_core"] for k, d in later.items()})
 
-    def with_disk(name, n):
-        """A kernel's launches on its main path plus the disk pipeline's."""
-        return dict(n=n + disk[name], launches_disk_pipeline=disk[name])
+    def with_later(name, n):
+        """A kernel's launches on its main path plus those of the disk
+        pipeline, the teacher trainer and the reference-checkpoint phase."""
+        more = {f"launches_{k}": d[name] for k, d in later.items()}
+        return dict(n=n + sum(more.values()), **more)
 
     kernels = [
         entry("attention_core", "attention_core.cu", "pallas_attention.py:198",
@@ -2874,7 +3327,19 @@ def main() -> int:
               attn_t["vit"]["bound"], attn_t["vit"]["sdpa_ms"],
               queued_ms=attn_t["vit"]["queued_ms"],
               library_queued_ms=attn_t["vit"]["sdpa_queued_ms"],
-              hd48_max_abs_err=attn48_err, by_shape={
+              hd48_max_abs_err=attn48_err,
+              teacher_step_span_ms=teach_times["span_ms"],
+              teacher_step_wall_ms=teach_times["wall_ms"],
+              teacher_step_launches=teach_times["attention_launches_per_step"],
+              teacher_train_plain_backward_ms=teach_times[
+                  "plain_backward_ms_bf16"],
+              teacher_train_plain_backward_f32_ms=teach_times[
+                  "plain_backward_ms_f32"],
+              teacher_train_plain_backward_queued_ms=teach_times[
+                  "plain_backward_queued_ms_bf16"],
+              teacher_train_plain_backward_f32_queued_ms=teach_times[
+                  "plain_backward_queued_ms_f32"],
+              by_shape={
                   n: {k: (v if k != "bound" else v[0]) for k, v in t.items()}
                   for n, t in attn_t.items()},
               **attn_by_path),
@@ -2903,27 +3368,27 @@ def main() -> int:
         entry("greedy_decode", "greedy_decode.cu", "pallas_greedy.py:258",
               err=greedy_diff, ms=greedy_ms, plain=greedy_plain_ms,
               bound=greedy_bound,
-              **with_disk("greedy_decode", launches["greedy_decode"]),
+              **with_later("greedy_decode", launches["greedy_decode"]),
               bf16_rows_identical=f"{bf16_rows}/{BATCH}",
               chain_floor_ms=floors["greedy_decode"]["floor_ms"],
               chain=floors["greedy_decode"], ptxas=usage["greedy_decode"]),
         entry("decoder_scan", "decoder_scan.cu", f"{lstm}:267",
               err=scan["fwd_err"], ms=scan_t["eval_ms"],
               plain=scan_t["plain_eval_ms"], bound=scan_b["eval"],
-              **with_disk("decoder_scan", kd_launches["decoder_scan"]),
+              **with_later("decoder_scan", kd_launches["decoder_scan"]),
               chain_floor_ms=floors["decoder_scan"]["floor_ms"],
               chain=floors["decoder_scan"], ptxas=usage["decoder_scan"]),
         entry("decoder_scan_train", "decoder_scan.cu", f"{lstm}:339",
               err=scan["fwd_err"], ms=scan_t["train_ms"],
               plain=scan_t["plain_train_ms"], bound=scan_b["train"],
-              **with_disk("decoder_scan_train",
+              **with_later("decoder_scan_train",
                           kd_launches["decoder_scan_train"]),
               chain_floor_ms=floors["decoder_scan"]["floor_ms"],
               ptxas=usage["decoder_scan"]),
         entry("decoder_scan_bwd", "decoder_scan_bwd.cu", f"{lstm}:1037",
               err=scan["bwd_err"], ms=scan_t["bwd_ms"],
               plain=scan_t["plain_bwd_ms"], bound=scan_b["bwd"],
-              **with_disk("decoder_scan_bwd", kd_launches["decoder_scan_bwd"]),
+              **with_later("decoder_scan_bwd", kd_launches["decoder_scan_bwd"]),
               chain_floor_ms=floors["decoder_scan_bwd"]["floor_ms"],
               chain=floors["decoder_scan_bwd"],
               ptxas=usage["decoder_scan_bwd"],
@@ -2935,7 +3400,7 @@ def main() -> int:
               "pallas_beam_attn.py:166", err=beam_err["self"],
               ms=bt["self_ms"], plain=bt["self_plain_ms"],
               bound=bt["bounds"]["self"], library=bt["self_sdpa_ms"],
-              **with_disk("beam_self_attention",
+              **with_later("beam_self_attention",
                           beam_launches["beam_self_attention"]),
               queued_ms=bt["self_queued_ms"],
               library_queued_ms=bt["self_sdpa_queued_ms"],
@@ -2949,7 +3414,7 @@ def main() -> int:
               "pallas_beam_attn.py:249", err=beam_err["cross"],
               ms=bt["cross_ms"], plain=bt["cross_plain_ms"],
               bound=bt["bounds"]["cross"], library=bt["cross_sdpa_ms"],
-              **with_disk("beam_cross_attention",
+              **with_later("beam_cross_attention",
                           beam_launches["beam_cross_attention"]),
               queued_ms=bt["cross_queued_ms"],
               library_queued_ms=bt["cross_sdpa_queued_ms"],
@@ -2967,7 +3432,9 @@ def main() -> int:
                       "enhanced_kd_images_per_s": ekd_rate,
                       "beam_images_per_s": beam_rates,
                       "beam_batch_ms": beam_split,
-                      "disk_pipeline": disk_times}))
+                      "disk_pipeline": disk_times,
+                      "teacher_training": teach_times,
+                      "teacher_card_vs_cpu": teach_both}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

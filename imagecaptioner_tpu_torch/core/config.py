@@ -115,6 +115,25 @@ class DistillConfig:
 
 
 @dataclass(frozen=True)
+class TeacherTrainConfig:
+    """The teacher trainer's hyperparameters."""
+
+    learning_rate: float = 1e-4
+    batch_size: int = 12
+    accumulation_steps: int = 3
+    num_epochs: int = 25
+    weight_decay: float = 0.01
+    grad_clip: float = 0.5
+    label_smoothing: float = 0.1
+    encoder_lr_scale: float = 0.1
+    patience: int = 5
+    validate_every: int = 2
+    sched_t0: int = 5
+    sched_t_mult: int = 2
+    sched_eta_min: float = 1e-6
+
+
+@dataclass(frozen=True)
 class KDTrainConfig:
     """The KD trainer's hyperparameters."""
 

@@ -4,9 +4,9 @@ device as they are; normalization and the stochastic augmentations run
 there, drawing from an explicit ``torch.Generator``.
 
 Ported: ``normalize``, ``color_jitter``, ``random_hflip`` and
-``augment_and_normalize`` for ``KD_TRAIN_AUG``.  Rotation and random crop
-(``OPTIMIZED_KD_AUG``) belong to the optimized trainer (ROADMAP Queue 1
-item 9) and raise.
+``augment_and_normalize`` for ``TEACHER_TRAIN_AUG`` and ``KD_TRAIN_AUG``.
+Rotation and random crop (``OPTIMIZED_KD_AUG``) belong to the optimized
+trainer (ROADMAP Queue 1 item 9) and raise.
 """
 
 from __future__ import annotations
@@ -33,6 +33,8 @@ class AugmentConfig:
     out_size: int = 224
 
 
+TEACHER_TRAIN_AUG = AugmentConfig(brightness=0.1, contrast=0.1, saturation=0.1,
+                                  hue=0.05, hflip_prob=0.3)
 KD_TRAIN_AUG = AugmentConfig(brightness=0.2, contrast=0.2, saturation=0.2,
                              hue=0.1, hflip_prob=0.5)
 

@@ -27,7 +27,8 @@ def teacher_forward_for_kd(teacher: Teacher, images: torch.Tensor,
     was_training = teacher.training
     teacher.eval()
     memory = teacher.encode_image(images.to(compute_dtype))
-    logits = teacher(None, captions, memory=memory)
+    logits = teacher(None, captions, memory=memory,
+                     decoder_dtype=compute_dtype)
     teacher.train(was_training)
     return {"logits": logits.float(), "encoder_features": memory.float(),
             "hidden_states": None}

@@ -53,7 +53,8 @@ from imagecaptioner_tpu_torch.eval.evaluate_teacher import (save_figure_of,
                                                             to_images)
 from imagecaptioner_tpu_torch.eval.latency import measure_inference_time
 from imagecaptioner_tpu_torch.models.student import Student
-from imagecaptioner_tpu_torch.models.teacher import Teacher, load_teacher
+from imagecaptioner_tpu_torch.models.teacher import (Teacher, count_parameters,
+                                                     load_teacher)
 from imagecaptioner_tpu_torch.ops import decode as D
 from imagecaptioner_tpu_torch.utils.checkpoint import load_checkpoint
 from imagecaptioner_tpu_torch.utils.convert import jax_student_to_state_dict
@@ -61,10 +62,6 @@ from imagecaptioner_tpu_torch.utils.convert import jax_student_to_state_dict
 # the model_config keys the reference's loader passes to the config
 STUDENT_CONFIG_KEYS = ("embed_size", "hidden_size", "num_layers", "dropout",
                        "use_attention_refinement")
-
-
-def count_parameters(model: torch.nn.Module) -> int:
-    return sum(p.numel() for p in model.parameters())
 
 
 class StudentEvaluator:

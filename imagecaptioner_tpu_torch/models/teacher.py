@@ -5,13 +5,14 @@ the output head.  images (B, 3, S, S) + captions (T, B) time-major ->
 logits (T, B, V).
 
 The KD step runs it frozen in eval mode; ``ops/decode.py`` decodes from it
-(greedy and beam search over ``encode_image``'s memory).  Teacher training
-is ROADMAP Queue 1 item 6.
+(greedy and beam search over ``encode_image``'s memory);
+``train/train_teacher.py`` trains it, with ``set_trainable`` marking what
+``teacher_trainable_mask`` unfreezes.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -28,7 +29,7 @@ from imagecaptioner_tpu_torch.core.modules import (Embedding, LayerNorm,
                                                    xavier_uniform)
 from imagecaptioner_tpu_torch.models.transformer import (DecoderLayer,
                                                          decoder_apply)
-from imagecaptioner_tpu_torch.models.vit import ViT
+from imagecaptioner_tpu_torch.models.vit import ViT, vit_trainable_mask
 from imagecaptioner_tpu_torch.utils.checkpoint import load_checkpoint
 from imagecaptioner_tpu_torch.utils.convert import jax_teacher_to_state_dict
 
@@ -71,19 +72,49 @@ class Teacher(nn.Module):
 
     def forward(self, images: Optional[torch.Tensor], captions: torch.Tensor,
                 *, memory: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                decoder_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         """``teacher_apply`` -> logits (T, B, V).  Pass ``memory`` to reuse
-        a precomputed encoding."""
+        a precomputed encoding.  The caption stream keeps the embedding's
+        dtype and the memory the images', as in JAX: a float32 stream
+        against a bf16 memory computes in float32 wherever the two meet,
+        except cross-attention's K/V, its P·V and its out-projection, which
+        follow the memory.  ``decoder_dtype`` casts the stream instead (the
+        KD step's bf16 teacher, whose JAX parameters are all cast to
+        bf16)."""
         if memory is None:
             memory = self.encode_image(images)
         x = self.embed_captions(captions, generator=generator)
-        # the caption embeddings follow the parameters' dtype, the memory
-        # the images'; the decoder computes in the memory's
-        x = decoder_apply(self.decoder, x.to(memory.dtype), memory,
-                          causal=True, generator=generator)
+        if decoder_dtype is not None:
+            x = x.to(decoder_dtype)
+        x = decoder_apply(self.decoder, x, memory, causal=True,
+                          generator=generator)
         x = dropout(self.pre_output_norm(x), self.cfg.dropout, self.training,
                     generator)
         return self.fc_out(x).transpose(0, 1)
+
+
+def teacher_trainable_mask(model: Teacher, cfg: TeacherConfig
+                           ) -> Dict[str, bool]:
+    """Parameter name -> trainable, as ``teacher.teacher_trainable_mask``:
+    the ViT partly frozen (``vit_trainable_mask``), everything else
+    trains."""
+    vit = vit_trainable_mask(model.encoder, cfg)
+    return {name: vit[name[len("encoder."):]] if name.startswith("encoder.")
+            else True for name, _ in model.named_parameters()}
+
+
+def set_trainable(model: Teacher, cfg: TeacherConfig) -> Dict[str, bool]:
+    """Apply ``teacher_trainable_mask`` as ``requires_grad``."""
+    mask = teacher_trainable_mask(model, cfg)
+    for name, p in model.named_parameters():
+        p.requires_grad_(mask[name])
+    return mask
+
+
+def count_parameters(model: nn.Module) -> int:
+    """Parameter elements, frozen ones included (``tree_size``)."""
+    return sum(p.numel() for p in model.parameters())
 
 
 def teacher_init(seed: int, cfg: TeacherConfig) -> dict:

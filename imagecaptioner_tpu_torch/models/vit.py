@@ -4,14 +4,17 @@ conv, CLS token + learned position embeddings, ``depth`` pre-norm blocks
 returns all tokens; the teacher taps them as cross-attention memory and as
 KD features.  Submodule names follow the JAX tree (timm naming).
 
-Eval forward only: the KD step runs the teacher frozen, and the JAX
-``vit_forward_features`` never applies dropout there.  Teacher training and
-sequence parallelism are ROADMAP Queue 1 items 6 and 13.
+The ViT applies no dropout, in training either: the JAX
+``vit_forward_features`` defaults ``dropout=0.0`` and the teacher passes
+none.  So a training forward is the same forward with gradients through
+the blocks; ``vit_trainable_mask`` says which parameters train.  Sequence
+parallelism is ROADMAP Queue 1 item 13.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Dict
 
 import numpy as np
 import torch
@@ -96,3 +99,20 @@ class ViT(nn.Module):
         for blk in self.blocks:
             x = blk(x)
         return self.norm(x)
+
+
+def vit_trainable_mask(vit: ViT, cfg: TeacherConfig) -> Dict[str, bool]:
+    """Parameter name (relative to the ViT) -> trainable, as
+    ``vit.vit_trainable_mask``: the reference trains what its timm name
+    calls ``blocks.8``-``11`` or ``norm``, which unfreezes the last 4 blocks
+    whole, ``norm1``/``norm2`` of every earlier block and the final norm;
+    ``patch_embed``, ``cls_token`` and ``pos_embed`` stay frozen."""
+    mask = {}
+    for name, _ in vit.named_parameters():
+        parts = name.split(".")
+        if parts[0] == "blocks":
+            mask[name] = (int(parts[1]) >= cfg.encoder_depth - 4
+                          or parts[2] in ("norm1", "norm2"))
+        else:
+            mask[name] = parts[0] == "norm"
+    return mask

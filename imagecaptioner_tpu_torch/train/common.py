@@ -12,8 +12,18 @@ import time
 from typing import Dict, Iterator, List, Optional
 
 import numpy as np
+import torch
 
 from imagecaptioner_tpu_torch.distill.losses import LOSS_NAMES
+
+
+def data_parallel_over_cards(data_parallel: bool, device) -> bool:
+    """Whether a trainer asked for data parallelism on a CUDA device with
+    several cards visible: not ported yet (item 13).  On one device it is a
+    no-op, as the reference's ``maybe_mesh`` makes it; a CPU run has one
+    device."""
+    return (data_parallel and torch.device(device).type == "cuda"
+            and torch.cuda.device_count() > 1)
 
 
 def flatten_step_metrics(fetched: List[Dict]) -> List[Dict]:

@@ -4,9 +4,9 @@ AdamW with torch semantics (decoupled decay first, then the Adam step) over
 named parameters, with a per-parameter lr scale, weight decay and trainable
 mask: the generalisation of torch param groups that the JAX package uses.
 A frozen parameter keeps its value and its zero moments.  Plus
-``clip_by_global_norm`` and ``cosine_warm_restarts``.  ``onecycle_lr`` and
-``label_smoothing_loss`` belong to trainers not ported yet (ROADMAP Queue 1
-items 6 and 9).
+``clip_by_global_norm``, ``cosine_warm_restarts`` and the teacher's
+``label_smoothing_loss``.  ``onecycle_lr`` belongs to the optimized trainer,
+not ported yet (ROADMAP Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ from __future__ import annotations
 import math
 from collections import defaultdict
 from dataclasses import dataclass
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -93,3 +93,30 @@ def cosine_warm_restarts(t: float, *, base_lr: float, t0: int = 5,
         t_i = t0 * float(t_mult) ** n
     return eta_min + (base_lr - eta_min) * (
         1.0 + math.cos(math.pi * t_cur / t_i)) / 2.0
+
+
+def label_smoothing_loss(logits: torch.Tensor, targets: torch.Tensor, *,
+                         num_classes: int, smoothing: float = 0.1,
+                         ignore_index: int = 0,
+                         lengths: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """The teacher trainer's loss: smoothing / (V - 1) on every class,
+    ``1 - smoothing`` on the target, the PAD column zeroed and PAD-target
+    rows zeroed, with the reference's denominator: every row counts, PAD
+    rows included.  With ``lengths`` (B,) the rows at or past
+    ``max(lengths) - 1`` are cut from the sum and from the count, which
+    undoes the static padding.  logits (T, B, V), targets (T, B) -> a
+    0-d float32 tensor."""
+    T, B, V = logits.shape
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    true_dist = torch.full_like(logp, smoothing / (num_classes - 1))
+    true_dist.scatter_(-1, targets[..., None], 1.0 - smoothing)
+    true_dist[..., ignore_index] = 0.0
+    row_valid = (targets != ignore_index).float()
+    loss_rows = -(true_dist * logp).sum(-1) * row_valid
+    if lengths is None:
+        return loss_rows.sum() / float(T * B)
+    valid_steps = torch.clamp(lengths.max() - 1, min=1).float()
+    steps = torch.arange(T, device=logits.device, dtype=torch.float32)
+    in_range = (steps[:, None] < valid_steps).float()
+    return (loss_rows * in_range).sum() / (valid_steps * B)

@@ -1,7 +1,16 @@
-"""KD train and eval steps (``imagecaptioner_tpu/train/steps.py:192-388,
-438-467``).
+"""Teacher and KD train and eval steps (``imagecaptioner_tpu/train/
+steps.py:59-189, 192-388, 438-467``).
 
-One train step = for each of the A stacked micro-batches: augment and
+A teacher train step is the JAX per-leaf path that ``train_teacher.train``
+runs (it passes no fused optimizer): for each of the A micro-batches,
+augment and normalize, run the teacher in train mode on ``captions[:-1]``,
+take the label-smoothing loss against ``captions[1:]`` and its gradient;
+then the mean gradient over the trainable parameters, the global-norm clip,
+and AdamW with two learning-rate groups (every parameter whose name starts
+with ``encoder``, ``encoder_projection`` included, at ``encoder_lr_scale``;
+the rest at 1), each on its own cosine-warm-restarts schedule.
+
+One KD train step = for each of the A stacked micro-batches: augment and
 normalize on the device, run the frozen teacher and the student, take the
 distillation loss and its gradient; then the mean of the A gradients, the
 global-norm clip, and AdamW with the three learning-rate groups (student
@@ -26,14 +35,156 @@ from torch import nn
 
 from imagecaptioner_tpu_torch.core.config import (DistillConfig,
                                                   KDTrainConfig, StudentConfig,
-                                                  TeacherConfig)
+                                                  TeacherConfig,
+                                                  TeacherTrainConfig)
 from imagecaptioner_tpu_torch.core.precision import as_dtype
 from imagecaptioner_tpu_torch.data import transforms as T
 from imagecaptioner_tpu_torch.distill import losses as DL
 from imagecaptioner_tpu_torch.distill.wrapper import teacher_forward_for_kd
 from imagecaptioner_tpu_torch.models.student import Student, set_trainable
+from imagecaptioner_tpu_torch.models import teacher as TM
 from imagecaptioner_tpu_torch.models.teacher import Teacher
 from imagecaptioner_tpu_torch.train import optim as O
+from imagecaptioner_tpu_torch.utils import convert as CV
+
+
+# ---------------------------------------------------------------------------
+# Teacher training
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class TeacherTrainState:
+    """What a teacher step updates in place: the teacher and the optimizer
+    state."""
+    teacher: Teacher
+    opt_state: O.AdamWState
+
+    def named_parameters(self) -> Dict[str, nn.Parameter]:
+        return dict(self.teacher.named_parameters())
+
+
+def init_teacher_train_state(teacher: Teacher, t_cfg: TeacherConfig
+                             ) -> TeacherTrainState:
+    """Mark what trains (``teacher_trainable_mask``) and start AdamW from
+    zero moments (frozen parameters keep theirs at zero)."""
+    TM.set_trainable(teacher, t_cfg)
+    return TeacherTrainState(
+        teacher, O.adamw_init(dict(teacher.named_parameters())))
+
+
+def restore_adamw(opt_tree: Dict, named: Dict[str, torch.Tensor], device,
+                  where: str = "checkpoint") -> O.AdamWState:
+    """A checkpoint's ``optimizer_state_dict`` (JAX layout: ``step``, and
+    ``mu``/``nu`` trees shaped like the parameters) -> an ``AdamWState``
+    keyed like ``named``, moments on ``device`` in each parameter's
+    dtype."""
+    step, mu, nu = CV.jax_adamw_to_state(opt_tree, named)
+    for n, p in named.items():
+        if mu[n].shape != p.shape or nu[n].shape != p.shape:
+            raise ValueError(f"{where}: optimizer moments of {n} have shape "
+                             f"{tuple(mu[n].shape)}, the parameter "
+                             f"{tuple(p.shape)}")
+    return O.AdamWState(
+        step=step,
+        mu={n: t.to(device=device, dtype=named[n].dtype) for n, t in mu.items()},
+        nu={n: t.to(device=device, dtype=named[n].dtype) for n, t in nu.items()})
+
+
+def teacher_group_scales(names, *, encoder_scale: float = 0.1
+                         ) -> Dict[str, float]:
+    """Learning-rate scale per parameter: ``encoder_scale`` for every name
+    that starts with ``encoder`` (``encoder_projection`` too), else 1."""
+    return {n: encoder_scale if n.startswith("encoder") else 1.0
+            for n in names}
+
+
+def _lr_fn(tr_cfg, sched_t: float):
+    """The learning rate of a group with base scale ``s`` at epoch time
+    ``sched_t``: cosine warm restarts from ``lr * s`` down to the unscaled
+    ``eta_min``, as the JAX steps build their per-leaf rates."""
+    def lr_fn(scale: float) -> float:
+        return O.cosine_warm_restarts(
+            sched_t, base_lr=tr_cfg.learning_rate * scale,
+            t0=tr_cfg.sched_t0, t_mult=tr_cfg.sched_t_mult,
+            eta_min=tr_cfg.sched_eta_min)
+    return lr_fn
+
+
+def _teacher_loss(teacher: Teacher, t_cfg: TeacherConfig,
+                  tr_cfg: TeacherTrainConfig, images: torch.Tensor,
+                  captions: torch.Tensor, lengths: torch.Tensor, *,
+                  generator) -> torch.Tensor:
+    logits = teacher(images, captions[:-1], generator=generator)
+    return O.label_smoothing_loss(
+        logits, captions[1:], num_classes=t_cfg.vocab_size,
+        smoothing=tr_cfg.label_smoothing, lengths=lengths)
+
+
+def make_teacher_train_step(t_cfg: TeacherConfig,
+                            tr_cfg: TeacherTrainConfig, *,
+                            aug: T.AugmentConfig = T.TEACHER_TRAIN_AUG,
+                            compute_dtype=torch.float32):
+    """Returns ``step(state, batch, sched_t, generator) -> metrics``; the
+    state is updated in place.  ``metrics`` holds ``loss`` (mean over the
+    micro-batches), ``grad_norm`` (before clipping) and ``lr`` as 0-d
+    tensors on the device."""
+    compute_dtype = as_dtype(compute_dtype)
+
+    def step(state: TeacherTrainState, batch: Dict, sched_t: float,
+             generator: Optional[torch.Generator]) -> Dict[str, torch.Tensor]:
+        lr_fn = _lr_fn(tr_cfg, sched_t)
+        params = state.named_parameters()
+        trainable = {n: p.requires_grad for n, p in params.items()}
+        scales = teacher_group_scales(params,
+                                      encoder_scale=tr_cfg.encoder_lr_scale)
+        state.teacher.train()
+        for p in params.values():
+            p.grad = None
+        A = batch["images"].shape[0]
+        loss_sum = None
+        for a in range(A):
+            images = T.augment_and_normalize(batch["images"][a], aug,
+                                             generator, dtype=compute_dtype)
+            loss = _teacher_loss(state.teacher, t_cfg, tr_cfg, images,
+                                 batch["captions"][a], batch["lengths"][a],
+                                 generator=generator)
+            loss.backward()                  # .grad holds the running sum
+            loss_sum = loss.detach() if loss_sum is None \
+                else loss_sum + loss.detach()
+        grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
+                 for n, p in params.items() if trainable[n]}
+        torch._foreach_div_(list(grads.values()), float(A))
+        gnorm = O.clip_by_global_norm(grads, tr_cfg.grad_clip)
+        O.adamw_update(grads, state.opt_state, params, lr_fn=lr_fn,
+                       lr_scale=scales, weight_decay=tr_cfg.weight_decay,
+                       trainable=trainable)
+        return {"loss": loss_sum / A, "grad_norm": gnorm,
+                "lr": torch.tensor(lr_fn(1.0), device=gnorm.device)}
+
+    return step
+
+
+def make_teacher_eval_step(t_cfg: TeacherConfig, tr_cfg: TeacherTrainConfig,
+                           *, compute_dtype=torch.float32):
+    """Returns ``step(teacher, batch) -> loss`` (0-d tensor) on one
+    un-stacked batch, in eval mode and without gradients."""
+    compute_dtype = as_dtype(compute_dtype)
+
+    @torch.no_grad()
+    def step(teacher: Teacher, batch: Dict) -> torch.Tensor:
+        teacher.eval()
+        images = T.normalize(batch["images"], dtype=compute_dtype)
+        return _teacher_loss(teacher, t_cfg, tr_cfg, images,
+                             batch["captions"], batch["lengths"],
+                             generator=None)
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# KD training
+# ---------------------------------------------------------------------------
 
 
 @dataclass
@@ -118,12 +269,7 @@ def make_kd_train_step(teacher: Teacher, t_cfg: TeacherConfig,
 
     def step(state: TrainState, batch: Dict, sched_t: float,
              generator: Optional[torch.Generator]) -> Dict[str, torch.Tensor]:
-        def lr_fn(scale: float) -> float:
-            return O.cosine_warm_restarts(
-                sched_t, base_lr=tr_cfg.learning_rate * scale,
-                t0=tr_cfg.sched_t0, t_mult=tr_cfg.sched_t_mult,
-                eta_min=tr_cfg.sched_eta_min)
-
+        lr_fn = _lr_fn(tr_cfg, sched_t)
         params = state.named_parameters()
         trainable = {n: p.requires_grad for n, p in params.items()}
         scales = kd_group_scales(params,

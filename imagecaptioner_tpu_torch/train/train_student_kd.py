@@ -60,7 +60,7 @@ from imagecaptioner_tpu_torch.distill.validate import validate_distillation_setu
 from imagecaptioner_tpu_torch.eval.metrics import monitoring_bleu
 from imagecaptioner_tpu_torch.models.student import Student, student_init
 from imagecaptioner_tpu_torch.models import teacher as TM
-from imagecaptioner_tpu_torch.train import common, optim as O, steps
+from imagecaptioner_tpu_torch.train import common, steps
 from imagecaptioner_tpu_torch.utils import checkpoint as CKPT
 from imagecaptioner_tpu_torch.utils import convert as CV
 from imagecaptioner_tpu_torch.utils.logging import MetricLogger
@@ -74,10 +74,7 @@ def not_ported(what: str, item: str) -> SystemExit:
 def check_options(*, data_parallel: bool, device, device_dataset: bool,
                   student_variant: str) -> None:
     """Refuse what is not ported, before any data or card is touched."""
-    if (data_parallel and torch.device(device).type == "cuda"
-            and torch.cuda.device_count() > 1):
-        # on one device data parallelism is a no-op, as the reference's
-        # maybe_mesh makes it; a CPU run has one device
+    if common.data_parallel_over_cards(data_parallel, device):
         raise not_ported("data-parallel KD training", "item 13")
     if device_dataset:
         raise not_ported("the device-resident dataset", "item 11")
@@ -188,17 +185,9 @@ def resume_train_state(state: steps.TrainState, path: str,
     state.projectors.load_state_dict(
         CV.jax_projectors_to_state_dict(ck["projectors_state_dict"]),
         strict=True)
-    named = state.named_parameters()
-    step, mu, nu = CV.jax_adamw_to_state(ck["optimizer_state_dict"], named)
-    for n, p in named.items():
-        if mu[n].shape != p.shape or nu[n].shape != p.shape:
-            raise ValueError(f"{path}: optimizer moments of {n} have shape "
-                             f"{tuple(mu[n].shape)}, the parameter "
-                             f"{tuple(p.shape)}")
-    state.opt_state = O.AdamWState(
-        step=step,
-        mu={n: t.to(device=device, dtype=named[n].dtype) for n, t in mu.items()},
-        nu={n: t.to(device=device, dtype=named[n].dtype) for n, t in nu.items()})
+    state.opt_state = steps.restore_adamw(ck["optimizer_state_dict"],
+                                          state.named_parameters(), device,
+                                          path)
     return int(ck["epoch"]) + 1
 
 

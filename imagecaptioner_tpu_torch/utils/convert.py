@@ -93,9 +93,10 @@ def jax_projectors_to_state_dict(params: Dict) -> Dict[str, torch.Tensor]:
 
 
 def jax_adamw_to_state(opt_state: Dict, named_params) -> Tuple[int, Dict, Dict]:
-    """A JAX ``AdamWState`` over ``{"student": ..., "projectors": ...}``
-    (as a dict with ``step``, ``mu``, ``nu``) -> ``(step, mu, nu)`` keyed
-    like ``TrainState.named_parameters()``."""
+    """A JAX per-leaf ``AdamWState`` (as a dict with ``step``, ``mu``,
+    ``nu``; the KD trainer's over ``{"student": ..., "projectors": ...}``,
+    the teacher trainer's over the teacher's parameters) -> ``(step, mu,
+    nu)`` keyed like ``named_params``."""
     mu = tree_to_state_dict(opt_state["mu"])
     nu = tree_to_state_dict(opt_state["nu"])
     names = list(named_params)

@@ -230,7 +230,8 @@ def test_numpy_init_bounds():
 
 
 @pytest.mark.parametrize("name", ["TeacherConfig", "DistillConfig",
-                                  "KDTrainConfig", "DataConfig"])
+                                  "KDTrainConfig", "TeacherTrainConfig",
+                                  "DataConfig"])
 def test_training_configs_match_jax_field_for_field(name):
     jf = [(f.name, f.default) for f in dataclasses.fields(getattr(JC, name))]
     pf = [(f.name, f.default) for f in dataclasses.fields(getattr(PC, name))]
