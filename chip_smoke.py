@@ -101,7 +101,29 @@ Imports nothing of JAX.  In order it:
      times the bf16 step's span by CUDA events and its wall time on the
      host clock, and #2's plain backward at (12, 6, 197, 64) per call and
      queued;
- 11c. exports the beam phase's sharpened teacher and the serving phase's
+ 11c. trains the compact student with the optimized trainer on the same
+     dataset (``train_student_with_kd_optimized``: 2 epochs of 3 steps of
+     A=2 x B=16, bf16, images read at 256 by the numpy resize and cropped
+     to 224 and rotated on the card, fast validation at 224): every loss
+     term finite, the total equal to the token loss at epoch 0 and
+     0.05 x the feature loss above it at epoch 1, each lr group's rate the
+     float64 OneCycle of its scale (0.1, 1, 1.5) at every global step with
+     its weight decay, #7 launched exactly twice a step and #2 printed a
+     step; resumes from the best checkpoint into the next epoch (at the
+     saved global step, from the saved first moments bit for bit); one
+     float32 step card against CPU (dropout off, crop offsets, angles,
+     jitter and flips handed in; loss terms 1e-5, gradient norm 1e-3
+     relative); times the bf16 step;
+ 11d. runs the KD pipeline twin (``python -m
+     imagecaptioner_tpu_torch.runners.run_kd_pipeline``) as a subprocess on
+     the dataset, one epoch on the card: it must exit 0 and every artifact
+     it lists must exist;
+ 11e. captions a 256-pixel PPM with the demo twin
+     (``runners.streamlit_app.demo_caption_image``): the teacher's beam at
+     T = 1.0 (#2, #9, #10), again with the pipeline's full student in the
+     student column, and the full and the optimized compact students
+     greedy at T = 1.0 (#1, #3);
+ 11f. exports the beam phase's sharpened teacher and the serving phase's
      full student to the reference pipeline's key naming, saves each in the
      reference's checkpoint dict with ``torch.save``, reads it back through
      ``load_reference_pth`` -> ``*_from_reference`` -> ``strict=True`` and
@@ -180,11 +202,15 @@ import torch.nn.functional as F
 from imagecaptioner_tpu_torch.core import modules as M
 from imagecaptioner_tpu_torch.core.config import (STUDENT_CONFIGS,
                                                   DistillConfig,
-                                                  KDTrainConfig, TeacherConfig,
+                                                  KDTrainConfig,
+                                                  OptimizedDistillConfig,
+                                                  OptimizedKDTrainConfig,
+                                                  TeacherConfig,
                                                   TeacherTrainConfig,
                                                   compact_student_config,
                                                   enhanced_student_config,
                                                   full_student_config)
+from imagecaptioner_tpu_torch.data import dataset as DS
 from imagecaptioner_tpu_torch.data import transforms as T
 from imagecaptioner_tpu_torch.data.dataset import CaptionDataset, write_ppm
 from imagecaptioner_tpu_torch.data.loader import BatchLoader
@@ -195,6 +221,7 @@ from imagecaptioner_tpu_torch.data.vocabulary import (END, PAD, SPECIALS,
 from imagecaptioner_tpu_torch.eval import evaluate_student as EVS
 from imagecaptioner_tpu_torch.eval import evaluate_teacher as EVT
 from imagecaptioner_tpu_torch.eval import serve
+from imagecaptioner_tpu_torch.distill.losses import OPTIMIZED_LOSS_NAMES
 from imagecaptioner_tpu_torch.distill.projector import (
     create_feature_projectors, make_projectors)
 from imagecaptioner_tpu_torch.models import lstm as L
@@ -210,9 +237,11 @@ from imagecaptioner_tpu_torch.ops import decode as D
 from imagecaptioner_tpu_torch.ops import enhanced_scan as ES
 from imagecaptioner_tpu_torch.ops import greedy as G
 from imagecaptioner_tpu_torch.ops import lstm_scan as S
+from imagecaptioner_tpu_torch.runners import streamlit_app as DEMO
 from imagecaptioner_tpu_torch.train import common, steps
 from imagecaptioner_tpu_torch.train import optim as O
 from imagecaptioner_tpu_torch.train import train_student_kd as TK
+from imagecaptioner_tpu_torch.train import train_student_kd_optimized as OPT
 from imagecaptioner_tpu_torch.train import train_teacher as TT
 from imagecaptioner_tpu_torch.utils import convert as CV
 from imagecaptioner_tpu_torch.utils import reference_pth as RP
@@ -2827,6 +2856,386 @@ def run_teacher_training(dev, tmp, root, csv_path):
 
 
 # ---------------------------------------------------------------------------
+# The optimized KD trainer on the disk dataset, then the runners' twins
+# ---------------------------------------------------------------------------
+
+# OptimizedKDTrainConfig defaults: A=2 micro-batches of B=16; 3 steps an epoch
+OPT_STEPS, OPT_EPOCHS = 3, 2
+OPT_HOST = DISK_SIZE + 32        # training images read 32 pixels larger
+OPT_CPU_B = 4                    # images of the float32 card-vs-CPU step
+# Limits of the float32 optimized step card against CPU, relative.  The
+# compact student's MobileNetV2 and the teacher sum in another order on the
+# card; its batch norms amplify that noise in the gradient norm.
+OPT_CARD_CPU_LOSS_LIMIT = 1e-5
+OPT_CARD_CPU_GNORM_LIMIT = 1e-3
+
+
+def onecycle_f64(step: float, max_lr: float, total: int) -> float:
+    """torch OneCycleLR's cosine annealing (pct_start 0.1, div_factor 10,
+    final_div_factor 100) in float64, written out apart from the port's."""
+    up = 0.1 * total - 1.0
+    if step <= up:
+        start, end, pct = max_lr / 10.0, max_lr, step / max(up, 1.0)
+    else:
+        start, end = max_lr, max_lr / 1000.0
+        pct = (step - up) / max(total - 1.0 - up, 1.0)
+    pct = min(max(pct, 0.0), 1.0)
+    return end + (start - end) * (1.0 + math.cos(math.pi * pct)) / 2.0
+
+
+@contextlib.contextmanager
+def recording_kd_steps(records: list):
+    """Record every KD train step a trainer makes: its optimizer step
+    (``sched_t``), epoch, metrics, the optimizer step it started from, the
+    rate and weight decay of each group (from ``adamw_update``), its
+    launches of #7 and #2; and for the first step that starts from a
+    restored optimizer, the first moments it started from, on the host."""
+    real_make, real_update = steps.make_kd_train_step, O.adamw_update
+    groups = {}
+
+    def update(grads, state, params, *, lr_fn, lr_scale, weight_decay,
+               trainable, **kw):
+        for n in params:
+            if trainable[n]:
+                groups[lr_scale[n]] = (lr_fn(lr_scale[n]), weight_decay[n])
+        return real_update(grads, state, params, lr_fn=lr_fn,
+                           lr_scale=lr_scale, weight_decay=weight_decay,
+                           trainable=trainable, **kw)
+
+    def make(*args, **kw):
+        step = real_make(*args, **kw)
+
+        def recorded(state, batch, sched_t, gen, epoch=0):
+            rec = dict(sched_t=sched_t, epoch=epoch,
+                       step_before=state.opt_state.step)
+            if rec["step_before"] and not any(r["step_before"]
+                                              for r in records):
+                rec["mu_before"] = {n: m.cpu().clone()
+                                    for n, m in state.opt_state.mu.items()}
+            groups.clear()
+            before = (S.launches_compact, A.launches)
+            metrics = step(state, batch, sched_t, gen, epoch)
+            rec.update({k: float(v) for k, v in metrics.items()},
+                       groups=dict(groups),
+                       compact_scan=S.launches_compact - before[0],
+                       attention_core=A.launches - before[1])
+            records.append(rec)
+            return metrics
+
+        return recorded
+
+    steps.make_kd_train_step, O.adamw_update = make, update
+    try:
+        yield
+    finally:
+        steps.make_kd_train_step, O.adamw_update = real_make, real_update
+
+
+def check_optimized_records(records, tr, od, n_steps, first_step, epochs,
+                            total):
+    """Finite terms; at epoch 0 the total is the token loss alone (the
+    feature and hidden terms weigh 0), after it beta x epoch / 3 of the
+    feature loss joins; each group's rate the float64 OneCycle of its
+    scale at the step's global step, and its weight decay; #7 twice a step
+    (one forward a micro-batch)."""
+    bad = []
+    for i, r in enumerate(records):
+        terms = [r[k] for k in OPTIMIZED_LOSS_NAMES + ("grad_norm", "lr")]
+        extra = r["total_loss"] - r["token_kd_loss"]
+        beta = od.beta * min(1.0, r["epoch"] / od.warmup_epochs)
+        want = {s: (onecycle_f64(r["sched_t"], tr.learning_rate * s, total),
+                    wd) for s, wd in ((tr.encoder_lr_scale, tr.weight_decay),
+                                      (1.0, tr.weight_decay),
+                                      (tr.others_lr_scale,
+                                       tr.others_weight_decay))}
+        rates_ok = set(r["groups"]) == set(want) and all(
+            abs(r["groups"][s][0] - want[s][0]) <= 1e-12 * want[s][0]
+            and r["groups"][s][1] == want[s][1] for s in want)
+        ok = (np.isfinite(terms).all() and r["sched_t"] == first_step + i
+              and r["epoch"] == epochs[i] and rates_ok
+              and r["compact_scan"] == KD_A
+              and (extra == 0.0 if r["epoch"] == 0 else
+                   extra != 0.0 and abs(extra - beta * r["feature_kd_loss"])
+                   <= 1e-5 * abs(r["total_loss"])))
+        if not ok:
+            bad.append((i, dict(finite=bool(np.isfinite(terms).all()),
+                                step=r["sched_t"], epoch=r["epoch"],
+                                rates=rates_ok, launches=r["compact_scan"],
+                                extra=extra)))
+    if len(records) != n_steps or bad:
+        fail(f"optimized KD steps: {len(records)} of {n_steps}; steps out "
+             f"of contract: {bad}; rates {[r['groups'] for r in records]}")
+
+
+def optimized_card_vs_cpu(dev, root, csv_path, t_ckpt):
+    """One float32 optimized step on the card (kernels) against the same
+    step on the CPU (plain versions): dropout off, A=1 x B=4 images read at
+    256, their crop offsets, angles, jitter factors and flips handed in,
+    epoch 1, global step 2 of 30; full width."""
+    cfg = dataclasses.replace(compact_student_config(VOCAB), dropout=0.0)
+    tr, od = OptimizedKDTrainConfig(), OptimizedDistillConfig()
+    loader, _ = TK.get_loader(root, csv_path, batch_size=OPT_CPU_B,
+                              max_caption_len=KD_T + 1, shuffle=False,
+                              image_size=OPT_HOST)
+    batch = next(iter(common.stacked_batches(loader, 1)))
+    rng = np.random.default_rng(SEED + 41)
+    n = OPT_CPU_B
+    draws = dict(offsets=[rng.integers(0, OPT_HOST - DISK_SIZE + 1, n)
+                          for _ in range(2)],
+                 theta=rng.uniform(-5.0, 5.0, n).astype(np.float32),
+                 factors={k: rng.uniform(0.8, 1.2, (n, 1, 1, 1)).astype(
+                     np.float32) for k in ("brightness", "contrast",
+                                           "saturation")},
+                 hue=rng.uniform(-0.1, 0.1, (n, 1, 1)).astype(np.float32),
+                 flip=rng.random(n) < 0.5)
+    aug = dataclasses.replace(T.OPTIMIZED_KD_AUG, out_size=DISK_SIZE)
+    results = {}
+    real_aug = T.augment_and_normalize
+    for tag, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        def put(a):
+            return torch.from_numpy(np.asarray(a)).to(where)
+        handed = dict(offsets=tuple(put(o) for o in draws["offsets"]),
+                      theta=put(draws["theta"]), flip=put(draws["flip"]),
+                      factors=dict({k: put(v) for k, v in
+                                    draws["factors"].items()},
+                                   hue=put(draws["hue"])))
+        teacher, t_cfg = TK.load_teacher(t_ckpt, VOCAB, where)
+        student, projectors = TK.make_student_and_projectors(cfg, t_cfg, SEED,
+                                                             where)
+        state = steps.init_train_state(student, projectors, cfg)
+        step = steps.make_kd_train_step(
+            teacher, t_cfg, cfg, None, tr, aug=aug,
+            compute_dtype=torch.float32, optimized=True, od_cfg=od,
+            onecycle_total_steps=30, others_scale=tr.others_lr_scale,
+            others_wd=tr.others_weight_decay)
+        before = (S.launches_compact, A.launches)
+        T.augment_and_normalize = functools.partial(real_aug, draws=handed)
+        try:
+            with M.no_dropout():
+                metrics = step(state, steps.batch_to_device(batch, where), 2,
+                               None, 1)
+        finally:
+            T.augment_and_normalize = real_aug
+        results[tag] = {k: float(v) for k, v in metrics.items()}
+        launched = (S.launches_compact - before[0], A.launches - before[1])
+        if (min(launched) < 1) if tag == "card" else any(launched):
+            fail(f"the float32 optimized step on {where} launched (#7, #2) "
+                 f"{launched} times")
+    for k in OPTIMIZED_LOSS_NAMES + ("grad_norm",):
+        g, c = results["card"][k], results["cpu"][k]
+        limit = (OPT_CARD_CPU_GNORM_LIMIT if k == "grad_norm"
+                 else OPT_CARD_CPU_LOSS_LIMIT)
+        rel = abs(g - c) / max(abs(c), 1e-12) if c else abs(g)
+        ok = np.isfinite(g) and rel <= limit
+        print(f"fp32 optimized KD step card vs CPU {k}: {g:.7g} vs {c:.7g}, "
+              f"relative {rel:.3e} (limit {limit:g}) {'ok' if ok else 'FAIL'}",
+              flush=True)
+        if not ok:
+            fail("the card's float32 optimized KD step disagrees with the "
+                 "CPU's")
+    return results
+
+
+def run_optimized_kd(dev, tmp, root, csv_path, t_ckpt):
+    """The optimized trainer at full width on the disk dataset: 2 epochs of
+    3 steps of A=2 x B=16 (training images at 256 cropped to 224, bf16,
+    the compact student), fast validation at 224, the best checkpoint, the
+    history; a resume from the best into the next epoch; the float32 step
+    card against CPU; the step's times.  Returns launches and times."""
+    tr, od = OptimizedKDTrainConfig(), OptimizedDistillConfig()
+    kw = dict(max_caption_len=KD_T + 1, image_size=DISK_SIZE,
+              compute_dtype=torch.bfloat16, seed=SEED,
+              max_steps_per_epoch=OPT_STEPS, data_parallel=False,
+              verbose=False, device=dev)
+    per_epoch = (len(CaptionDataset(root, csv_path)) // tr.batch_size
+                 // tr.accumulation_steps)
+    out = os.path.join(tmp, "optimized_out")
+    records = []
+    torch.cuda.synchronize()
+    zero_counters()
+    t0 = time.perf_counter()
+    with recording_kd_steps(records):
+        state, s_cfg, vocab = OPT.train_student_with_kd_optimized(
+            root, csv_path, t_ckpt, out, num_epochs=OPT_EPOCHS, **kw)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train = kd_counters("compact")
+    check_optimized_records(records, tr, od, OPT_EPOCHS * OPT_STEPS, 0,
+                            [e for e in range(OPT_EPOCHS)
+                             for _ in range(OPT_STEPS)],
+                            per_epoch * OPT_EPOCHS)
+    best = os.path.join(out, OPT.BEST)
+    hist = json.load(open(os.path.join(out, OPT.HISTORY)))
+    per_step = {"compact_scan": [r["compact_scan"] for r in records],
+                "attention_core": [r["attention_core"] for r in records]}
+    print(f"optimized train: V={len(vocab)}, {len(records)} steps at global "
+          f"steps {[r['sched_t'] for r in records]}, epochs "
+          f"{[r['epoch'] for r in records]}; total, token, feature terms "
+          f"{[(round(r['total_loss'], 4), round(r['token_kd_loss'], 4), round(r['feature_kd_loss'], 4)) for r in records]}; "
+          f"rates and decays by scale {records[-1]['groups']}; launches a "
+          f"step {per_step}; all {train}; history val {hist['val_losses']} "
+          f"({train_s:.2f} s)", flush=True)
+    if s_cfg.variant != "compact" or len(vocab) != VOCAB \
+            or not os.path.exists(best) or min(train.values()) < 1 \
+            or len(hist["train_losses"]) != OPT_EPOCHS \
+            or not np.isfinite(hist["train_losses"] + hist["val_losses"]).all():
+        fail("the optimized training run did not train the compact student, "
+             "launch its kernels, or land its checkpoint and history")
+
+    ck = load_checkpoint(best)
+    saved_mu = CV.tree_to_state_dict(ck["optimizer_state_dict"]["mu"])
+    saved_step = int(ck["scheduler_state_dict"]["global_step"])
+    epoch = int(ck["epoch"]) + 1
+    records.clear()
+    zero_counters()
+    t0 = time.perf_counter()
+    with recording_kd_steps(records):
+        state, _, _ = OPT.train_student_with_kd_optimized(
+            root, csv_path, t_ckpt, os.path.join(tmp, "optimized_resumed"),
+            num_epochs=epoch + 1, resume_from=best, **kw)
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t0
+    resume = kd_counters("compact")
+    check_optimized_records(records, tr, od, OPT_STEPS, saved_step,
+                            [epoch] * OPT_STEPS, per_epoch * (epoch + 1))
+    first = records[0]
+    same_mu = set(first.get("mu_before", {})) == set(saved_mu) and all(
+        torch.equal(first["mu_before"][n], saved_mu[n]) for n in saved_mu)
+    print(f"optimized resume: from global step {saved_step} at epoch "
+          f"{int(ck['epoch'])}: first step at global step {first['sched_t']}"
+          f", epoch {first['epoch']}, from optimizer step "
+          f"{first['step_before']}, its first moments the checkpoint's bit "
+          f"for bit: {same_mu}; to step {state.opt_state.step}; launches "
+          f"{resume} ({resume_s:.2f} s)", flush=True)
+    if first["step_before"] != int(ck["optimizer_state_dict"]["step"]) \
+            or not same_mu or min(resume.values()) < 1:
+        fail("the resumed optimized run did not go on from the checkpoint")
+    both = optimized_card_vs_cpu(dev, root, csv_path, t_ckpt)
+    times = time_optimized_steps(dev, state, s_cfg, root, csv_path, t_ckpt)
+    times.update(train_s=train_s, resume_s=resume_s,
+                 compact_scan_per_step=KD_A,
+                 attention_core_per_step=per_step["attention_core"][0])
+    return {"train": train, "resume": resume}, times, both, best
+
+
+def time_optimized_steps(dev, state, s_cfg, root, csv_path, t_ckpt, n=4):
+    """Further bf16 optimized steps on the trained state: host clock around
+    each step (ending in a synchronise) and CUDA events around it."""
+    tr, od = OptimizedKDTrainConfig(), OptimizedDistillConfig()
+    teacher, t_cfg = TK.load_teacher(t_ckpt, VOCAB, dev)
+    step = steps.make_kd_train_step(
+        teacher, t_cfg, s_cfg, None, tr,
+        aug=dataclasses.replace(T.OPTIMIZED_KD_AUG, out_size=DISK_SIZE),
+        compute_dtype=torch.bfloat16, optimized=True, od_cfg=od,
+        onecycle_total_steps=30, others_scale=tr.others_lr_scale,
+        others_wd=tr.others_weight_decay)
+    loader, _ = TK.get_loader(root, csv_path, batch_size=KD_B,
+                              max_caption_len=KD_T + 1, shuffle=False,
+                              image_size=OPT_HOST)
+    stacks = list(itertools.islice(common.stacked_batches(loader, KD_A), 3))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    wall, span_ms = [], []
+    for i in range(n + 1):
+        batch = steps.batch_to_device(stacks[i % len(stacks)], dev)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        metrics = step(state, batch, 5 + i, gen, 1)
+        end.record()
+        float(metrics["total_loss"])
+        torch.cuda.synchronize()
+        wall.append(1e3 * (time.perf_counter() - t0))
+        span_ms.append(start.elapsed_time(end))
+    out = dict(wall_ms=statistics.median(wall[1:]),
+               span_ms=statistics.median(span_ms[1:]),
+               wall_ms_all=wall[1:], span_ms_all=span_ms[1:],
+               images_per_s=KD_A * KD_B / (statistics.median(wall[1:]) / 1e3))
+    print(f"optimized KD step bf16 A={KD_A} x B={KD_B} T={KD_T} (compact, "
+          f"float32 teacher): wall {out['wall_ms']:.3f} ms (host clock, "
+          f"synchronised), span {out['span_ms']:.3f} ms (CUDA events around "
+          f"the step, idle gaps included), median of {n}; "
+          f"{out['images_per_s']:.1f} images/s", flush=True)
+    return out
+
+
+def run_kd_pipeline_twin(dev, tmp, root, csv_path, t_ckpt):
+    """The pipeline twin as a subprocess on the disk dataset: the KD trainer
+    (full student, 1 epoch) then the evaluator, on the card; it must exit 0
+    and every artifact it lists must exist.  Its kernels launch in the
+    child processes, whose counters this process cannot read: the same
+    trainer and evaluator are counted in the disk pipeline's phase."""
+    out = os.path.join(tmp, "pipeline_out")
+    cmd = [sys.executable, "-m", "imagecaptioner_tpu_torch.runners."
+           "run_kd_pipeline", "--data-root", root, "--captions-file",
+           csv_path, "--teacher-checkpoint", t_ckpt, "--output-dir", out,
+           "--epochs", "1", "--max-samples", str(KD_B), "--device", dev.type]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.dirname(os.path.abspath(__file__))]
+        + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=tmp, env=env, capture_output=True,
+                          text=True, timeout=600)
+    wall_s = time.perf_counter() - t0
+    listed = [line.split(None, 1) for line in proc.stdout.splitlines()
+              if line.startswith("  [ok] ") or line.startswith("  [missing] ")]
+    listed = [p.strip() for tag, p in listed if tag in ("[ok]", "[missing]")
+              and "package" not in p and ":" not in p]
+    paths = [p if os.path.isabs(p) else os.path.join(tmp, p) for p in listed]
+    missing = [p for p in paths if not os.path.exists(p)]
+    print(f"pipeline twin: exit {proc.returncode} in {wall_s:.2f} s; "
+          f"artifacts {[os.path.basename(p) for p in paths]}, missing "
+          f"{missing}", flush=True)
+    if proc.returncode != 0 or len(paths) != 5 or missing:
+        print(proc.stdout[-3000:], proc.stderr[-3000:])
+        fail("the pipeline twin did not exit 0 with all its artifacts")
+    return out, wall_s
+
+
+def run_demo_twin(dev, tmp, root, t_ckpt, vocab_path, full_ckpt, compact_ckpt):
+    """The demo twin: ``demo_caption_image`` on a PPM at 256 (read and
+    resized by numpy) with the port teacher (beam at T = 1.0 through #9 and
+    #10) and the teacher as its student; again with the pipeline's full
+    student; the full and the optimized compact student at T = 1.0 (their
+    greedy kernels).  Returns the launch counts."""
+    image = os.path.join(tmp, "demo.ppm")
+    write_ppm(image, np.random.default_rng(SEED + 51).integers(
+        0, 256, (OPT_HOST, OPT_HOST, 3), dtype=np.uint8))
+    zero_counters()
+    teacher_only = DEMO.demo_caption_image(image, checkpoint_path=t_ckpt,
+                                           vocab_path=vocab_path, device=dev)
+    beam = {"attention_core": A.launches, "beam_self_attention":
+            BA.launches_self, "beam_cross_attention": BA.launches_cross}
+    with_full = DEMO.demo_caption_image(image, checkpoint_path=t_ckpt,
+                                        vocab_path=vocab_path, device=dev,
+                                        student_checkpoint=full_ckpt)
+    vocab = Vocabulary.load(vocab_path)
+    x = DEMO.preprocess_image(DS.decode_image_file(image, DISK_SIZE),
+                              DISK_SIZE, device=dev)
+    greedy = {}
+    for name, ckpt, counter in (("full", full_ckpt, "greedy_decode"),
+                                ("compact", compact_ckpt,
+                                 "greedy_decode_compact")):
+        G.launches = G.launches_compact = 0
+        greedy[name] = DEMO.generate_caption_with_temperature(
+            serve.load_student(ckpt, dev), x, vocab, temperature=1.0)
+        beam[counter] = (G.launches if name == "full"
+                         else G.launches_compact)
+    print(f"demo twin: teacher {teacher_only['teacher'][:60]!r}, teacher as "
+          f"student (T=1.1) {teacher_only['student'][:40]!r}; full student "
+          f"(T=1.1) {with_full['student'][:40]!r}; greedy at T=1.0 "
+          f"{ {k: v[:40] for k, v in greedy.items()} }; launches {beam}",
+          flush=True)
+    if min(beam.values()) < 1 or with_full["teacher"] != \
+            teacher_only["teacher"] or not all(isinstance(v, str) for v in (
+                *teacher_only.values(), *with_full.values(),
+                *greedy.values())):
+        fail("the demo twin did not caption through its kernels")
+    return beam
+
+
+# ---------------------------------------------------------------------------
 # Reference checkpoints: .pth in the reference's naming -> the port
 # ---------------------------------------------------------------------------
 
@@ -3203,10 +3612,21 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         disk_launches, disk_times = run_disk_pipeline(dev, tmp, smi)
         root = os.path.join(tmp, "flickr")
+        csv_path = os.path.join(root, "captions_clean.csv")
         teach_launches, teach_times, teach_both = run_teacher_training(
-            dev, tmp, root, os.path.join(root, "captions_clean.csv"))
+            dev, tmp, root, csv_path)
 
-    # --- 11b. reference checkpoints (.pth) -> the port, served ----------------
+        # --- 11c-e. the optimized trainer; the pipeline and demo twins ----
+        t_ckpt = os.path.join(tmp, "teacher.npz")
+        opt_launches, opt_times, opt_both, opt_best = run_optimized_kd(
+            dev, tmp, root, csv_path, t_ckpt)
+        pipe_out, pipe_s = run_kd_pipeline_twin(dev, tmp, root, csv_path,
+                                                t_ckpt)
+        demo_launches = run_demo_twin(
+            dev, tmp, root, t_ckpt, os.path.join(pipe_out, "vocab.json"),
+            os.path.join(pipe_out, "best_student_model.npz"), opt_best)
+
+    # --- 11f. reference checkpoints (.pth) -> the port, served ----------------
     with tempfile.TemporaryDirectory() as tmp:
         ref_launches = run_reference_pth(dev, tmp, batches)
 
@@ -3214,10 +3634,13 @@ def main() -> int:
         return {k: sum(d.get(k, 0) for d in runs.values())
                 for k in ("attention_core", "greedy_decode", "decoder_scan",
                           "decoder_scan_train", "decoder_scan_bwd",
-                          "beam_self_attention", "beam_cross_attention")}
+                          "beam_self_attention", "beam_cross_attention",
+                          "greedy_decode_compact", "compact_scan")}
 
     later = {"disk_pipeline": summed(disk_launches),
              "teacher_training": summed(teach_launches),
+             "optimized_kd": summed(opt_launches),
+             "demo": summed({"demo": demo_launches}),
              "reference_pth": summed(ref_launches)}
 
     # --- 12. the compact student: kernels #3 and #7, serving, KD ------------
@@ -3316,7 +3739,8 @@ def main() -> int:
 
     def with_later(name, n):
         """A kernel's launches on its main path plus those of the disk
-        pipeline, the teacher trainer and the reference-checkpoint phase."""
+        pipeline, the teacher trainer, the optimized trainer, the demo twin
+        and the reference-checkpoint phase."""
         more = {f"launches_{k}": d[name] for k, d in later.items()}
         return dict(n=n + sum(more.values()), **more)
 
@@ -3344,15 +3768,18 @@ def main() -> int:
                   for n, t in attn_t.items()},
               **attn_by_path),
         entry("greedy_decode_compact", "greedy_decode_compact.cu",
-              "pallas_greedy.py:214", c_launches["greedy_decode_compact"],
-              cg_diff, cg_ms, cg_plain_ms, greedy_compact_bound(*cg_ops),
+              "pallas_greedy.py:214", err=cg_diff, ms=cg_ms, plain=cg_plain_ms,
+              bound=greedy_compact_bound(*cg_ops),
+              **with_later("greedy_decode_compact",
+                          c_launches["greedy_decode_compact"]),
               bf16_rows_identical=f"{cg_rows}/{BATCH}",
               chain_floor_ms=floors["greedy_decode_compact"]["floor_ms"],
               chain=floors["greedy_decode_compact"],
               ptxas=usage["greedy_decode_compact"]),
         entry("compact_scan", "compact_scan.cu", f"{lstm}:680",
-              ckd_launches["compact_scan"], cscan["err"], cscan["ms"],
-              cscan["plain_ms"], cscan["bound"],
+              err=cscan["err"], ms=cscan["ms"], plain=cscan["plain_ms"],
+              bound=cscan["bound"],
+              **with_later("compact_scan", ckd_launches["compact_scan"]),
               plain_backward_ms=cscan["bwd_plain_ms"],
               chain_floor_ms=floors["compact_scan"]["floor_ms"],
               chain=floors["compact_scan"], ptxas=usage["compact_scan"]),
@@ -3434,7 +3861,10 @@ def main() -> int:
                       "beam_batch_ms": beam_split,
                       "disk_pipeline": disk_times,
                       "teacher_training": teach_times,
-                      "teacher_card_vs_cpu": teach_both}))
+                      "teacher_card_vs_cpu": teach_both,
+                      "optimized_kd": opt_times,
+                      "optimized_card_vs_cpu": opt_both,
+                      "pipeline_twin_s": pipe_s}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

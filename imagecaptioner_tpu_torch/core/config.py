@@ -115,6 +115,20 @@ class DistillConfig:
 
 
 @dataclass(frozen=True)
+class OptimizedDistillConfig:
+    """The optimized trainer's distillation loss: warmup-adaptive weights,
+    soft-CE token KD, a focal hard loss, a cosine feature loss."""
+
+    alpha: float = 0.8
+    beta: float = 0.15
+    gamma: float = 0.05
+    temperature: float = 3.0
+    focal_alpha: float = 0.25
+    focal_gamma: float = 2.0
+    warmup_epochs: int = 3
+
+
+@dataclass(frozen=True)
 class TeacherTrainConfig:
     """The teacher trainer's hyperparameters."""
 
@@ -151,6 +165,28 @@ class KDTrainConfig:
     sched_eta_min: float = 1e-6
     dropout: float = 0.3             # the student is built with dropout 0.3 here
     teacher_bf16: bool = False       # run the frozen teacher in bf16
+
+
+@dataclass(frozen=True)
+class OptimizedKDTrainConfig:
+    """The optimized KD trainer's hyperparameters: OneCycle over three lr
+    groups (encoder, decoder, others), the others with their own weight
+    decay."""
+
+    learning_rate: float = 3e-4
+    batch_size: int = 16
+    accumulation_steps: int = 2
+    num_epochs: int = 30
+    weight_decay: float = 0.01
+    others_weight_decay: float = 0.005
+    others_lr_scale: float = 1.5
+    encoder_lr_scale: float = 0.1
+    grad_clip: float = 1.0
+    patience: int = 5
+    validate_every: int = 1
+    warmup_pct: float = 0.1
+    div_factor: float = 10.0
+    final_div_factor: float = 100.0
 
 
 def replace(cfg, **kw):

@@ -14,17 +14,20 @@ field that pandas reads as missing (empty, ``NA``, ``nan``, ...) becomes
 the text ``"nan"``, which is what the JAX package's ``str()`` of the
 missing value gives.
 
-Images: a binary PPM (``P6``, maxval 255) at ``image_size`` is read with
-numpy, so a machine without PIL (the GPU host) can train from disk; a PPM
-decodes to the same array through PIL, bit for bit.  Every other file, and
-a PPM that needs resizing, goes to PIL, imported where it is used: without
-PIL such a file raises ``ImportError``, never a placeholder.  A missing file
-gives the placeholder without PIL.
+Images: a binary PPM (``P6``, maxval 255) is read with numpy and, when it
+is not at ``image_size``, resized by ``resize_bilinear``, numpy's copy of
+PIL's bilinear resize, so a machine without PIL (the GPU host) can train
+from disk, at two sizes too (the optimized trainer reads its training
+images 32 pixels larger than its validation images).  Both give the array
+PIL gives, bit for bit.  Every other file goes to PIL, imported where it is
+used: without PIL such a file raises ``ImportError``, never a placeholder.
+A missing file gives the placeholder without PIL.
 """
 
 from __future__ import annotations
 
 import csv
+import math
 import os
 import threading
 from typing import List, Optional, Tuple
@@ -107,6 +110,82 @@ def write_ppm(path: str, image: np.ndarray) -> None:
         f.write(np.ascontiguousarray(image).tobytes())
 
 
+# Pillow's fixed-point resampling: coefficients with 22 fraction bits, the
+# 8-bit result rounded and clipped after each of the two passes
+_PRECISION_BITS = 32 - 8 - 2
+
+
+def _bilinear_coefficients(in_size: int, out_size: int):
+    """Pillow's ``precompute_coeffs`` for the bilinear filter, then
+    ``normalize_coeffs_8bpc``: for each output pixel the first source pixel
+    (N,), and the integer weights (N, K) of that pixel and the next K - 1
+    (0 past the last one used), in the C code's float64 arithmetic."""
+    scale = float(in_size) / out_size
+    filterscale = max(scale, 1.0)
+    support = 1.0 * filterscale
+    ksize = int(math.ceil(support)) * 2 + 1
+    center = (np.arange(out_size) + 0.5) * scale
+    xmin = np.maximum((center - support + 0.5).astype(np.int64), 0)
+    xmax = np.minimum((center + support + 0.5).astype(np.int64), in_size) - xmin
+    ss = 1.0 / filterscale
+    k = np.zeros((out_size, ksize))
+    for x in range(ksize):
+        t = np.abs(((x + xmin).astype(np.float64) - center + 0.5) * ss)
+        k[:, x] = np.where((x < xmax) & (t < 1.0), 1.0 - t, 0.0)
+    ww = np.zeros(out_size)
+    for x in range(ksize):                   # the C loop's summation order
+        ww = ww + k[:, x]
+    k = np.where(ww[:, None] != 0.0, k / np.where(ww == 0.0, 1.0, ww)[:, None],
+                 k)
+    return xmin, (0.5 + k * (1 << _PRECISION_BITS)).astype(np.int64)
+
+
+def _resample_axis(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
+    """One pass of Pillow's 8-bit resampling along ``axis`` of a uint8
+    array."""
+    in_size = img.shape[axis]
+    xmin, kk = _bilinear_coefficients(in_size, out_size)
+    src = np.moveaxis(img, axis, 0).astype(np.int64)
+    acc = np.full((out_size,) + src.shape[1:], 1 << (_PRECISION_BITS - 1),
+                  np.int64)
+    tail = (slice(None),) + (None,) * (src.ndim - 1)
+    for x in range(kk.shape[1]):
+        idx = np.minimum(xmin + x, in_size - 1)
+        acc += src[idx] * kk[:, x][tail]
+    out = np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
+    return np.moveaxis(out, 0, axis)
+
+
+def resize_bilinear(image: np.ndarray, width: int, height: int) -> np.ndarray:
+    """uint8 (H, W, C) -> uint8 (height, width, C) as PIL's
+    ``Image.resize((width, height), Image.BILINEAR)`` gives it, bit for bit:
+    the horizontal pass first, each pass only where the size changes."""
+    out = image
+    if out.shape[1] != width:
+        out = _resample_axis(out, width, 1)
+    if out.shape[0] != height:
+        out = _resample_axis(out, height, 0)
+    return np.ascontiguousarray(out)
+
+
+def decode_image_file(path: str, size: int) -> np.ndarray:
+    """An image file -> uint8 (size, size, 3), as the JAX dataset's
+    ``Image.open(path).convert("RGB")`` and bilinear resize give it: a binary
+    PPM by numpy, every other file by PIL, imported here.  Raises
+    ``OSError`` when the file cannot be opened or decoded."""
+    arr = read_ppm(path)
+    if arr is not None:
+        if arr.shape[:2] != (size, size):
+            arr = resize_bilinear(arr, size, size)
+        return arr
+    from PIL import Image
+
+    img = Image.open(path).convert("RGB")
+    if img.size != (size, size):
+        img = img.resize((size, size), Image.BILINEAR)
+    return np.asarray(img, dtype=np.uint8)
+
+
 class CaptionDataset:
     def __init__(self, root_dir: str, captions_file: str, *,
                  freq_threshold: int = 5, image_size: int = 224,
@@ -143,20 +222,9 @@ class CaptionDataset:
         s = self.image_size
         path = os.path.join(self.root_dir, "Images", str(self.imgs[index]))
         try:
-            arr = read_ppm(path)
+            return decode_image_file(path, s)
         except OSError:                 # missing, a directory, unreadable
             return np.zeros((s, s, 3), np.uint8)
-        if arr is not None and arr.shape[:2] == (s, s):
-            return arr
-        from PIL import Image
-
-        try:
-            img = Image.open(path).convert("RGB")
-        except (FileNotFoundError, OSError):
-            img = Image.new("RGB", (s, s), color="black")
-        if img.size != (s, s):
-            img = img.resize((s, s), Image.BILINEAR)
-        return np.asarray(img, dtype=np.uint8)
 
     def load_image(self, index: int) -> np.ndarray:
         """uint8 (S, S, 3), from the cache when the name was decoded

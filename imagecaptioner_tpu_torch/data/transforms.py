@@ -3,10 +3,12 @@
 device as they are; normalization and the stochastic augmentations run
 there, drawing from an explicit ``torch.Generator``.
 
-Ported: ``normalize``, ``color_jitter``, ``random_hflip`` and
-``augment_and_normalize`` for ``TEACHER_TRAIN_AUG`` and ``KD_TRAIN_AUG``.
-Rotation and random crop (``OPTIMIZED_KD_AUG``) belong to the optimized
-trainer (ROADMAP Queue 1 item 9) and raise.
+``normalize``, ``random_crop``, ``random_rotation``, ``color_jitter``,
+``random_hflip`` and ``augment_and_normalize`` for ``TEACHER_TRAIN_AUG``,
+``KD_TRAIN_AUG`` and ``OPTIMIZED_KD_AUG``.  Each random function also takes
+its draws ready-made (``offsets=``, ``theta=``, ``factors=``, ``flip=``): the
+JAX package draws them from ``jax.random``, which torch cannot reproduce,
+so a comparison hands them over.
 """
 
 from __future__ import annotations
@@ -37,6 +39,11 @@ TEACHER_TRAIN_AUG = AugmentConfig(brightness=0.1, contrast=0.1, saturation=0.1,
                                   hue=0.05, hflip_prob=0.3)
 KD_TRAIN_AUG = AugmentConfig(brightness=0.2, contrast=0.2, saturation=0.2,
                              hue=0.1, hflip_prob=0.5)
+# the optimized trainer's: Resize(out_size + 32) on the host, then
+# RandomCrop(out_size) and a rotation of up to 5 degrees on the device
+OPTIMIZED_KD_AUG = AugmentConfig(brightness=0.2, contrast=0.2, saturation=0.2,
+                                 hue=0.1, hflip_prob=0.5, rotation_deg=5.0,
+                                 random_crop=True)
 
 
 def _standardize(x: torch.Tensor, mean, std, dtype) -> torch.Tensor:
@@ -118,18 +125,79 @@ def random_hflip(x: torch.Tensor, prob: float,
     return torch.where(flip[:, None, None, None], x.flip(2), x)
 
 
+def random_crop(x: torch.Tensor, out_size: int,
+                generator: Optional[torch.Generator],
+                offsets: Optional[tuple] = None) -> torch.Tensor:
+    """An ``out_size`` square of each NHWC image, at a top-left corner (ty,
+    tx) drawn uniformly over the positions that fit (or the ready int
+    tensors ``offsets = (ty, tx)``, each (N,))."""
+    n, h, w, _ = x.shape
+    if offsets is None:
+        offsets = tuple(torch.randint(0, size - out_size + 1, (n,),
+                                      generator=generator, device=x.device)
+                        for size in (h, w))
+    ty, tx = (o.to(device=x.device, dtype=torch.long) for o in offsets)
+    r = torch.arange(out_size, device=x.device)
+    rows = (ty[:, None] + r)[:, :, None]
+    cols = (tx[:, None] + r)[:, None, :]
+    return x[torch.arange(n, device=x.device)[:, None, None], rows, cols]
+
+
+def random_rotation(x: torch.Tensor, max_deg: float,
+                    generator: Optional[torch.Generator],
+                    theta: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Rotate each NHWC image about its centre by an angle drawn from
+    U(-max_deg, max_deg) degrees (or the ready ``theta`` (N,), in degrees):
+    bilinear resampling with the four corners clipped to the image, and
+    0 wherever the source point falls outside it."""
+    n, h, w, c = x.shape
+    if theta is None:
+        theta = _uniform(generator, (n,), -max_deg, max_deg, x.device)
+    theta = theta.to(device=x.device, dtype=torch.float32) * math.pi / 180.0
+    cy, cx = (h - 1) / 2.0, (w - 1) / 2.0
+    ys = torch.arange(h, dtype=torch.float32, device=x.device) - cy
+    xs = torch.arange(w, dtype=torch.float32, device=x.device) - cx
+    yy, xx = torch.meshgrid(ys, xs, indexing="ij")
+    cos_t = torch.cos(theta)[:, None, None]
+    sin_t = torch.sin(theta)[:, None, None]
+    src_y = cos_t * yy - sin_t * xx + cy
+    src_x = sin_t * yy + cos_t * xx + cx
+    y0 = torch.clamp(torch.floor(src_y), 0, h - 1)
+    x0 = torch.clamp(torch.floor(src_x), 0, w - 1)
+    y1 = torch.clamp(y0 + 1, 0, h - 1)
+    x1 = torch.clamp(x0 + 1, 0, w - 1)
+    wy = (src_y - y0)[..., None]
+    wx = (src_x - x0)[..., None]
+    flat = x.reshape(n, h * w, c)
+
+    def gather(yi, xi):
+        idx = (yi * w + xi).long().reshape(n, -1, 1).expand(-1, -1, c)
+        return torch.gather(flat, 1, idx).reshape(n, h, w, c)
+
+    top = gather(y0, x0) * (1 - wx) + gather(y0, x1) * wx
+    bot = gather(y1, x0) * (1 - wx) + gather(y1, x1) * wx
+    out = top * (1 - wy) + bot * wy
+    valid = (src_y >= 0) & (src_y <= h - 1) & (src_x >= 0) & (src_x <= w - 1)
+    return torch.where(valid[..., None], out, torch.zeros((), device=x.device))
+
+
 def augment_and_normalize(images_u8: torch.Tensor, cfg: AugmentConfig,
                           generator: Optional[torch.Generator], *,
                           dtype=torch.float32, mean=IMAGENET_MEAN,
-                          std=IMAGENET_STD) -> torch.Tensor:
-    """The train-time pipeline: uint8 NHWC -> augmented, normalized NCHW."""
-    if cfg.rotation_deg > 0 or cfg.random_crop:
-        raise NotImplementedError(
-            "rotation and random crop are not ported yet (ROADMAP Queue 1 "
-            "item 9, the optimized trainer)")
+                          std=IMAGENET_STD,
+                          draws: Optional[dict] = None) -> torch.Tensor:
+    """The train-time pipeline: uint8 NHWC -> augmented, normalized NCHW:
+    the random crop (only when the images are larger than ``out_size``),
+    the rotation, the colour jitter, the flip.  ``draws`` may hand any of
+    them its values: ``offsets``, ``theta``, ``factors``, ``flip``."""
+    draws = draws or {}
     x = images_u8.to(torch.float32) / 255.0
+    if cfg.random_crop and x.shape[1] > cfg.out_size:
+        x = random_crop(x, cfg.out_size, generator, draws.get("offsets"))
+    if cfg.rotation_deg > 0:
+        x = random_rotation(x, cfg.rotation_deg, generator, draws.get("theta"))
     if cfg.brightness or cfg.contrast or cfg.saturation or cfg.hue:
-        x = color_jitter(x, cfg, generator)
+        x = color_jitter(x, cfg, generator, draws.get("factors"))
     if cfg.hflip_prob > 0:
-        x = random_hflip(x, cfg.hflip_prob, generator)
+        x = random_hflip(x, cfg.hflip_prob, generator, draws.get("flip"))
     return _standardize(x, mean, std, dtype)

@@ -1,4 +1,4 @@
-"""Distillation losses (``imagecaptioner_tpu/distill/losses.py:26-131``).
+"""Distillation losses (``imagecaptioner_tpu/distill/losses.py:26-198``).
 
 Captions are padded to a fixed T, while the reference computes its losses
 over the batch's own maximum length.  Every normalizer therefore masks to
@@ -10,8 +10,10 @@ over the batch's own maximum length.  Every normalizer therefore masks to
   * With the default weights the CE coefficient (1-a-b-g) is exactly 0:
     preserved, not fixed.
 
-``focal_loss`` and ``optimized_distillation_loss`` belong to the optimized
-trainer (ROADMAP Queue 1 item 9).
+The optimized trainer's ``optimized_distillation_loss`` weighs its terms
+by a warmup over epochs (at epoch 0 only the token loss counts), takes a
+soft-CE token KD and a ``focal_loss`` hard term, both over the step mask
+and not ignoring PAD, and a cosine feature loss.
 """
 
 from __future__ import annotations
@@ -20,11 +22,15 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from imagecaptioner_tpu_torch.core.config import DistillConfig
+from imagecaptioner_tpu_torch.core.config import (DistillConfig,
+                                                  OptimizedDistillConfig)
 
 
 LOSS_NAMES = ("total_loss", "ce_loss", "token_kd_loss", "feature_kd_loss",
               "hidden_kd_loss")
+# the optimized trainer's history and log (``ce_loss`` equals ``hard_loss``)
+OPTIMIZED_LOSS_NAMES = ("total_loss", "token_kd_loss", "feature_kd_loss",
+                        "hidden_kd_loss", "kd_loss", "hard_loss")
 
 
 def _step_mask(T: int, B: int, lengths: Optional[torch.Tensor], device
@@ -119,3 +125,77 @@ def distillation_loss(student_outputs: Dict, teacher_outputs: Dict,
     return total, {"total_loss": total, "ce_loss": ce,
                    "token_kd_loss": token_kd, "feature_kd_loss": feature_kd,
                    "hidden_kd_loss": hidden_kd}
+
+
+# ---------------------------------------------------------------------------
+# The optimized trainer's loss
+# ---------------------------------------------------------------------------
+
+
+def focal_loss(logits_flat: torch.Tensor, targets_flat: torch.Tensor,
+               alpha: float, gamma: float,
+               mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """alpha * (1 - pt)^gamma * CE per row, averaged over the rows of
+    ``mask`` (all rows without it).  PAD targets count: the reference's
+    cross-entropy here has no ignore index."""
+    logp = torch.log_softmax(logits_flat.float(), dim=-1)
+    ce = -logp.gather(-1, targets_flat[:, None]).squeeze(-1)
+    pt = torch.exp(-ce)
+    fl = alpha * (1.0 - pt) ** gamma * ce
+    if mask is None:
+        return fl.mean()
+    return (fl * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def optimized_distillation_loss(
+        student_outputs: Dict, teacher_outputs: Dict, targets: torch.Tensor,
+        cfg: OptimizedDistillConfig, epoch: int,
+        lengths: Optional[torch.Tensor] = None,
+        hidden_noise: Optional[torch.Tensor] = None
+        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The weighted total and its terms.  The warmup ``min(1, epoch /
+    warmup_epochs)`` moves alpha from 0.9 to ``cfg.alpha`` and beta and
+    gamma from 0 to theirs.  The hidden-state term weighs each step by a
+    softmax over time of ``hidden_noise`` (T, B), the reference's random
+    weights, which the caller draws; without it, or without the teacher's
+    hidden states (every real run), the term is 0."""
+    warmup = min(1.0, float(epoch) / cfg.warmup_epochs)
+    cur_alpha = cfg.alpha * warmup + (1.0 - warmup) * 0.9
+    cur_beta, cur_gamma = cfg.beta * warmup, cfg.gamma * warmup
+
+    T, B, V = student_outputs["logits"].shape
+    s_flat = student_outputs["logits"].reshape(-1, V).float()
+    t_flat = teacher_outputs["logits"].reshape(-1, V).float()
+    mask = _step_mask(T, B, lengths, s_flat.device)[0].reshape(-1)
+    denom = torch.clamp(mask.sum(), min=1.0)
+    t_probs = torch.softmax(t_flat / cfg.temperature, -1)
+    s_logp = torch.log_softmax(s_flat / cfg.temperature, -1)
+    kd_rows = -(t_probs * s_logp).sum(-1)
+    kd = (kd_rows * mask).sum() / denom * (cfg.temperature ** 2)
+    hard = focal_loss(s_flat, targets.reshape(-1), cfg.focal_alpha,
+                      cfg.focal_gamma, mask)
+    token_loss = cur_alpha * kd + (1.0 - cur_alpha) * hard
+
+    zero = torch.zeros((), device=s_flat.device)
+    feature_loss = zero
+    if ("encoder_features" in student_outputs
+            and "encoder_features" in teacher_outputs):
+        sf = student_outputs["encoder_features"].float()
+        tf = teacher_outputs["encoder_features"].float()
+        sn = sf / torch.clamp(sf.norm(dim=-1, keepdim=True), min=1e-12)
+        tn = tf / torch.clamp(tf.norm(dim=-1, keepdim=True), min=1e-12)
+        feature_loss = 1.0 - (sn * tn).sum(-1).mean()
+
+    hidden_loss = zero
+    sh = student_outputs.get("hidden_states")
+    th = teacher_outputs.get("hidden_states")
+    if sh is not None and th is not None and hidden_noise is not None:
+        w = torch.softmax(hidden_noise.float(), dim=0)[..., None]
+        hidden_loss = ((sh.float() * w).sum(0)
+                       - (th.float() * w).sum(0)).square().mean()
+
+    total = token_loss + cur_beta * feature_loss + cur_gamma * hidden_loss
+    return total, {"total_loss": total, "token_kd_loss": token_loss,
+                   "feature_kd_loss": feature_loss,
+                   "hidden_kd_loss": hidden_loss, "kd_loss": kd,
+                   "hard_loss": hard, "ce_loss": hard}

@@ -72,21 +72,17 @@ class Teacher(nn.Module):
 
     def forward(self, images: Optional[torch.Tensor], captions: torch.Tensor,
                 *, memory: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None,
-                decoder_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """``teacher_apply`` -> logits (T, B, V).  Pass ``memory`` to reuse
         a precomputed encoding.  The caption stream keeps the embedding's
         dtype and the memory the images', as in JAX: a float32 stream
         against a bf16 memory computes in float32 wherever the two meet,
         except cross-attention's K/V, its P·V and its out-projection, which
-        follow the memory.  ``decoder_dtype`` casts the stream instead (the
-        KD step's bf16 teacher, whose JAX parameters are all cast to
-        bf16)."""
+        follow the memory.  A teacher cast to bf16 (the KD step's,
+        ``distill.wrapper.cast_teacher``) runs its stream in bf16."""
         if memory is None:
             memory = self.encode_image(images)
         x = self.embed_captions(captions, generator=generator)
-        if decoder_dtype is not None:
-            x = x.to(decoder_dtype)
         x = decoder_apply(self.decoder, x, memory, causal=True,
                           generator=generator)
         x = dropout(self.pre_output_norm(x), self.cfg.dropout, self.training,

@@ -4,9 +4,9 @@ AdamW with torch semantics (decoupled decay first, then the Adam step) over
 named parameters, with a per-parameter lr scale, weight decay and trainable
 mask: the generalisation of torch param groups that the JAX package uses.
 A frozen parameter keeps its value and its zero moments.  Plus
-``clip_by_global_norm``, ``cosine_warm_restarts`` and the teacher's
-``label_smoothing_loss``.  ``onecycle_lr`` belongs to the optimized trainer,
-not ported yet (ROADMAP Queue 1 item 9).
+``clip_by_global_norm``, the two schedules (``cosine_warm_restarts`` for the
+teacher and KD trainers, ``onecycle_lr`` for the optimized one) and the
+teacher's ``label_smoothing_loss``.
 """
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ from __future__ import annotations
 import math
 from collections import defaultdict
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Union
 
 import torch
 
@@ -36,19 +36,23 @@ def adamw_init(params: Dict[str, torch.Tensor]) -> AdamWState:
 def adamw_update(grads: Dict[str, torch.Tensor], state: AdamWState,
                  params: Dict[str, torch.Tensor], *,
                  lr_fn: Callable[[float], float], lr_scale: Dict[str, float],
-                 weight_decay: float = 0.01, trainable: Dict[str, bool],
-                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> None:
+                 weight_decay: Union[float, Dict[str, float]] = 0.01,
+                 trainable: Dict[str, bool], b1: float = 0.9,
+                 b2: float = 0.999, eps: float = 1e-8) -> None:
     """One AdamW step in place on ``params`` and ``state``.  A parameter's
-    learning rate is ``lr_fn(lr_scale[name])``; parameters that share a
-    scale are updated together."""
+    learning rate is ``lr_fn(lr_scale[name])`` and its weight decay
+    ``weight_decay``, or ``weight_decay[name]`` when it is a dict;
+    parameters that share both are updated together."""
     state.step += 1
     bc1 = 1.0 - b1 ** state.step
     bc2 = 1.0 - b2 ** state.step
     groups = defaultdict(list)
     for name in params:
         if trainable[name]:
-            groups[lr_scale[name]].append(name)
-    for scale, names in groups.items():
+            wd = (weight_decay[name] if isinstance(weight_decay, dict)
+                  else weight_decay)
+            groups[lr_scale[name], wd].append(name)
+    for (scale, wd), names in groups.items():
         lr = lr_fn(scale)
         P = [params[n] for n in names]
         G = [grads[n] for n in names]
@@ -62,7 +66,7 @@ def adamw_update(grads: Dict[str, torch.Tensor], state: AdamWState,
         denom = torch._foreach_div(V, bc2)
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, eps)
-        torch._foreach_mul_(P, 1.0 - lr * weight_decay)
+        torch._foreach_mul_(P, 1.0 - lr * wd)
         torch._foreach_addcdiv_(P, M, denom, value=-lr / bc1)
 
 
@@ -93,6 +97,29 @@ def cosine_warm_restarts(t: float, *, base_lr: float, t0: int = 5,
         t_i = t0 * float(t_mult) ** n
     return eta_min + (base_lr - eta_min) * (
         1.0 + math.cos(math.pi * t_cur / t_i)) / 2.0
+
+
+def onecycle_lr(step: float, *, max_lr: float, total_steps: int,
+                pct_start: float = 0.1, div_factor: float = 10.0,
+                final_div_factor: float = 100.0) -> float:
+    """torch OneCycleLR (cosine annealing) at optimizer step ``step``: from
+    ``max_lr / div_factor`` up to ``max_lr`` over ``pct_start * total_steps
+    - 1`` steps, then down to ``max_lr / div_factor / final_div_factor`` at
+    step ``total_steps - 1``."""
+    step = float(step)
+    initial = max_lr / div_factor
+    final = initial / final_div_factor
+    up_steps = pct_start * total_steps - 1.0
+    down_steps = (total_steps - 1.0) - up_steps
+
+    def cos_anneal(start: float, end: float, pct: float) -> float:
+        return end + (start - end) * (1.0 + math.cos(math.pi * pct)) / 2.0
+
+    if step <= up_steps:
+        pct = min(max(step / max(up_steps, 1.0), 0.0), 1.0)
+        return cos_anneal(initial, max_lr, pct)
+    pct = min(max((step - up_steps) / max(down_steps, 1.0), 0.0), 1.0)
+    return cos_anneal(max_lr, final, pct)
 
 
 def label_smoothing_loss(logits: torch.Tensor, targets: torch.Tensor, *,

@@ -1,5 +1,5 @@
 """Teacher and KD train and eval steps (``imagecaptioner_tpu/train/
-steps.py:59-189, 192-388, 438-467``).
+steps.py:59-189, 192-388, 438-467``), the optimized trainer's too.
 
 A teacher train step is the JAX per-leaf path that ``train_teacher.train``
 runs (it passes no fused optimizer): for each of the A micro-batches,
@@ -14,9 +14,15 @@ One KD train step = for each of the A stacked micro-batches: augment and
 normalize on the device, run the frozen teacher and the student, take the
 distillation loss and its gradient; then the mean of the A gradients, the
 global-norm clip, and AdamW with the three learning-rate groups (student
-encoder x ``encoder_lr_scale``; decoder; refinement and projectors).
-Batch-norm statistics thread through the micro-batches in order, as the
-JAX step threads its state tree.
+encoder x ``encoder_lr_scale``; decoder; the others, refinement and
+projectors, x ``others_scale``).  Batch-norm statistics thread through the
+micro-batches in order, as the JAX step threads its state tree.  The
+frozen teacher runs in float32, or under ``teacher_bf16`` as a copy whose
+parameters are rounded to bf16 once a step, as JAX casts its tree.  With
+``optimized=True`` (the optimized trainer) the loss is
+``optimized_distillation_loss`` at the step's epoch, the schedule is
+OneCycle over the optimizer step, and the others may decay at their own
+rate.
 
 Batch layout (stacked for accumulation):
   images   uint8 (A, B, S, S, 3)  NHWC
@@ -34,13 +40,15 @@ import torch
 from torch import nn
 
 from imagecaptioner_tpu_torch.core.config import (DistillConfig,
-                                                  KDTrainConfig, StudentConfig,
+                                                  OptimizedDistillConfig,
+                                                  StudentConfig,
                                                   TeacherConfig,
                                                   TeacherTrainConfig)
 from imagecaptioner_tpu_torch.core.precision import as_dtype
 from imagecaptioner_tpu_torch.data import transforms as T
 from imagecaptioner_tpu_torch.distill import losses as DL
-from imagecaptioner_tpu_torch.distill.wrapper import teacher_forward_for_kd
+from imagecaptioner_tpu_torch.distill.wrapper import (cast_teacher,
+                                                      teacher_forward_for_kd)
 from imagecaptioner_tpu_torch.models.student import Student, set_trainable
 from imagecaptioner_tpu_torch.models import teacher as TM
 from imagecaptioner_tpu_torch.models.teacher import Teacher
@@ -108,6 +116,17 @@ def _lr_fn(tr_cfg, sched_t: float):
             sched_t, base_lr=tr_cfg.learning_rate * scale,
             t0=tr_cfg.sched_t0, t_mult=tr_cfg.sched_t_mult,
             eta_min=tr_cfg.sched_eta_min)
+    return lr_fn
+
+
+def _onecycle_lr_fn(tr_cfg, sched_t: float, total_steps: int):
+    """The optimized trainer's rate of a group with scale ``s`` at optimizer
+    step ``sched_t``: OneCycle at ``max_lr = lr * s``, so its initial and
+    final rates scale with ``s`` too."""
+    def lr_fn(scale: float) -> float:
+        return O.onecycle_lr(sched_t, max_lr=tr_cfg.learning_rate * scale,
+                             total_steps=total_steps, pct_start=0.1,
+                             div_factor=10.0, final_div_factor=100.0)
     return lr_fn
 
 
@@ -215,14 +234,26 @@ def init_train_state(student: Student, projectors: nn.ModuleDict,
     return state
 
 
-def kd_group_scales(names, *, encoder_scale: float = 0.1
-                    ) -> Dict[str, float]:
+def kd_group_scales(names, *, encoder_scale: float = 0.1,
+                    others_scale: float = 1.0) -> Dict[str, float]:
     """Learning-rate scale per parameter: the student's encoder ->
-    ``encoder_scale``; its decoder, and the others (refinement, projectors)
-    -> 1.0.  The two groups at 1.0 differ in the optimized trainer only
-    (ROADMAP Queue 1 item 9)."""
-    return {n: encoder_scale if n.startswith("student.encoder.") else 1.0
+    ``encoder_scale``, its decoder -> 1.0, the others (the refinement and
+    the projectors) -> ``others_scale`` (1.5 in the optimized trainer)."""
+    return {n: encoder_scale if n.startswith("student.encoder.")
+            else 1.0 if n.startswith("student.decoder.") else others_scale
             for n in names}
+
+
+def kd_weight_decays(names, *, weight_decay: float,
+                     others_wd: Optional[float] = None):
+    """Weight decay per parameter: ``weight_decay`` for all, or with
+    ``others_wd`` (the optimized trainer) the student's encoder and decoder
+    at ``weight_decay`` and the others at ``others_wd``."""
+    if others_wd is None:
+        return weight_decay
+    return {n: weight_decay if n.startswith(("student.encoder.",
+                                             "student.decoder."))
+            else others_wd for n in names}
 
 
 def batch_to_device(batch: Dict, device) -> Dict[str, torch.Tensor]:
@@ -254,26 +285,56 @@ def _kd_forward(teacher: Teacher, t_cfg: TeacherConfig, state: TrainState,
     return student_out, teacher_out
 
 
+def _kd_loss(optimized: bool, d_cfg, student_out, teacher_out, targets,
+             lengths, epoch: int):
+    if optimized:
+        return DL.optimized_distillation_loss(student_out, teacher_out,
+                                              targets, d_cfg, epoch,
+                                              lengths=lengths)
+    return DL.distillation_loss(student_out, teacher_out, targets, d_cfg,
+                                lengths=lengths)
+
+
 def make_kd_train_step(teacher: Teacher, t_cfg: TeacherConfig,
                        s_cfg: StudentConfig, d_cfg: DistillConfig,
-                       tr_cfg: KDTrainConfig, *,
+                       tr_cfg, *,
                        aug: T.AugmentConfig = T.KD_TRAIN_AUG,
-                       compute_dtype=torch.float32):
-    """Returns ``step(state, batch, sched_t, generator) -> metrics``; the
-    state is updated in place.  ``metrics`` holds the five loss terms (mean
-    over the micro-batches), ``grad_norm`` (before clipping) and ``lr`` as
-    0-d tensors on the device: fetching them is the caller's
-    synchronisation point."""
+                       compute_dtype=torch.float32, optimized: bool = False,
+                       od_cfg: Optional[OptimizedDistillConfig] = None,
+                       onecycle_total_steps: Optional[int] = None,
+                       others_scale: float = 1.0,
+                       others_wd: Optional[float] = None):
+    """Returns ``step(state, batch, sched_t, generator, epoch=0) ->
+    metrics``; the state is updated in place.  ``metrics`` holds the loss
+    terms (mean over the micro-batches), ``grad_norm`` (before clipping) and
+    ``lr`` (the rate at scale 1) as 0-d tensors on the device: fetching them
+    is the caller's synchronisation point.  ``tr_cfg`` is a
+    ``KDTrainConfig``, or with ``optimized=True`` an
+    ``OptimizedKDTrainConfig``; then ``sched_t`` is the optimizer step of
+    a OneCycle over ``onecycle_total_steps`` and ``epoch`` drives the loss's
+    warmup."""
     compute_dtype = as_dtype(compute_dtype)
-    teacher_dtype = torch.bfloat16 if tr_cfg.teacher_bf16 else torch.float32
+    teacher_dtype = (torch.bfloat16 if getattr(tr_cfg, "teacher_bf16", False)
+                     else torch.float32)
+    loss_cfg = od_cfg if optimized else d_cfg
+    cast = None          # the bf16 copy of the teacher, refilled every step
 
     def step(state: TrainState, batch: Dict, sched_t: float,
-             generator: Optional[torch.Generator]) -> Dict[str, torch.Tensor]:
-        lr_fn = _lr_fn(tr_cfg, sched_t)
+             generator: Optional[torch.Generator], epoch: int = 0
+             ) -> Dict[str, torch.Tensor]:
+        nonlocal cast
+        lr_fn = (_onecycle_lr_fn(tr_cfg, sched_t, onecycle_total_steps)
+                 if optimized else _lr_fn(tr_cfg, sched_t))
         params = state.named_parameters()
         trainable = {n: p.requires_grad for n, p in params.items()}
         scales = kd_group_scales(params,
-                                 encoder_scale=tr_cfg.encoder_lr_scale)
+                                 encoder_scale=tr_cfg.encoder_lr_scale,
+                                 others_scale=others_scale)
+        frozen_teacher = teacher
+        if teacher_dtype != torch.float32:
+            # once a step, outside the micro-batches, as the JAX step casts
+            cast = cast_teacher(teacher, teacher_dtype, into=cast)
+            frozen_teacher = cast
         state.student.train()
         state.projectors.train()
         for p in params.values():
@@ -285,11 +346,11 @@ def make_kd_train_step(teacher: Teacher, t_cfg: TeacherConfig,
                                              generator, dtype=compute_dtype)
             captions = batch["captions"][a]
             student_out, teacher_out = _kd_forward(
-                teacher, t_cfg, state, s_cfg, images, captions[:-1],
+                frozen_teacher, t_cfg, state, s_cfg, images, captions[:-1],
                 generator=generator, teacher_dtype=teacher_dtype)
-            loss, ld = DL.distillation_loss(
-                student_out, teacher_out, captions[1:], d_cfg,
-                lengths=batch["lengths"][a])
+            loss, ld = _kd_loss(optimized, loss_cfg, student_out,
+                                teacher_out, captions[1:],
+                                batch["lengths"][a], epoch)
             loss.backward()                  # .grad holds the running sum
             ld = {k: v.detach() for k, v in ld.items()}
             ld_sum = ld if ld_sum is None else {k: ld_sum[k] + v
@@ -301,7 +362,10 @@ def make_kd_train_step(teacher: Teacher, t_cfg: TeacherConfig,
         torch._foreach_div_(list(grads.values()), float(A))
         gnorm = O.clip_by_global_norm(grads, tr_cfg.grad_clip)
         O.adamw_update(grads, state.opt_state, params, lr_fn=lr_fn,
-                       lr_scale=scales, weight_decay=tr_cfg.weight_decay,
+                       lr_scale=scales,
+                       weight_decay=kd_weight_decays(
+                           params, weight_decay=tr_cfg.weight_decay,
+                           others_wd=others_wd),
                        trainable=trainable)
         dev = gnorm.device
         metrics = {k: v / A for k, v in ld_sum.items()}
@@ -314,14 +378,17 @@ def make_kd_train_step(teacher: Teacher, t_cfg: TeacherConfig,
 
 def make_kd_eval_step(teacher: Teacher, t_cfg: TeacherConfig,
                       s_cfg: StudentConfig, d_cfg: DistillConfig, *,
-                      compute_dtype=torch.float32):
-    """Returns ``step(state, batch) -> (loss, loss_dict, preds, cap_tgt)``
-    on one un-stacked batch, in eval mode and without gradients; the
-    teacher computes in float32, as in the JAX eval step."""
+                      compute_dtype=torch.float32, optimized: bool = False,
+                      od_cfg: Optional[OptimizedDistillConfig] = None):
+    """Returns ``step(state, batch, epoch=0) -> (loss, loss_dict, preds,
+    cap_tgt)`` on one un-stacked batch, in eval mode and without gradients;
+    the teacher computes in float32, as in the JAX eval step.  With
+    ``optimized=True`` the loss is the optimized one at ``epoch``."""
     compute_dtype = as_dtype(compute_dtype)
+    loss_cfg = od_cfg if optimized else d_cfg
 
     @torch.no_grad()
-    def step(state: TrainState, batch: Dict):
+    def step(state: TrainState, batch: Dict, epoch: int = 0):
         state.student.eval()
         state.projectors.eval()
         images = T.normalize(batch["images"], dtype=compute_dtype)
@@ -329,8 +396,8 @@ def make_kd_eval_step(teacher: Teacher, t_cfg: TeacherConfig,
         student_out, teacher_out = _kd_forward(
             teacher, t_cfg, state, s_cfg, images, cap_in, generator=None,
             teacher_dtype=torch.float32)
-        loss, ld = DL.distillation_loss(student_out, teacher_out, cap_tgt,
-                                        d_cfg, lengths=batch["lengths"])
+        loss, ld = _kd_loss(optimized, loss_cfg, student_out, teacher_out,
+                            cap_tgt, batch["lengths"], epoch)
         preds = student_out["logits"].float().argmax(-1)
         return loss, ld, preds, cap_tgt
 

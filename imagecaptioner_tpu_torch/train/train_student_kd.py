@@ -66,18 +66,21 @@ from imagecaptioner_tpu_torch.utils import convert as CV
 from imagecaptioner_tpu_torch.utils.logging import MetricLogger
 
 
-def not_ported(what: str, item: str) -> SystemExit:
+def not_ported(what: str, item: str,
+               jax_entry: str = "train_student_kd") -> SystemExit:
     return SystemExit(f"{what} is not ported yet (ROADMAP Queue 1 {item}); "
-                      "use python -m imagecaptioner_tpu.train.train_student_kd")
+                      f"use python -m imagecaptioner_tpu.train.{jax_entry}")
 
 
 def check_options(*, data_parallel: bool, device, device_dataset: bool,
-                  student_variant: str) -> None:
-    """Refuse what is not ported, before any data or card is touched."""
+                  student_variant: str,
+                  jax_entry: str = "train_student_kd") -> None:
+    """Refuse what is not ported, before any data or card is touched;
+    ``jax_entry`` names the JAX trainer that has it."""
     if common.data_parallel_over_cards(data_parallel, device):
-        raise not_ported("data-parallel KD training", "item 13")
+        raise not_ported("data-parallel KD training", "item 13", jax_entry)
     if device_dataset:
-        raise not_ported("the device-resident dataset", "item 11")
+        raise not_ported("the device-resident dataset", "item 11", jax_entry)
     if student_variant not in STUDENT_CONFIGS:
         raise ValueError(f"unknown student_variant {student_variant!r}")
 
@@ -174,10 +177,11 @@ def train_student_with_kd(
 
 
 def resume_train_state(state: steps.TrainState, path: str,
-                       s_cfg, device) -> int:
+                       s_cfg, device) -> dict:
     """Load a KD checkpoint of either package into ``state`` in place: the
     student's parameters and batch-norm statistics, the projectors, the
-    AdamW step and moments.  Returns the epoch to start from."""
+    AdamW step and moments.  Returns the checkpoint (its ``epoch`` + 1 is
+    the epoch to start from)."""
     ck = CKPT.load_checkpoint(path)
     sd = ck["student_state_dict"]
     state.student.load_state_dict(CV.jax_student_to_state_dict(
@@ -188,7 +192,64 @@ def resume_train_state(state: steps.TrainState, path: str,
     state.opt_state = steps.restore_adamw(ck["optimizer_state_dict"],
                                           state.named_parameters(), device,
                                           path)
-    return int(ck["epoch"]) + 1
+    return ck
+
+
+def make_student_and_projectors(s_cfg, t_cfg, seed: int, device):
+    """The student from ``student_init(seed)`` and the feature projectors
+    from ``seed + 1``, both on ``device``, in the JAX trees' layouts."""
+    s_params, s_state = student_init(seed, s_cfg)
+    student = Student(s_cfg)
+    student.load_state_dict(CV.jax_student_to_state_dict(s_params, s_state,
+                                                         s_cfg), strict=True)
+    proj_params, _ = create_feature_projectors(
+        seed + 1, teacher_embed=t_cfg.embed_size,
+        student_embed=s_cfg.embed_size, student_hidden=s_cfg.hidden_size,
+        student_seq_len=s_cfg.feature_tokens,
+        teacher_seq_len=t_cfg.num_tokens)
+    projectors = make_projectors(t_cfg.embed_size, s_cfg.embed_size,
+                                 s_cfg.hidden_size)
+    projectors.load_state_dict(CV.jax_projectors_to_state_dict(proj_params),
+                               strict=True)
+    return student.to(device), projectors.to(device)
+
+
+def kd_checkpoint_tree(state: steps.TrainState, s_cfg, vocab_size: int,
+                       epoch: int, d_cfg, **extra) -> dict:
+    """A KD checkpoint in the JAX trainers' schema: the student's trees,
+    the projectors, AdamW's step and moments as ``{"student",
+    "projectors"}`` trees, the model and distillation configs, and
+    ``extra`` (the scheduler's state, metrics)."""
+    params, model_state = CV.student_to_jax_trees(state.student)
+    names = list(state.projectors)
+
+    def moments(m):
+        sd = {n: m[n] for n in state.named_parameters()}
+        pre = "projectors."
+        return dict(CV.state_dict_to_tree(
+            {n: v for n, v in sd.items() if not n.startswith(pre)}),
+            projectors=CV.projectors_to_tree(
+                {n[len(pre):]: v for n, v in sd.items()
+                 if n.startswith(pre)}, names))
+
+    return dict(
+        epoch=epoch,
+        student_state_dict=dict(params=params, model_state=model_state),
+        projectors_state_dict=CV.projectors_to_tree(
+            dict(state.projectors.named_parameters()), names),
+        optimizer_state_dict=dict(
+            step=np.asarray(state.opt_state.step, np.int32),
+            mu=moments(state.opt_state.mu), nu=moments(state.opt_state.nu)),
+        vocab_size=vocab_size,
+        model_config=dict(
+            embed_size=s_cfg.embed_size, hidden_size=s_cfg.hidden_size,
+            num_layers=s_cfg.num_layers, dropout=s_cfg.dropout,
+            use_attention_refinement=s_cfg.use_attention_refinement,
+            model_type=s_cfg.variant),
+        distillation_config=dict(alpha=d_cfg.alpha, beta=d_cfg.beta,
+                                 gamma=d_cfg.gamma,
+                                 temperature=d_cfg.temperature),
+        **extra)
 
 
 def train_student_with_kd_on_loaders(
@@ -244,24 +305,11 @@ def train_student_with_kd_on_loaders(
     if student_cfg_overrides:
         s_cfg = replace(s_cfg, **student_cfg_overrides)
 
-    s_params, s_state = student_init(seed, s_cfg)
-    student = Student(s_cfg)
-    student.load_state_dict(CV.jax_student_to_state_dict(s_params, s_state,
-                                                         s_cfg), strict=True)
-    student.to(device)
+    student, projectors = make_student_and_projectors(s_cfg, t_cfg, seed,
+                                                      device)
     if verbose:
         print("Student parameters: "
               f"{sum(p.numel() for p in student.parameters()):,}")
-    proj_params, _ = create_feature_projectors(
-        seed + 1, teacher_embed=t_cfg.embed_size,
-        student_embed=s_cfg.embed_size, student_hidden=s_cfg.hidden_size,
-        student_seq_len=s_cfg.feature_tokens,
-        teacher_seq_len=t_cfg.num_tokens)
-    projectors = make_projectors(t_cfg.embed_size, s_cfg.embed_size,
-                                 s_cfg.hidden_size)
-    projectors.load_state_dict(CV.jax_projectors_to_state_dict(proj_params),
-                               strict=True)
-    projectors.to(device)
 
     # preflight: one eval-mode forward of both models and the loss
     sample = steps.batch_to_device(next(iter(val_loader)), device)
@@ -273,7 +321,8 @@ def train_student_with_kd_on_loaders(
     state = steps.init_train_state(student, projectors, s_cfg)
     start_epoch = 0
     if resume_from is not None:
-        start_epoch = resume_train_state(state, resume_from, s_cfg, device)
+        start_epoch = int(resume_train_state(state, resume_from, s_cfg,
+                                             device)["epoch"]) + 1
         if verbose:
             print(f"Resumed from {resume_from} at epoch {start_epoch}")
     aug_kw = {} if aug is None else {"aug": aug}
@@ -294,38 +343,9 @@ def train_student_with_kd_on_loaders(
     mlog = MetricLogger(metrics_jsonl)
 
     def ckpt_tree(epoch, extra):
-        params, model_state = CV.student_to_jax_trees(state.student)
-        names = list(state.projectors)
-
-        def moments(m):        # the JAX trainer's {"student", "projectors"}
-            sd = {n: m[n] for n in state.named_parameters()}
-            pre = "projectors."
-            return dict(CV.state_dict_to_tree(
-                {n: v for n, v in sd.items() if not n.startswith(pre)}),
-                projectors=CV.projectors_to_tree(
-                    {n[len(pre):]: v for n, v in sd.items()
-                     if n.startswith(pre)}, names))
-
-        return dict(
-            epoch=epoch,
-            student_state_dict=dict(params=params, model_state=model_state),
-            projectors_state_dict=CV.projectors_to_tree(
-                dict(state.projectors.named_parameters()), names),
-            optimizer_state_dict=dict(
-                step=np.asarray(state.opt_state.step, np.int32),
-                mu=moments(state.opt_state.mu),
-                nu=moments(state.opt_state.nu)),
-            scheduler_state_dict=dict(last_epoch_time=float(epoch)),
-            vocab_size=vocab_size,
-            model_config=dict(
-                embed_size=s_cfg.embed_size, hidden_size=s_cfg.hidden_size,
-                num_layers=s_cfg.num_layers, dropout=s_cfg.dropout,
-                use_attention_refinement=s_cfg.use_attention_refinement,
-                model_type=s_cfg.variant),
-            distillation_config=dict(alpha=d_cfg.alpha, beta=d_cfg.beta,
-                                     gamma=d_cfg.gamma,
-                                     temperature=d_cfg.temperature),
-            **extra)
+        return kd_checkpoint_tree(
+            state, s_cfg, vocab_size, epoch, d_cfg,
+            scheduler_state_dict=dict(last_epoch_time=float(epoch)), **extra)
 
     for epoch in range(start_epoch, tr.num_epochs):
         step_metrics = []  # device tensors; one host fetch per epoch

@@ -2,13 +2,16 @@
 """Where one KD train step of the PyTorch/CUDA port spends its time on the GPU.
 
     python3 scripts/torch_profile_kd_step.py [--steps 3] [--out kd_profile.json] \\
-        [--student full|compact|enhanced]
+        [--student full|compact|enhanced] [--optimized]
 
 Builds the student (the full one by default), a ViT-S/16 teacher and the projectors at full width
 from numpy seeds (random weights), takes warm-up steps on in-memory grid
 data (A=2 x B=16, T=47, V=2994, bf16 compute, float32 teacher, the trainer's
 dropout: 0.3 for the full student, the variant's default otherwise;
-KD_TRAIN_AUG), then reports:
+KD_TRAIN_AUG); with ``--optimized``, the optimized trainer's step instead
+(``OptimizedKDTrainConfig``, images read at 256 and cropped to 224 with
+``OPTIMIZED_KD_AUG``, the optimized loss at epoch 1, OneCycle at step 2 of
+30, the variant's default dropout), then reports:
 
   * the untraced step's wall time (host clock, synchronised) over ``--steps``;
   * device time by kind of kernel from ``torch.profiler`` over the same
@@ -23,6 +26,7 @@ Needs one CUDA device; imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import statistics
@@ -36,7 +40,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from imagecaptioner_tpu_torch.core.config import (STUDENT_CONFIGS,  # noqa: E402
                                                   DistillConfig,
-                                                  KDTrainConfig, TeacherConfig)
+                                                  KDTrainConfig,
+                                                  OptimizedDistillConfig,
+                                                  OptimizedKDTrainConfig,
+                                                  TeacherConfig)
 from imagecaptioner_tpu_torch.data import transforms as T  # noqa: E402
 from imagecaptioner_tpu_torch.data.synthetic import make_grid_loaders  # noqa: E402
 from imagecaptioner_tpu_torch.distill import losses as DL  # noqa: E402
@@ -84,6 +91,8 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--out", default="kd_profile.json")
     ap.add_argument("--student", default="full", choices=sorted(STUDENT_CONFIGS))
+    ap.add_argument("--optimized", action="store_true",
+                    help="the optimized trainer's step")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("this script runs on a CUDA device", file=sys.stderr)
@@ -92,11 +101,13 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
-    print(f"device: {smi}; student: {args.student}", flush=True)
+    print(f"device: {smi}; student: {args.student}; optimized: "
+          f"{args.optimized}", flush=True)
     _build.build_all()
 
-    tr = KDTrainConfig()
-    over = {"dropout": tr.dropout} if args.student == "full" else {}
+    tr = OptimizedKDTrainConfig() if args.optimized else KDTrainConfig()
+    over = ({"dropout": tr.dropout}
+            if args.student == "full" and not args.optimized else {})
     s_cfg = STUDENT_CONFIGS[args.student](VOCAB, **over)
     t_cfg = TeacherConfig(vocab_size=VOCAB)
     p, s = student_init(SEED, s_cfg)
@@ -115,10 +126,32 @@ def main() -> int:
     projectors.load_state_dict(CV.jax_projectors_to_state_dict(proj),
                                strict=True)
     state = steps.init_train_state(student.to(dev), projectors.to(dev), s_cfg)
-    step = steps.make_kd_train_step(teacher, t_cfg, s_cfg, DistillConfig(), tr,
-                                    compute_dtype=torch.bfloat16)
-    loader, _, _ = make_grid_loaders(A * B * 2, image_size=224, seed=SEED,
-                                     batch_size=B, max_caption_len=T_STEPS + 1)
+    if args.optimized:
+        aug = dataclasses.replace(T.OPTIMIZED_KD_AUG, out_size=224)
+        od = OptimizedDistillConfig()
+        step = steps.make_kd_train_step(
+            teacher, t_cfg, s_cfg, None, tr, aug=aug,
+            compute_dtype=torch.bfloat16, optimized=True, od_cfg=od,
+            onecycle_total_steps=30, others_scale=tr.others_lr_scale,
+            others_wd=tr.others_weight_decay)
+        sched_t, epoch = 2, 1
+
+        def loss_fn(student_out, teacher_out, targets, lengths):
+            return DL.optimized_distillation_loss(
+                student_out, teacher_out, targets, od, epoch, lengths=lengths)
+    else:
+        aug = T.KD_TRAIN_AUG
+        step = steps.make_kd_train_step(teacher, t_cfg, s_cfg,
+                                        DistillConfig(), tr,
+                                        compute_dtype=torch.bfloat16)
+        sched_t, epoch = 0.5, 0
+
+        def loss_fn(student_out, teacher_out, targets, lengths):
+            return DL.distillation_loss(student_out, teacher_out, targets,
+                                        DistillConfig(), lengths=lengths)
+    loader, _, _ = make_grid_loaders(
+        A * B * 2, image_size=256 if args.optimized else 224, seed=SEED,
+        batch_size=B, max_caption_len=T_STEPS + 1)
     stacks = [steps.batch_to_device(b, dev)
               for b in common.stacked_batches(loader, A)]
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -128,7 +161,8 @@ def main() -> int:
         for i in range(n):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            float(step(state, stacks[i % len(stacks)], 0.5, gen)["total_loss"])
+            float(step(state, stacks[i % len(stacks)], sched_t, gen,
+                       epoch)["total_loss"])
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
         return times
@@ -174,7 +208,7 @@ def main() -> int:
         q.grad = None
     torch.cuda.synchronize()
     marks[0].record()
-    images = T.augment_and_normalize(batch["images"][0], T.KD_TRAIN_AUG, gen,
+    images = T.augment_and_normalize(batch["images"][0], aug, gen,
                                      dtype=torch.bfloat16)
     caps = batch["captions"][0]
     t_out = teacher_forward_for_kd(teacher, images, caps[:-1])
@@ -184,10 +218,10 @@ def main() -> int:
         t_out["encoder_features"], teacher_seq_len=t_cfg.num_tokens,
         student_seq_len=s_cfg.feature_tokens, generator=gen)
     marks[2].record()
-    loss, _ = DL.distillation_loss(
+    loss, _ = loss_fn(
         {"logits": logits, "encoder_features": feats, "hidden_states": hid},
-        dict(t_out, encoder_features=projected), caps[1:], DistillConfig(),
-        lengths=batch["lengths"][0])
+        dict(t_out, encoder_features=projected), caps[1:],
+        batch["lengths"][0])
     marks[3].record()
     loss.backward()
     marks[4].record()
@@ -201,7 +235,9 @@ def main() -> int:
         print(f"  {k}: {ms:.3f} ms")
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
-        json.dump({"device": smi, "student": args.student, "wall_ms": [1e3 * w for w in wall],
+        json.dump({"device": smi, "student": args.student,
+                   "optimized": args.optimized,
+                   "wall_ms": [1e3 * w for w in wall],
                    "device_ms_by_kind": by_kind, "phases_ms": phases,
                    "kernel_launches_per_step": n_kernels / args.steps}, f,
                   indent=1)

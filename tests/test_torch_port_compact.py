@@ -259,7 +259,8 @@ def kd_step_both(variant):
                 s_cfg=s_cfg)
 
 
-def assert_kd_step_matches(run, backbone_tag=".backbone."):
+def assert_kd_step_matches(run, backbone_tag=".backbone.",
+                           loss_names=LOSS_NAMES, lr=None):
     """Loss terms to 1e-4 absolute; every leaf's gradient (AdamW's first
     moment after one step, times each side's gradient norm) to 2e-4 of its
     largest entry outside the backbone and to 10% in the L2 norm inside it:
@@ -267,11 +268,12 @@ def assert_kd_step_matches(run, backbone_tag=".backbone."):
     samples a channel, which makes single backbone leaf gradients
     ill-conditioned (the full student's step test measures the same in the
     ResNet).  Updated parameters: every entry within one optimizer step of
-    JAX's, frozen leaves unmoved on both sides.  Batch-norm statistics to
-    1e-4 relative (1e-6 absolute: a running mean of order 1e-8 is float32
-    noise on both sides)."""
+    JAX's (``lr``, the largest rate of the step, defaults to
+    ``KDTrainConfig``'s), frozen leaves unmoved on both sides.  Batch-norm
+    statistics to 1e-4 relative (1e-6 absolute: a running mean of order
+    1e-8 is float32 noise on both sides)."""
     ref, got = run["jax"]["metrics"], run["metrics"]
-    for k in LOSS_NAMES:
+    for k in loss_names:
         np.testing.assert_allclose(float(got[k]), ref[k], atol=1e-4, rtol=0,
                                    err_msg=k)
     np.testing.assert_allclose(float(got["grad_norm"]), ref["grad_norm"],
@@ -293,7 +295,7 @@ def assert_kd_step_matches(run, backbone_tag=".backbone."):
             np.testing.assert_allclose(
                 g_got, g_ref, rtol=0, err_msg=k,
                 atol=2e-4 * np.abs(g_ref).max() + 1e-7 * n_ref)
-    lr = PC.KDTrainConfig().learning_rate
+    lr = lr or PC.KDTrainConfig().learning_rate
     new, old = flat(run["jax"]["params"]), flat(run["start"][1])
     moved = frozen = 0
     for k, p in run["state"].named_parameters().items():

@@ -109,8 +109,10 @@ def test_without_pil_ppm_and_missing_files_work_and_jpeg_raises(mixed,
     p = CaptionDataset(root, csv, freq_threshold=3, image_size=S,
                        decode_cache_bytes=0)
     np.testing.assert_array_equal(p.load_image(4), ref.load_image(4))  # c.ppm
+    # a PPM at another size: resized by numpy, as PIL resizes it
+    np.testing.assert_array_equal(p.load_image(6), ref.load_image(6))
     assert not p.load_image(10).any()                                  # f.jpg
-    for i in (0, 6, 12):     # a JPEG, a PPM that needs PIL's resize, junk
+    for i in (0, 12):        # a JPEG, junk
         with pytest.raises(ImportError):
             p.load_image(i)
 

@@ -231,7 +231,8 @@ def test_numpy_init_bounds():
 
 @pytest.mark.parametrize("name", ["TeacherConfig", "DistillConfig",
                                   "KDTrainConfig", "TeacherTrainConfig",
-                                  "DataConfig"])
+                                  "DataConfig", "OptimizedDistillConfig",
+                                  "OptimizedKDTrainConfig"])
 def test_training_configs_match_jax_field_for_field(name):
     jf = [(f.name, f.default) for f in dataclasses.fields(getattr(JC, name))]
     pf = [(f.name, f.default) for f in dataclasses.fields(getattr(PC, name))]
@@ -338,9 +339,10 @@ def test_color_jitter_and_flip_match_jax_on_shared_draws():
     g = torch.Generator().manual_seed(1)
     out = PT.augment_and_normalize(torch.from_numpy(u8), pcfg, g)
     assert out.shape == (2, 3, 8, 8) and torch.isfinite(out).all()
-    with pytest.raises(NotImplementedError, match="not ported"):
-        PT.augment_and_normalize(torch.from_numpy(u8),
-                                 PT.AugmentConfig(rotation_deg=5.0), g)
+    # the optimized trainer's pipeline (crop and rotation) is ported too
+    crop = dataclasses.replace(PT.OPTIMIZED_KD_AUG, out_size=6)
+    out = PT.augment_and_normalize(torch.from_numpy(u8), crop, g)
+    assert out.shape == (2, 3, 6, 6) and torch.isfinite(out).all()
 
 
 REPO = Path(__file__).resolve().parent.parent
@@ -391,9 +393,10 @@ class _ImportsRunAtImport(ast.NodeVisitor):
 
 @pytest.mark.parametrize("path", PORT_FILES)
 def test_port_file_imports_no_pandas_pil_or_matplotlib_at_module_level(path):
-    """The card's machine has no pandas, PIL or matplotlib: no file of the
-    port imports pandas at all, and PIL and matplotlib only inside the
-    function that uses them, so importing any module needs none of them."""
+    """The card's machine has no pandas, PIL, matplotlib or streamlit: no
+    file of the port imports pandas at all, and PIL, matplotlib and
+    streamlit only inside the function that uses them, so importing any
+    module (the runners' too) needs none of them."""
     tree = ast.parse((REPO / path).read_text())
     anywhere = {(n.module or "") if isinstance(n, ast.ImportFrom) else a.name
                 for n in ast.walk(tree)
@@ -403,5 +406,5 @@ def test_port_file_imports_no_pandas_pil_or_matplotlib_at_module_level(path):
         f"{path} imports pandas"
     top = _ImportsRunAtImport()
     top.visit(tree)
-    banned = top.roots & {"PIL", "matplotlib", "pandas"}
+    banned = top.roots & {"PIL", "matplotlib", "pandas", "streamlit"}
     assert not banned, f"{path} imports {banned} at module level"
