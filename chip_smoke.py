@@ -129,6 +129,21 @@ Imports nothing of JAX.  In order it:
      ``load_reference_pth`` -> ``*_from_reference`` -> ``strict=True`` and
      serves one batch each (beam, 16 images; greedy, 32 images, bf16):
      parameters and outputs must equal the ``.npz`` path's bit for bit;
+ 11g. (run right after the build) trains the full student
+     (``train_student_with_kd``) and the compact one (the optimized
+     trainer, rows stored at 256) with ``device_dataset=True,
+     stream_steps=8`` on a dataset like 11's at full width: one epoch of 15 steps as one chain of 8 and seven single steps,
+     #5 and #6 (or #7) 2 a step and #2 40 a step in every chained call;
+     holds the resident rows against the host loader's bit for bit and
+     ``gather_batch`` on the card against the shuffled loader's batches;
+     a float32 chain of 2 steps against two direct steps (dropout and
+     jitter off, deterministic algorithms, lr 1e-9: loss terms, weights
+     and both AdamW moments 1e-5 relative), whose only host-to-device copy
+     in a CUDA trace (taken in a spawned process: a process's later
+     profiler sessions were seen to lose events; after one warm-up chain,
+     which uploads the step's constant tables once) is its row indices; the bf16 step's wall time
+     device-resident against host-loader; ``device_prefetch`` against the
+     loader, and a 32-image upload pinned against pageable;
  12. the compact student (MobileNetV2, E=H=256, L=49): holds the attention
      kernel against plain at the enhanced refinement's shape (B=16, 8 heads,
      64x64, hd=48); the compact scan kernel against plain at T=47, B=16 (h,
@@ -156,6 +171,20 @@ Imports nothing of JAX.  In order it:
      the refinement) and holds float32 card against CPU, on 4 images and on
      the loop alone with features drawn per row; runs the KD trainer for 3
      steps, times 4 more, compares one float32 step card against CPU;
+ 13b. int8 serving through ``serve.main`` on PPM files: the full student
+     (bf16, 8 x 32) float, ``--int8`` and ``--int8 --int8-calibrate 8``,
+     the compact and enhanced students float and ``--int8``, the teacher
+     (float32, 2 x 16, K=5) float, ``--int8`` and ``--int8-full
+     --int8-calibrate 8``; each int8 arm's float32 copy on the card against
+     the CPU's all-plain int8 path on 4 images (features 1e-3 relative L2,
+     3 of 4 caption rows) and against float (students' features 0.10,
+     teacher's logits 0.15); int8 and bf16 images/s of the full student in
+     one call; then the int8 kernel against its plain version, bit for bit
+     at bf16 and float32 outputs, at every product of a full-student
+     serving batch (ResNet-50 at B=32 and its projection), a MobileNetV2
+     and an EfficientNet-B3 depthwise convolution and the ViT's patch
+     embedding at B=16, each timed beside cuDNN's bf16 convolution (and
+     ``torch._int_mm`` on the 1x1 shapes);
  14. prints kernel, plain and library times (CUDA events, median after
      warm-up), each kernel's bound, the chain floor of the six cooperative
      kernels (#1, #3, #4/#5, #6, #7, #8: the median of 2,000 empty grid
@@ -164,8 +193,10 @@ Imports nothing of JAX.  In order it:
      the end-to-end rates;
  15. prints the kernels JSON line, the nvidia-smi line, and last
      ``{"ok": true, "device": {...}}``.
-Any failed check exits non-zero before the last line.  ``--mutation`` builds
-eleven faulty copies (a scan backward without its dropout mask, a beam
+Any failed check exits non-zero before the last line.  ``--data-int8`` runs
+only 11g and 13b.  ``--mutation``
+builds eleven faulty copies of the kernels' sources (a scan backward
+without its dropout mask, a beam
 self-attention that ignores the ancestry table, one that stages every chunk
 of rows from position 0, a beam cross-attention whose
 bulk copy of V drops its last 16 keys, an enhanced scan whose attention
@@ -174,19 +205,24 @@ stale partials, an attention core whose causal mask is off by one, a greedy
 decode whose blocks all read row 0's broadcast context, a scan forward whose
 layer 1 reads the broadcast h0 without its mask, a compact greedy decode
 whose row blocks all reduce row 0's partial argmaxes, a compact scan whose
-cell reads the previous step's recurrent part at even steps) and expects
-all eleven checks to fail.
+cell reads the previous step's recurrent part at even steps), then an
+int8 convolution that drops its last 32-deep slice of K, and plants one
+fault in Python (an on-device gather that takes each row's neighbour); it
+expects all thirteen checks to fail.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import ctypes
 import dataclasses
+import faulthandler
 import functools
 import itertools
 import json
 import math
+import multiprocessing
 import os
 import shutil
 import statistics
@@ -211,6 +247,8 @@ from imagecaptioner_tpu_torch.core.config import (STUDENT_CONFIGS,
                                                   enhanced_student_config,
                                                   full_student_config)
 from imagecaptioner_tpu_torch.data import dataset as DS
+from imagecaptioner_tpu_torch.data import device_cache as DC
+from imagecaptioner_tpu_torch.data import loader as LD
 from imagecaptioner_tpu_torch.data import transforms as T
 from imagecaptioner_tpu_torch.data.dataset import CaptionDataset, write_ppm
 from imagecaptioner_tpu_torch.data.loader import BatchLoader
@@ -236,6 +274,7 @@ from imagecaptioner_tpu_torch.ops import beam_attn as BA
 from imagecaptioner_tpu_torch.ops import decode as D
 from imagecaptioner_tpu_torch.ops import enhanced_scan as ES
 from imagecaptioner_tpu_torch.ops import greedy as G
+from imagecaptioner_tpu_torch.ops import int8 as I8
 from imagecaptioner_tpu_torch.ops import lstm_scan as S
 from imagecaptioner_tpu_torch.runners import streamlit_app as DEMO
 from imagecaptioner_tpu_torch.train import common, steps
@@ -283,7 +322,7 @@ BEAM_CROSS_IN_GAIN, BEAM_CROSS_GAIN, BEAM_END_BIAS = 8.0, 4.0, 1.2
 
 # published peaks of one H100 SXM: HBM bytes/s; dense FLOP/s by operand type
 HBM_BPS = 3.35e12
-PEAK = {"bf16": 989e12, "f32": 67e12}
+PEAK = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12}
 
 
 def fail(msg: str) -> None:
@@ -372,6 +411,15 @@ def check_attention(dev, gen):
                 if shape == ATTN_SHAPES[1] and qk_dt == v_dt == torch.float32 \
                         and not causal:
                     main_err = err
+    # an empty batch of heads is refused with its limit named (its launch
+    # divided by B*H in the host code and killed the process)
+    empty = torch.zeros((0, 4, 49, 64), device=dev)
+    try:
+        A.attention_core_cuda(empty, empty, empty)
+    except ValueError as e:
+        print(f"attention_core refuses an empty batch: {e}", flush=True)
+    else:
+        fail("attention_core launched on an empty batch of heads")
     return main_err
 
 
@@ -3320,6 +3368,773 @@ def run_reference_pth(dev, tmp, batches):
     return {"teacher": teacher, "student": student}
 
 
+# ---------------------------------------------------------------------------
+# The device-resident KD data path (Queue 1 G) and int8 serving (Queue 1 H)
+# ---------------------------------------------------------------------------
+
+DD_STREAM = 8            # stream_steps of the device-resident runs
+DD_CHAIN_LIMIT = 1e-5    # float32 K=2 chain vs two direct steps, relative
+INT8_PLAIN_LIMIT = 1e-5     # card int8 kernel vs card int8 plain, L2
+# card int8 vs the CPU's all-plain int8, relative L2: the float paths of
+# card and CPU differ by float32 rounding (1e-6), which moves activations
+# across int8 rounding boundaries; a random ResNet-50 amplifies each such
+# code flip (measured 2.4e-2 on the full student's refined features)
+INT8_FEATURE_LIMIT = 5e-2
+# int8 against float, relative L2: JAX's own bounds (tests/test_quant.py)
+# for the students' features; for the teacher's logits JAX's 0.15 holds on
+# an unsharpened tiny teacher, and the beam phases' sharpening scales the
+# cross-attention's projections up, which carries the int8 memory's error
+# into the logits amplified (measured 0.17 and 0.19 with the encoder int8)
+INT8_FLOAT_LIMIT = {"student": 0.10, "teacher": 0.30}
+# caption rows identical, card int8 against the CPU's int8, of INT8_CPU;
+# every row must match the card's plain int8 path.  The sharpened random
+# teacher's beams sit at near ties that one int8 code flip moves (1 and 2
+# of 4 rows in two calls), so its rows are printed, and its memory is what
+# is held against the CPU
+INT8_ROWS = {"student": 3, "teacher": 0}
+INT8_CAL = 8             # images of --int8-calibrate
+INT8_CPU = 4             # images of the card-vs-CPU int8 comparisons
+
+
+def rel_l2(a, b) -> float:
+    a, b = a.double().cpu(), b.double().cpu()
+    return float((a - b).norm() / max(float(b.norm()), 1e-30))
+
+
+def h2d_copies(fn):
+    """(name, bytes) of every host-to-device copy the CUDA trace of one call
+    of ``fn`` shows (torch.profiler, CUPTI), or None when it shows none (a
+    chain always copies its indices)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        events = json.load(open(path))["traceEvents"]
+    finally:
+        os.remove(path)
+    copies = [(e["name"], int(e.get("args", {}).get("bytes", -1)))
+              for e in events
+              if e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", "")]
+    return copies or None     # the indices' copy is always there
+
+
+def check_resident_rows(dev, root, csv_path, size):
+    """A DeviceDataset of the disk rows against the host loader: every
+    row's image, caption and length bit for bit; ``gather_batch`` on the
+    card against the shuffled loader's batches for the same seed."""
+    ds = CaptionDataset(root, csv_path, image_size=size)
+    dd = DC.DeviceDataset(ds, max_caption_len=KD_T + 1, device=dev)
+    imgs = dd.arrays["images"].cpu().numpy()
+    rows_ok = all(np.array_equal(imgs[i], ds.load_image(i))
+                  for i in range(dd.n))
+    ordered = BatchLoader(ds, batch_size=KD_B, max_caption_len=KD_T + 1,
+                          shuffle=False)
+    caps = dd.arrays["captions"].cpu().numpy()
+    lens = dd.arrays["lengths"].cpu().numpy()
+    for k, b in enumerate(ordered):
+        rows = slice(k * KD_B, (k + 1) * KD_B)
+        rows_ok &= (np.array_equal(caps[rows].T, b["captions"])
+                    and np.array_equal(lens[rows], b["lengths"]))
+    dd.seed(SEED + 5)
+    idx = torch.from_numpy(dd.epoch_indices(batch_size=KD_B)).to(dev)
+    shuffled = BatchLoader(ds, batch_size=KD_B, max_caption_len=KD_T + 1,
+                           seed=SEED + 5)
+    gather_ok, n = True, 0
+    for i, b in enumerate(shuffled):
+        g = DC.gather_batch(dd.arrays, idx[i])
+        gather_ok &= all(np.array_equal(g[k][0].cpu().numpy(), b[k])
+                         for k in ("images", "captions", "lengths"))
+        n += 1
+    print(f"device-resident rows ({size}px): {dd.n} rows, "
+          f"{dd.nbytes / 2**20:.1f} MiB on the card, equal to the loader's "
+          f"rows: {rows_ok}; gather_batch equals the loader's {n} shuffled "
+          f"batches: {gather_ok}", flush=True)
+    if not (rows_ok and gather_ok) or n != dd.n // KD_B:
+        fail("the device-resident rows or their gathered batches differ "
+             "from the host loader's")
+    return dd
+
+
+DD_CHAIN_LR = 1e-9   # the float32 chain check's learning rate (see below)
+
+
+def chain_arms(variant):
+    """(rows' size, augmentation without jitter, step kwargs) of the
+    float32 chain check for the full (flagship) or compact (optimized)
+    student."""
+    if variant != "compact":
+        return DISK_SIZE, T.AugmentConfig(), {}
+    aug = dataclasses.replace(
+        T.OPTIMIZED_KD_AUG, out_size=DISK_SIZE, brightness=0.0, contrast=0.0,
+        saturation=0.0, hue=0.0, hflip_prob=0.0, rotation_deg=0.0)
+    return OPT_HOST, aug, dict(optimized=True, od_cfg=OptimizedDistillConfig(),
+                               onecycle_total_steps=30)
+
+
+def trace_chain_child(variant, root, csv_path, t_ckpt, queue):
+    """In a fresh process, whose profiler session is its first: the
+    host-to-device copies of one float32 chain of 2 steps, after one
+    chain that uploads the step's constant tables
+    (``core/device.device_constant``)."""
+    dev = torch.device("cuda", 0)
+    size, aug, step_kw = chain_arms(variant)
+    dd = DC.DeviceDataset(CaptionDataset(root, csv_path, image_size=size),
+                          max_caption_len=KD_T + 1, device=dev)
+    cfg = dataclasses.replace(STUDENT_CONFIGS[variant](VOCAB), dropout=0.0)
+    teacher, t_cfg = TK.load_teacher(t_ckpt, VOCAB, dev)
+    dd.seed(SEED + 6)
+    idx = dd.epoch_indices(batch_size=KD_B, accumulation_steps=KD_A)[:2]
+    out = {}
+    chain_or_direct("traced", cfg, teacher, t_cfg, dd, idx, aug, step_kw,
+                    out, dev)
+    queue.put((out["traced"], idx.size * 4))
+
+
+def traced_h2d(variant, root, csv_path, t_ckpt):
+    """``trace_chain_child`` in a spawned process: CUPTI traces after a
+    process's first profiler session were seen to lose events (kernels in
+    one call, copies in another)."""
+    ctx = multiprocessing.get_context("spawn")
+    queue = ctx.Queue()
+    proc = ctx.Process(target=trace_chain_child,
+                       args=(variant, root, csv_path, t_ckpt, queue))
+    proc.start()
+    try:
+        return queue.get(timeout=600)
+    finally:
+        proc.join(120)
+        if proc.is_alive():
+            proc.kill()
+
+
+def device_chain_vs_direct(dev, dd, t_ckpt, variant, root, csv_path):
+    """Float32, dropout and jitter off: a K=2 chain through
+    ``make_device_data_step`` against two direct steps on the card's
+    gathered batches, from one start and one crop generator; and the
+    host-to-device copies of the chain.  At the trainers' rate AdamW's
+    first update moves each weight by about lr x sign(gradient), and a
+    gradient that the card's atomics (the embedding's backward) leave at
+    noise level flips its sign between two runs (measured 7.2e-3 relative
+    L2 on a leaf at lr 2e-4): so the steps run at 1e-9, where the second
+    step sees the first step's weights to float32 noise, and the loss
+    terms, both AdamW moments and the weights are compared."""
+    _, aug, step_kw = chain_arms(variant)
+    cfg = dataclasses.replace(STUDENT_CONFIGS[variant](VOCAB), dropout=0.0)
+    teacher, t_cfg = TK.load_teacher(t_ckpt, VOCAB, dev)
+    dd.seed(SEED + 6)
+    idx = dd.epoch_indices(batch_size=KD_B, accumulation_steps=KD_A)[:2]
+    out = {}
+    # cuDNN's and PyTorch's nondeterministic backward algorithms (atomics)
+    # would move gradients between two runs of the same step; the port's
+    # kernels are deterministic
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        for how in ("chain", "direct"):
+            chain_or_direct(how, cfg, teacher, t_cfg, dd, idx, aug, step_kw,
+                            out, dev)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+    copies, idx_bytes = traced_h2d(variant, root, csv_path, t_ckpt)
+    chain, direct = out["chain"], out["direct"]
+    names = [("metrics", chain[0]), ("parameters", chain[1]),
+             ("first moments", chain[2]), ("second moments", chain[3])]
+    worst = [max((rel_l2(c[k], d[k]), k) for k in c)
+             for c, d in zip(chain, direct)]
+    moved = None if copies is None else sum(b for _, b in copies)
+    ok = max(w for w, _ in worst) <= DD_CHAIN_LIMIT
+    print(f"device-data {variant} fp32 K=2 chain vs two direct steps on the "
+          f"card at lr {DD_CHAIN_LR:g}, deterministic algorithms: relative "
+          f"L2 at worst: "
+          + ", ".join(f"{n} {w:.3e} ({k})" for (n, _), (w, k)
+                      in zip(names, worst))
+          + f" (limit {DD_CHAIN_LIMIT:g}) {'ok' if ok else 'FAIL'}; "
+          + ("host-to-device copies of the chain: not measured (the CUDA "
+             "trace recorded no copy, not even the indices')"
+             if copies is None else
+             f"host-to-device copies of the chain: {len(copies)}, {moved} "
+             f"bytes (its indices: {idx_bytes} bytes) {copies}"), flush=True)
+    if not ok:
+        fail(f"the {variant} chained steps differ from the direct steps")
+    # a trace can miss an event, never invent one: fail on anything beyond
+    # the index copy
+    if copies is not None and (moved > idx_bytes or len(copies) > 1):
+        fail(f"a chained {variant} step copied more than its indices to the "
+             f"card: {copies}")
+    return moved
+
+
+def chain_or_direct(how, cfg, teacher, t_cfg, dd, idx, aug, step_kw, out,
+                    dev):
+    """One arm of ``device_chain_vs_direct`` from a fresh student."""
+    student, projectors = TK.make_student_and_projectors(cfg, t_cfg, SEED,
+                                                         dev)
+    state = steps.init_train_state(student, projectors, cfg)
+    tr = (OptimizedKDTrainConfig(learning_rate=DD_CHAIN_LR)
+          if step_kw.get("optimized")
+          else KDTrainConfig(dropout=0.0, learning_rate=DD_CHAIN_LR))
+    step = steps.make_kd_train_step(teacher, t_cfg, cfg, DistillConfig(),
+                                    tr, aug=aug,
+                                    compute_dtype=torch.float32,
+                                    **step_kw)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)  # crops
+    with M.no_dropout():
+        if how == "direct":
+            ts = np.float32(0.5) + np.float32(0.25) * np.arange(
+                2, dtype=np.float32)
+            ms = [step(state, {k: v.long() if k != "images" else v
+                               for k, v in DC.gather_batch(
+                                   dd.arrays, torch.from_numpy(
+                                       idx[i]).to(dev)).items()},
+                       float(ts[i]), gen) for i in range(2)]
+            ms = {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
+        else:
+            chain = steps.make_device_data_step(step, 2)
+            run = functools.partial(chain, state, dd.arrays, idx,
+                                    np.float32(0.5), np.float32(0.25), 0,
+                                    gen)
+            if how == "traced":   # warm: constants upload once a process
+                run()
+                out[how] = h2d_copies(run)
+                return
+            ms = run()
+    st = state.opt_state
+    out[how] = ({k: v.double().cpu() for k, v in ms.items()},
+                {n: p.detach().clone() for n, p in
+                 state.named_parameters().items()},
+                {n: st.mu[n].clone() for n in st.mu},
+                {n: st.nu[n].clone() for n in st.nu})
+
+
+def time_device_vs_host(dev, dd, t_ckpt, loader, variant, n_chains=2, **kw):
+    """bf16 step wall time of the device-resident path (a chain of
+    DD_STREAM steps, host clock to a synchronise, divided by its steps)
+    against the host-loader path (batch upload + one step, each to a
+    synchronise), on one state, in this call."""
+    cfg = STUDENT_CONFIGS[variant](VOCAB)
+    teacher, t_cfg = TK.load_teacher(t_ckpt, VOCAB, dev)
+    student, projectors = TK.make_student_and_projectors(cfg, t_cfg, SEED, dev)
+    state = steps.init_train_state(student, projectors, cfg)
+    tr = OptimizedKDTrainConfig() if kw.get("optimized") else KDTrainConfig()
+    step = steps.make_kd_train_step(teacher, t_cfg, cfg, DistillConfig(), tr,
+                                    compute_dtype=torch.bfloat16, **kw)
+    chain = steps.make_device_data_step(step, DD_STREAM)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    dd.seed(SEED + 7)
+    idx = dd.epoch_indices(batch_size=KD_B, accumulation_steps=KD_A)
+    device_s = []
+    for c in range(n_chains + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ms = chain(state, dd.arrays, idx[:DD_STREAM], np.float32(0.5),
+                   np.float32(0.01), 0, gen)
+        float(ms["total_loss"][-1])
+        torch.cuda.synchronize()
+        device_s.append((time.perf_counter() - t0) / DD_STREAM)
+    stacks = list(common.stacked_batches(loader, KD_A))
+    host_s = []
+    for i in range(DD_STREAM + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = step(state, steps.batch_to_device(stacks[i % len(stacks)], dev),
+                 0.5, gen)
+        float(m["total_loss"])
+        torch.cuda.synchronize()
+        host_s.append(time.perf_counter() - t0)
+    dev_ms = 1e3 * statistics.median(device_s[1:])
+    host_ms = 1e3 * statistics.median(host_s[1:])
+    print(f"device-data {variant} bf16 step wall time: device-resident "
+          f"{dev_ms:.3f} ms (chains of {DD_STREAM}, median of {n_chains}), "
+          f"host loader {host_ms:.3f} ms (median of {DD_STREAM}), A={KD_A} x "
+          f"B={KD_B}, host clock to a synchronise", flush=True)
+    return dev_ms, host_ms
+
+
+def run_device_kd(dev, tmp, root, csv_path, t_ckpt, variant="full"):
+    """The trainer with ``device_dataset=True, stream_steps=8`` at full
+    width on the disk dataset: one epoch of 15 steps (one chain of 8, seven
+    single steps), validation, checkpoints; the chain's calls recorded.
+    The full student through ``train_student_with_kd``, the compact one
+    through the optimized trainer (rows stored at 256, cropped on the
+    card).  Then the resident rows against the loader, a float32 chain
+    against direct steps, and the step times.  Returns (launches of the
+    trainer run, per-step launches, times)."""
+    optimized = variant == "compact"
+    size = OPT_HOST if optimized else DISK_SIZE
+    calls, per_call, real = [], [], steps.make_device_data_step
+
+    def recording(step, k):
+        fn = real(step, k)
+
+        def chained(*a):
+            before = kd_counters(variant)
+            out = fn(*a)
+            calls.append(k)
+            per_call.append({n: (v - before[n]) / k
+                             for n, v in kd_counters(variant).items()})
+            return out
+        return chained
+
+    out = os.path.join(tmp, f"device_data_{variant}")
+    log = os.path.join(out, "m.jsonl")
+    steps.make_device_data_step = recording
+    try:
+        torch.cuda.synchronize()
+        zero_counters()
+        t0 = time.perf_counter()
+        if optimized:
+            state, s_cfg, _ = OPT.train_student_with_kd_optimized(
+                root, csv_path, t_ckpt, out, num_epochs=1,
+                max_caption_len=KD_T + 1, image_size=DISK_SIZE,
+                compute_dtype=torch.bfloat16, seed=SEED, data_parallel=False,
+                device_dataset=True, stream_steps=DD_STREAM, verbose=False,
+                device=dev)
+        else:
+            state, s_cfg, _ = TK.train_student_with_kd(
+                root, csv_path, t_ckpt, out, num_epochs=1,
+                compute_dtype=torch.bfloat16, seed=SEED, data_parallel=False,
+                device_dataset=True, stream_steps=DD_STREAM, verbose=False,
+                metrics_jsonl=log, image_size=DISK_SIZE, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        steps.make_device_data_step = real
+    launches = kd_counters(variant)
+    n_rows = len(CaptionDataset(root, csv_path))
+    n_steps = n_rows // KD_B // KD_A
+    want = [DD_STREAM] * (n_steps // DD_STREAM) + [1] * (n_steps % DD_STREAM)
+    recs = metric_records(log) if not optimized else []
+    per_step = {n: sorted({c[n] for c in per_call}) for n in per_call[0]}
+    want_step = ({"compact_scan": [KD_A], "attention_core": [40]}
+                 if optimized else
+                 {"attention_core": [40], "decoder_scan": [0],
+                  "decoder_scan_train": [KD_A], "decoder_scan_bwd": [KD_A]})
+    print(f"device-data {variant} trainer: {n_rows} rows, calls {calls} "
+          f"(want {want}), optimizer step {state.opt_state.step}, "
+          f"{len(recs)} metric records, launches {launches}, a step in every "
+          f"call {per_step} (want {want_step}) ({wall:.2f} s with the row "
+          f"upload, the preflight, validation and checkpoints)", flush=True)
+    if calls != want or state.opt_state.step != n_steps \
+            or min(launches.values()) < 1 or per_step != want_step \
+            or (not optimized and len(recs) != n_steps):
+        fail(f"the device-resident {variant} run did not take its chained "
+             "steps or launch its kernels")
+    dd = check_resident_rows(dev, root, csv_path, size)
+    aug = (dataclasses.replace(T.OPTIMIZED_KD_AUG, out_size=DISK_SIZE)
+           if optimized else T.AugmentConfig())
+    kw = dict(optimized=True, od_cfg=OptimizedDistillConfig(),
+              onecycle_total_steps=30) if optimized else {}
+    h2d = device_chain_vs_direct(dev, dd, t_ckpt, variant, root, csv_path)
+    loader = BatchLoader(CaptionDataset(root, csv_path, image_size=size),
+                         batch_size=KD_B, max_caption_len=KD_T + 1, seed=SEED)
+    dev_ms, host_ms = time_device_vs_host(dev, dd, t_ckpt, loader, variant,
+                                          **({"aug": aug, **kw}
+                                             if optimized else {}))
+    del dd
+    return launches, per_call, dict(device_step_ms=dev_ms,
+                                    host_step_ms=host_ms, trainer_s=wall,
+                                    steps=n_steps, calls=calls,
+                                    chain2_h2d_bytes=h2d)
+
+
+def check_device_prefetch(dev, root, csv_path):
+    """``device_prefetch`` yields the loader's batches on the card; the
+    upload of one 32-image batch from pinned against pageable memory."""
+    ds = CaptionDataset(root, csv_path, image_size=DISK_SIZE)
+    ref = list(BatchLoader(ds, batch_size=KD_B, max_caption_len=KD_T + 1,
+                           seed=SEED + 8))
+    got = list(LD.device_prefetch(
+        BatchLoader(ds, batch_size=KD_B, max_caption_len=KD_T + 1,
+                    seed=SEED + 8), dev))
+    same = len(got) == len(ref) and all(
+        g[k].is_cuda and np.array_equal(g[k].cpu().numpy(), r[k])
+        for g, r in zip(got, ref) for k in r)
+    arr = np.stack([ds.load_image(i) for i in range(BATCH)])
+    pinned = torch.from_numpy(arr).pin_memory()
+
+    def pageable():
+        torch.from_numpy(arr).to(dev)
+
+    def from_pinned():
+        pinned.to(dev, non_blocking=True)
+    page_ms, pin_ms = median_ms(pageable, 20), median_ms(from_pinned, 20)
+    print(f"device_prefetch: {len(got)} batches equal to the loader's: "
+          f"{same}; upload of {BATCH} images ({arr.nbytes / 2**20:.2f} MiB): "
+          f"pageable {page_ms:.4f} ms, pinned {pin_ms:.4f} ms", flush=True)
+    if not same:
+        fail("device_prefetch does not yield the loader's batches")
+    return dict(pageable_ms=page_ms, pinned_ms=pin_ms)
+
+
+# int8 products outside ResNet-50: a MobileNetV2 and an EfficientNet-B3
+# depthwise convolution large enough to be quantized, and the ViT's patch
+# embedding at the teacher's serving batch.  (x (N, H, W, C), w (O, C/g, k,
+# k), stride, padding, groups, bias)
+INT8_EXTRA = {
+    "mobilenet_v2 depthwise 576 3x3 @14": ((BATCH, 14, 14, 576),
+                                           (576, 1, 3, 3), 1, 1, 576, False),
+    "efficientnet_b3 depthwise 192 5x5/2 @56": ((BATCH, 56, 56, 192),
+                                                (192, 1, 5, 5), 2, 2, 192,
+                                                False),
+    "vit patch embedding 16x16/16 B=16": ((16, 224, 224, 3), (384, 3, 16, 16),
+                                          16, 0, 1, True),
+}
+
+
+def record_int8_shapes(fn) -> dict:
+    """The int8 products one call of ``fn`` launches: (x shape, w shape,
+    stride, padding, groups, bias) -> launches."""
+    seen, real = collections.Counter(), I8.int8_conv_cuda
+
+    def recorder(x_q, w_q, s_x, w_scale, bias, **kw):
+        seen[(tuple(x_q.shape), tuple(w_q.shape), kw["stride"],
+              kw["padding"], kw["groups"], bias is not None)] += 1
+        return real(x_q, w_q, s_x, w_scale, bias, **kw)
+    I8.int8_conv_cuda = recorder
+    try:
+        fn()
+    finally:
+        I8.int8_conv_cuda = real
+    return dict(seen)
+
+
+def int8_operands(shape, dev, seed):
+    xs, ws, stride, pad, groups, bias = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x_q = torch.randint(-127, 128, xs, generator=g, device=dev,
+                        dtype=torch.int8)
+    w_q = torch.randint(-127, 128, ws, generator=g, device=dev,
+                        dtype=torch.int8)
+    s_x = torch.rand(xs[0], generator=g, device=dev) * 1e-2 + 1e-3
+    w_scale = torch.rand(ws[0], generator=g, device=dev) * 1e-2 + 1e-3
+    b = (torch.randn(ws[0], generator=g, device=dev) if bias else None)
+    return x_q, w_q, s_x, w_scale, b, dict(stride=stride, padding=pad,
+                                           groups=groups)
+
+
+def check_int8_kernel(dev, shapes: dict, mutant=False, timed=True) -> dict:
+    """The int8 kernel against its plain version at each shape, bf16 and
+    float32 outputs, bit for bit; each shape's median time, its bound,
+    cuDNN's bf16 convolution (and torch._int_mm where a 1x1 shape allows
+    it) on the same shape."""
+    rows = {}
+    for i, (name, shape) in enumerate(shapes.items()):
+        x_q, w_q, s_x, w_scale, b, kw = int8_operands(shape, dev, SEED + i)
+        packed = I8.pack_weight(w_q)
+        n, h, w, c = x_q.shape
+        o, cg, kh, kw_ = w_q.shape
+        ho = I8.out_size(h, kh, kw["stride"], kw["padding"])
+        wo = I8.out_size(w, kw_, kw["stride"], kw["padding"])
+        for dt in (torch.bfloat16, torch.float32):
+            got = I8.int8_conv_cuda(x_q, w_q, s_x, w_scale, b, packed=packed,
+                                    out_dtype=dt, rows_per_scale=ho * wo, **kw)
+            ref = I8.int8_conv_plain(x_q, w_q, s_x, w_scale, b, out_dtype=dt,
+                                     rows_per_scale=ho * wo, **kw)
+            same = torch.equal(got, ref)
+            if not same:
+                diff = (got.float() - ref.float()).abs().max().item()
+                print(f"int8 {name} {dt}: kernel differs from plain by "
+                      f"{diff:.3e}", flush=True)
+                fail(f"the int8 kernel is not bit-identical at {name}")
+        if mutant or not timed:
+            continue
+        m = n * ho * wo
+        ops = 2.0 * m * o * kh * kw_ * cg
+        bound = bound_ms(nbytes(x_q, packed, s_x, w_scale, b) + 2 * m * o,
+                         ops, "int8")   # bf16 output
+
+        def kernel():
+            I8.int8_conv_cuda(x_q, w_q, s_x, w_scale, b, packed=packed,
+                              out_dtype=torch.bfloat16,
+                              rows_per_scale=ho * wo, **kw)
+
+        def plain():
+            I8.int8_conv_plain(x_q, w_q, s_x, w_scale, b,
+                               out_dtype=torch.bfloat16,
+                               rows_per_scale=ho * wo, **kw)
+        xb = x_q.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        wb = w_q.to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        bb = None if b is None else b.to(torch.bfloat16)
+
+        def cudnn():
+            F.conv2d(xb, wb, bb, kw["stride"], kw["padding"], 1, kw["groups"])
+        row = dict(ms=median_ms(kernel, 20), plain_ms=median_ms(plain, 3, 1),
+                   cudnn_bf16_ms=median_ms(cudnn, 20), bound_ms=bound[0],
+                   bound_by=bound[1], m=m, k=kh * kw_ * cg, o=o, ops=ops,
+                   bytes=nbytes(x_q, packed, s_x, w_scale, b) + 2 * m * o)
+        if kh == kw_ == 1 and kw["groups"] == 1 and kw["stride"] == 1 \
+                and m > 16 and c % 8 == 0 and o % 8 == 0:
+            a2, b2 = x_q.reshape(m, c), w_q.reshape(o, c).t()
+            try:
+                row["int_mm_ms"] = median_ms(lambda: torch._int_mm(a2, b2),
+                                             20)
+            except RuntimeError as e:       # a yardstick only
+                print(f"int8 {name}: torch._int_mm refused: {e}")
+        rows[name] = row
+        print(f"int8 {name}: M={m} K={row['k']} O={o}: kernel "
+              f"{row['ms']:.4f} ms ({ops / row['ms'] / 1e9:.1f} TOPS), plain "
+              f"{row['plain_ms']:.3f} ms, cuDNN bf16 {row['cudnn_bf16_ms']:.4f}"
+              f" ms, torch._int_mm {row.get('int_mm_ms', float('nan')):.4f} "
+              f"ms, bound {bound[0]:.5f} ms by {bound[1]}", flush=True)
+    return rows
+
+
+def int8_student_shapes(model16, images_u8, dev):
+    """The int8 products of one bf16 serving batch of the full student's
+    quantized encoder: (name -> shape, name -> launches a batch)."""
+    x = T.normalize(torch.from_numpy(images_u8).to(dev), dtype=torch.bfloat16)
+    with torch.inference_mode():
+        seen = record_int8_shapes(lambda: model16.encode_image(x))
+    names = {s: f"resnet50 x{s[0]} w{s[1]} s{s[2]} p{s[3]}"
+                f"{' +bias' if s[5] else ''}" for s in seen}
+    return ({names[s]: s for s in seen}, {names[s]: n for s, n in seen.items()})
+
+
+def serve_cli(dev, files_dir, ckpt, vocab_path, tmp, model, *extra):
+    """``serve.main`` on the PPM files, bf16 for students (the serving
+    point) and float32 for the teacher; returns (captions, seconds)."""
+    out = os.path.join(tmp, f"cli_{model}_{len(extra)}.jsonl")
+    args = ["--model", model, "--checkpoint", ckpt, "--vocab", vocab_path,
+            "--images", files_dir, "--out", out, "--batch",
+            str(BATCH if model == "student" else BEAM_B), "--max-length",
+            str(MAX_LEN), "--device", str(dev), *extra]
+    if model == "student":
+        args += ["--dtype", "bfloat16"]
+    t0 = time.perf_counter()
+    if serve.main(args) != 0:
+        fail(f"serve.main {' '.join(extra)} failed")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    caps = [json.loads(line)["caption"] for line in open(out)]
+    return caps, secs
+
+
+@contextlib.contextmanager
+def plain_int8_on_card():
+    """Inside the block the int8 product takes its plain version on CUDA
+    tensors too (the same float path around it)."""
+    real = I8.int8_conv_cuda
+
+    def plain(x_q, w_q, s_x, w_scale, bias, packed=None, **kw):
+        return I8.int8_conv_plain(x_q, w_q, s_x, w_scale, bias, **kw)
+    I8.int8_conv_cuda = plain
+    try:
+        yield
+    finally:
+        I8.int8_conv_cuda = real
+
+
+def int8_arm(where, ckpt, kind, flags, cal_u8, small_u8):
+    """One arm of ``int8_card_vs_cpu``: (features, the int8 and the float
+    tensors compared against each other, top captions)."""
+    if kind == "teacher":
+        model, cfg = TM.load_teacher(ckpt, where)
+    else:
+        model, cfg = serve.load_student(ckpt, where, torch.float32)
+    q = serve.int8_serving_copy(
+        model, kind, calibrate_images=cal_u8 if "cal" in flags else None,
+        int8="int8" in flags, int8_full="full" in flags, max_length=MAX_LEN,
+        verbose=False)
+    x = T.normalize(torch.from_numpy(small_u8).to(where))
+    with torch.inference_mode():
+        if kind == "student":
+            feats = q.encode_image(x)[1]
+            toks = serve.make_greedy_captioner(q, cfg, where,
+                                               max_length=MAX_LEN)(small_u8)
+            return feats, feats, model.encode_image(x)[1], toks
+        toks = D.greedy_decode_teacher(model, model.encode_image(x),
+                                       max_length=MAX_LEN)
+        caps = torch.cat([torch.full((1, len(x)), START, device=where),
+                          toks.t().long()])
+        seqs = serve.make_beam_captioner(q, cfg, where,
+                                         max_length=MAX_LEN)(small_u8)[0]
+        return q.encode_image(x), q(x, caps), model(x, caps), seqs[:, 0]
+
+
+def int8_card_vs_cpu(dev, ckpt, kind, flags, cal_u8, small_u8):
+    """float32 int8 serving copies on the card (the kernel), on the card
+    with the int8 product's plain version, and on the CPU (plain
+    versions), calibrated on the same images: features (refined, or the
+    teacher's memory) kernel vs plain on the card, and card vs CPU; int8
+    vs float on the card (students: refined features; teacher: the
+    teacher-forced logits of its greedy captions); captions card vs
+    CPU."""
+    res = {}
+    for tag, where in (("card", dev), ("card_plain", dev),
+                       ("cpu", torch.device("cpu"))):
+        with (plain_int8_on_card() if tag == "card_plain"
+              else contextlib.nullcontext()):
+            res[tag] = int8_arm(where, ckpt, kind, flags, cal_u8, small_u8)
+    fc, fp = res["card"][0], res["cpu"][0]
+    kernel_plain = rel_l2(fc, res["card_plain"][0])
+    card_cpu = rel_l2(fc, fp)
+    vs_float = rel_l2(res["card"][1], res["card"][2])
+    rows = int((res["card"][3] == res["cpu"][3]).all(axis=1).sum())
+    rows_plain = int((res["card"][3] == res["card_plain"][3]).all(
+        axis=1).sum())
+    limit = INT8_FLOAT_LIMIT[kind]
+    ok = (kernel_plain <= INT8_PLAIN_LIMIT and rows_plain == INT8_CPU
+          and card_cpu <= INT8_FEATURE_LIMIT and vs_float <= limit
+          and rows >= INT8_ROWS[kind] and torch.isfinite(fc).all())
+    what = "memory" if kind == "teacher" else "refined"
+    print(f"int8 {kind} {flags} fp32 on {INT8_CPU} images: {what} kernel "
+          f"vs plain int8 on the card {kernel_plain:.3e} relative L2 (limit "
+          f"{INT8_PLAIN_LIMIT:g}), {rows_plain}/{INT8_CPU} caption rows "
+          f"identical (need all); card vs CPU {card_cpu:.3e} (limit "
+          f"{INT8_FEATURE_LIMIT:g}), {rows}/{INT8_CPU} caption rows "
+          f"identical (need {INT8_ROWS[kind]}); int8 vs float "
+          f"{'logits' if kind == 'teacher' else 'features'} {vs_float:.3e} "
+          f"(limit {limit}) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail(f"int8 {kind} {flags} serving disagrees")
+    return dict(kernel_vs_plain=kernel_plain, card_vs_cpu=card_cpu,
+                vs_float=vs_float, rows=rows)
+
+
+def run_int8_serving(dev, tmp, batches):
+    """int8 serving through ``serve.main`` on PPM files at full width: the
+    full student (bf16, 8 batches of 32) with --int8 and with --int8
+    --int8-calibrate 8, the compact and enhanced students with --int8, the
+    teacher (float32, B=16, K=5) with --int8 and with --int8-full
+    --int8-calibrate 8; the bf16 float path of each student beside it; each
+    int8 path against the CPU's all-plain int8 path and against float.
+    Returns (launches, the int8 shapes of a full-student batch, rates,
+    comparisons)."""
+    files = os.path.join(tmp, "ppm")
+    os.makedirs(files)
+    student_imgs = np.concatenate(batches)
+    for i, im in enumerate(student_imgs):
+        write_ppm(os.path.join(files, f"img_{i:04d}.ppm"), im)
+    teach_files = os.path.join(tmp, "ppm_teacher")
+    os.makedirs(teach_files)
+    teach_imgs = np.concatenate(beam_images(2, SEED + 31))
+    for i, im in enumerate(teach_imgs):
+        write_ppm(os.path.join(teach_files, f"img_{i:04d}.ppm"), im)
+    vocab = Vocabulary(freq_threshold=5)
+    vocab.itos = {i: SPECIALS.get(i, f"tok{i}") for i in range(VOCAB)}
+    vocab.stoi = {w: i for i, w in vocab.itos.items()}
+    vocab_path = os.path.join(tmp, "vocab.json")
+    vocab.save(vocab_path)
+    t_ckpt = os.path.join(tmp, "beam_teacher.npz")
+    write_beam_teacher(t_ckpt)
+    cal = student_imgs[:INT8_CAL]
+    small = student_imgs[BATCH:BATCH + INT8_CPU]
+    launches, rates, compare = {}, {}, {}
+    runs = [("full", ()), ("full", ("--int8",)),
+            ("full", ("--int8", "--int8-calibrate", str(INT8_CAL))),
+            ("compact", ()), ("compact", ("--int8",)),
+            ("enhanced", ()), ("enhanced", ("--int8",)),
+            ("teacher", ()), ("teacher", ("--int8",)),
+            ("teacher", ("--int8-full", "--int8-calibrate", str(INT8_CAL)))]
+    ckpts = {v: write_student(tmp, v) for v in ("full", "compact",
+                                                 "enhanced")}
+    ckpts["teacher"] = t_ckpt
+    for variant, flags in runs:
+        kind = "teacher" if variant == "teacher" else "student"
+        where = teach_files if kind == "teacher" else files
+        n_img = len(teach_imgs) if kind == "teacher" else len(student_imgs)
+        torch.cuda.synchronize()
+        zero_counters()
+        I8.launches = 0
+        caps, secs = serve_cli(dev, where, ckpts[variant], vocab_path, tmp,
+                               kind, *flags)
+        got = {"int8_conv": I8.launches, "attention_core": A.launches,
+               "greedy_decode": G.launches,
+               "greedy_decode_compact": G.launches_compact,
+               "beam_self_attention": BA.launches_self,
+               "beam_cross_attention": BA.launches_cross}
+        tag = f"{variant} {' '.join(flags) or 'float'}"
+        launches[tag] = got
+        rates[tag] = n_img / secs
+        need = {"full": ("attention_core", "greedy_decode"),
+                "compact": ("greedy_decode_compact",),
+                "enhanced": ("attention_core",),
+                "teacher": ("attention_core", "beam_self_attention",
+                            "beam_cross_attention")}[variant]
+        need += ("int8_conv",) if flags else ()
+        print(f"serve.main {tag}: {len(caps)} captions, {n_img / secs:.1f} "
+              f"images/s ({'float32' if kind == 'teacher' else 'bf16'}, host "
+              f"clock for the whole CLI: checkpoint load, quantization, "
+              f"calibration, PPM decode, first-call kernel loads); launches "
+              f"{got}", flush=True)
+        if len(caps) != n_img or min(got[k] for k in need) < 1 \
+                or (not flags and got["int8_conv"]):
+            fail(f"serve.main {tag} did not caption every image through its "
+                 "kernels")
+        if flags:
+            imgs = teach_imgs if kind == "teacher" else student_imgs
+            compare[tag] = int8_card_vs_cpu(
+                dev, ckpts[variant], kind,
+                ("int8" if "--int8" in flags else "")
+                + ("full" if "--int8-full" in flags else "")
+                + ("cal" if "--int8-calibrate" in flags else ""),
+                imgs[:INT8_CAL], imgs[-INT8_CPU:])
+    # steady-state rate of the bf16 full student, int8 against float
+    model16, cfg = serve.load_student(ckpts["full"], dev, torch.bfloat16)
+    q16 = serve.int8_serving_copy(model16, "student", int8=True,
+                                  verbose=False)
+    shapes, counts = int8_student_shapes(q16, batches[0], dev)
+    per_batch = sum(counts.values())
+    steady = {}
+    for tag, m in (("bf16", model16), ("int8", q16)):
+        cap = serve.make_greedy_captioner(m, cfg, dev, max_length=MAX_LEN)
+        cap(batches[0])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in batches:
+            cap(b)
+        steady[tag] = BATCH * len(batches) / (time.perf_counter() - t0)
+    print(f"full student steady serving, one call: bf16 {steady['bf16']:.1f} "
+          f"images/s, int8 encoder {steady['int8']:.1f} images/s (B={BATCH} x "
+          f"{len(batches)}, T={MAX_LEN}, host clock incl. H2D/D2H); "
+          f"{per_batch} int8 launches a batch over {len(shapes)} shapes",
+          flush=True)
+    del model16, q16
+    return (launches, shapes, counts, dict(cli=rates, steady=steady),
+            compare)
+
+
+def python_mutant_caught(module, name, bad, check, what: str) -> bool:
+    """Replace ``module.name`` by ``bad`` and run ``check``: it must
+    fail."""
+    real = getattr(module, name)
+    setattr(module, name, bad)
+    try:
+        check()
+    except SystemExit:
+        print(f"mutation run: the check caught the mutant ({what}): ok",
+              flush=True)
+        return True
+    finally:
+        setattr(module, name, real)
+    print(f"mutation run: the mutant ({what}) PASSED its check: the check "
+          "has no power", file=sys.stderr, flush=True)
+    return False
+
+
+def gather_off_by_one(arrays, idx):
+    """A gather that takes each row's neighbour: the planted fault."""
+    return GATHER(arrays, (idx + 1) % arrays["lengths"].shape[0])
+
+
+GATHER = DC.gather_batch
+# the int8 kernel's mutation check: the 7x7 stem (K = 147, its last slice
+# partly padding) and a 3x3 (K = 576), at a small batch
+INT8_MUTANT_SHAPES = {
+    "stem 7x7/2 B=2": ((2, 224, 224, 3), (64, 3, 7, 7), 2, 3, 1, False),
+    "3x3 64 @56 B=2": ((2, 56, 56, 64), (64, 64, 3, 3), 1, 1, 1, False),
+}
+
+
 def forget_libraries() -> None:
     """Drop every loaded kernel library and the grids asked of them, so that
     the next launch loads the library built from the current
@@ -3328,6 +4143,7 @@ def forget_libraries() -> None:
     _build._GRIDS.clear()
     _build._WORKSPACES.clear()
     A._KERNEL = G._GREEDY = G._COMPACT = S._FWD = S._BWD = S._COMPACT = None
+    I8._KERNEL = None
     BA._KERNELS = ES._LIB = None
 
 
@@ -3363,7 +4179,7 @@ def mutant_caught(source: str, good: str, bad: str, check, what: str) -> bool:
 
 
 def run_mutation(dev) -> int:
-    """Eleven planted faults, each of which its check must catch: the scan
+    """Thirteen planted faults, each of which its check must catch: the scan
     backward without the dropout mask on layer 1's input gradient (``dh0 =
     dh0_c + (dgp1·W_ih1ᵀ) · mask``), a beam self-attention that reads its
     own slot's cache row instead of ``anc[n, i, s]``, one that stages each
@@ -3379,8 +4195,11 @@ def run_mutation(dev) -> int:
     LayerNorm partials at step 0 only, so that every later LayerNorm
     combines stale partials, a beam cross-attention whose bulk copy of V
     drops the last 16 keys, a compact greedy decode whose row blocks all
-    reduce row 0's partial argmaxes, and a compact scan whose cell reads
-    the previous step's recurrent part at even steps."""
+    reduce row 0's partial argmaxes, a compact scan whose cell reads
+    the previous step's recurrent part at even steps, an int8 convolution
+    that drops its last 32-deep slice of K, and an on-device batch gather
+    that takes each row's neighbour (a Python fault, planted by replacing
+    ``device_cache.gather_batch``)."""
     decoder = make_decoder(dev)
     g_decoder, g_feats = greedy_inputs(dev)
     c_decoder, c_feats = compact_greedy_inputs(dev)
@@ -3452,7 +4271,20 @@ def run_mutation(dev) -> int:
                           mutant=True),
                       "the cell reads the previous step's recurrent part at "
                       "even steps"),
+        mutant_caught("int8_conv.cu",
+                      "for (int kt = 0; kt < nk; ++kt) {",
+                      "for (int kt = 0; kt < nk - 1; ++kt) {",
+                      lambda: check_int8_kernel(dev, INT8_MUTANT_SHAPES,
+                                                mutant=True),
+                      "the int8 kernel drops its last K-chunk"),
     ]
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "flickr")
+        csv_path = write_disk_dataset(root)
+        caught.append(python_mutant_caught(
+            DC, "gather_batch", gather_off_by_one,
+            lambda: check_resident_rows(dev, root, csv_path, DISK_SIZE),
+            "the on-device gather takes each row's neighbour"))
     return 0 if all(caught) else 1
 
 
@@ -3465,7 +4297,44 @@ def make_decoder(dev):
     return decoder.to(dev)
 
 
+def run_device_data(dev, tmp):
+    """11g on a disk dataset and a teacher of its own: both trainers'
+    device-resident runs and ``device_prefetch``."""
+    root = os.path.join(tmp, "flickr")
+    csv_path = write_disk_dataset(root)
+    t_ckpt = os.path.join(tmp, "teacher.npz")
+    t_cfg = TeacherConfig(vocab_size=VOCAB)
+    mc = dataclasses.asdict(t_cfg)
+    mc.pop("vocab_size")
+    save_checkpoint(t_ckpt, {
+        "model_state_dict": {"params": teacher_init(SEED + 3, t_cfg)},
+        "vocab_size": VOCAB, "model_config": mc})
+    launches, per_step, times = {}, {}, {}
+    for v in ("full", "compact"):
+        launches[v], per_step[v], times[v] = run_device_kd(
+            dev, tmp, root, csv_path, t_ckpt, v)
+    return launches, per_step, times, check_device_prefetch(dev, root,
+                                                            csv_path)
+
+
+def run_data_int8(dev) -> int:
+    """``--data-int8``: only the device-resident KD data phases and int8
+    serving, on a disk dataset and teacher of their own (the quick loop
+    for those paths)."""
+    rng = np.random.default_rng(SEED + 1)
+    batches = [rng.integers(0, 256, (BATCH, 224, 224, 3), dtype=np.uint8)
+               for _ in range(N_BATCHES)]
+    with tempfile.TemporaryDirectory() as tmp:
+        run_device_data(dev, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        _, shapes, _, _, _ = run_int8_serving(dev, tmp, batches)
+    check_int8_kernel(dev, {**shapes, **INT8_EXTRA})
+    print(json.dumps({"ok": True, "phases": "data-int8"}))
+    return 0
+
+
 def main() -> int:
+    faulthandler.enable()     # a crash in native code prints where it was
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script runs on the card")
     dev = torch.device("cuda", 0)
@@ -3489,8 +4358,15 @@ def main() -> int:
         for line in _build.build_log(src).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {src}: {line.strip()}")
+    if "--data-int8" in sys.argv[1:]:
+        return run_data_int8(dev)
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    # --- 11g. both KD trainers on the device-resident rows, chained ------
+    with tempfile.TemporaryDirectory() as tmp:
+        dd_launches, dd_per_step, dd_times, prefetch = run_device_data(dev,
+                                                                       tmp)
 
     # --- 4. dense at bf16 on tensor cores; attention kernel vs plain --------
     check_dense(dev)
@@ -3626,6 +4502,7 @@ def main() -> int:
             dev, tmp, root, t_ckpt, os.path.join(pipe_out, "vocab.json"),
             os.path.join(pipe_out, "best_student_model.npz"), opt_best)
 
+
     # --- 11f. reference checkpoints (.pth) -> the port, served ----------------
     with tempfile.TemporaryDirectory() as tmp:
         ref_launches = run_reference_pth(dev, tmp, batches)
@@ -3641,7 +4518,8 @@ def main() -> int:
              "teacher_training": summed(teach_launches),
              "optimized_kd": summed(opt_launches),
              "demo": summed({"demo": demo_launches}),
-             "reference_pth": summed(ref_launches)}
+             "reference_pth": summed(ref_launches),
+             "device_data": summed(dd_launches)}
 
     # --- 12. the compact student: kernels #3 and #7, serving, KD ------------
     attn48_err = check_attention_48(dev, gen)
@@ -3673,6 +4551,25 @@ def main() -> int:
         check_enhanced_loop(e_model32, dev)
         ekd_launches, ekd_rate, _ = run_variant_kd(dev, tmp, "enhanced")
     del c_model32, e_model32
+
+    # --- 13b. int8 serving through serve.main; the int8 kernel ----------
+    with tempfile.TemporaryDirectory() as tmp:
+        i8_launches, i8_shapes, i8_counts, i8_rates, i8_compare = \
+            run_int8_serving(dev, tmp, batches)
+    later["int8_serving"] = summed(i8_launches)
+    i8_rows = check_int8_kernel(dev, {**i8_shapes, **INT8_EXTRA})
+    i8_batch = {f: sum(n * i8_rows[k][f] for k, n in i8_counts.items())
+                for f in ("ms", "plain_ms", "cudnn_bf16_ms", "bound_ms")}
+    i8_by_ops = sum(n * i8_rows[k]["ops"] for k, n in i8_counts.items()) \
+        / PEAK["int8"]
+    i8_by_bytes = sum(n * i8_rows[k]["bytes"] for k, n in i8_counts.items()) \
+        / HBM_BPS
+    print(f"int8_conv: one bf16 serving batch of the full student's ResNet-50 "
+          f"(B={BATCH}, {sum(i8_counts.values())} launches): kernel "
+          f"{i8_batch['ms']:.4f} ms, plain {i8_batch['plain_ms']:.3f} ms, "
+          f"cuDNN bf16 {i8_batch['cudnn_bf16_ms']:.4f} ms, bound "
+          f"{i8_batch['bound_ms']:.5f} ms (sum of the launches' bounds)",
+          flush=True)
 
     # --- 14./15. timings, bounds and the result lines ----------------------
     floors = chain_floors(dev)
@@ -3745,6 +4642,20 @@ def main() -> int:
         return dict(n=n + sum(more.values()), **more)
 
     kernels = [
+        entry("int8_conv", "int8_conv.cu", "quant.py:289",
+              sum(d["int8_conv"] for d in i8_launches.values()), 0.0,
+              i8_batch["ms"], i8_batch["plain_ms"],
+              (i8_batch["bound_ms"],
+               "operations" if i8_by_ops >= i8_by_bytes else "bytes"),
+              i8_batch["cudnn_bf16_ms"],
+              replaces_kind="XLA int8 convolution and dot (no Pallas kernel)",
+              timed_as=f"one serving batch of the full student's ResNet-50 "
+                       f"encoder, B={BATCH}, bf16 out",
+              launches_per_batch=sum(i8_counts.values()),
+              launches_by_run={k: d["int8_conv"]
+                               for k, d in i8_launches.items()},
+              bit_identical_shapes=len(i8_rows),
+              by_shape=i8_rows),
         entry("attention_core", "attention_core.cu", "pallas_attention.py:198",
               sum(attn_by_path.values()),
               attn_err, attn_t["vit"]["ms"], attn_t["vit"]["plain_ms"],
@@ -3864,7 +4775,11 @@ def main() -> int:
                       "teacher_card_vs_cpu": teach_both,
                       "optimized_kd": opt_times,
                       "optimized_card_vs_cpu": opt_both,
-                      "pipeline_twin_s": pipe_s}))
+                      "pipeline_twin_s": pipe_s,
+                      "device_data": dd_times,
+                      "device_data_launches_per_step": dd_per_step,
+                      "device_prefetch": prefetch,
+                      "int8_serving": dict(i8_rates, compare=i8_compare)}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -17,3 +17,23 @@ def resolve_device(device) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device!r}")
     return dev
+
+
+_CONSTANTS: dict = {}
+
+
+def device_constant(key, make, device) -> torch.Tensor:
+    """A constant tensor on ``device``, uploaded once per ``(key,
+    device)``: ``make()`` builds it on the host at the first call.  Steps
+    that ask for the same table every call (normalization statistics,
+    pooling matrices) then copy nothing from the host, so a chained KD
+    step moves only its row indices (``train/steps.make_device_data_step``).
+    Callers must not write into it."""
+    dev = torch.device(device)
+    k = (key, dev)
+    if k not in _CONSTANTS:
+        # a plain tensor even when first asked for under inference_mode, so
+        # that autograd may save it later
+        with torch.inference_mode(False):
+            _CONSTANTS[k] = make().to(dev)
+    return _CONSTANTS[k]

@@ -12,7 +12,11 @@ train mode.  Images are NCHW.  Parameters are created frozen
 Convolutions, pooling and the plain projections stay ``F.conv2d`` /
 ``F.linear`` / ``F.max_pool2d``, as the JAX package leaves them to XLA.  The
 attention core goes through ``ops.attention.attention_core``, the ported
-kernel, never through ``scaled_dot_product_attention``.
+kernel, never through ``scaled_dot_product_attention``.  A serving copy made
+by ``ops/quant.py`` holds int8 weights: ``Linear`` and ``Conv2d`` dispatch on
+``weight_q`` and ``multi_head_attention`` on ``in_proj_weight_q`` to the int8
+products (``ops/int8.py``); the functional ``dense`` and ``conv2d`` take
+float weights only.
 """
 
 from __future__ import annotations
@@ -26,6 +30,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from imagecaptioner_tpu_torch.core.device import device_constant
+from imagecaptioner_tpu_torch.ops import quant as Q
 from imagecaptioner_tpu_torch.ops.attention import attention_core
 
 
@@ -216,11 +222,19 @@ def adaptive_pool_matrix(in_size: int, out_size: int) -> np.ndarray:
     return m
 
 
+def _pool_matrix(in_size: int, out_size: int, device) -> torch.Tensor:
+    """``adaptive_pool_matrix`` as a float32 tensor on ``device``, uploaded
+    once."""
+    return device_constant(
+        ("adaptive_pool", in_size, out_size),
+        lambda: torch.from_numpy(adaptive_pool_matrix(in_size, out_size)),
+        device)
+
+
 def adaptive_avg_pool1d(x: torch.Tensor, out_len: int) -> torch.Tensor:
     """(B, C, L) -> (B, C, out_len) as one static matmul, torch
     AdaptiveAvgPool1d semantics."""
-    m = torch.from_numpy(adaptive_pool_matrix(x.shape[-1], out_len))
-    m = m.to(x.device).to(x.dtype).float()
+    m = _pool_matrix(x.shape[-1], out_len, x.device).to(x.dtype).float()
     return torch.einsum("ol,bcl->bco", m, x.float()).to(x.dtype)
 
 
@@ -231,10 +245,8 @@ def adaptive_avg_pool2d(x: torch.Tensor, out_hw: Tuple[int, int]
     h, w = x.shape[2], x.shape[3]
     if (h, w) == tuple(out_hw):
         return x  # both matrices are the identity
-    mh = torch.from_numpy(adaptive_pool_matrix(h, out_hw[0])).to(x.device)
-    mw = torch.from_numpy(adaptive_pool_matrix(w, out_hw[1])).to(x.device)
-    mh = mh.to(x.dtype).float()
-    mw = mw.to(x.dtype).float()
+    mh = _pool_matrix(h, out_hw[0], x.device).to(x.dtype).float()
+    mw = _pool_matrix(w, out_hw[1], x.device).to(x.dtype).float()
     y = torch.einsum("oh,bchw->bcow", mh, x.float()).to(x.dtype)
     return torch.einsum("pw,bcow->bcop", mw, y.float()).to(x.dtype)
 
@@ -258,11 +270,20 @@ def multi_head_attention(p: "MultiheadAttention", query: torch.Tensor,
     so does ``need_weights``, which returns ``(output, weights (B, Lq, Lk))``
     with the weights averaged over the heads *after* their dropout."""
     e = query.shape[-1]
-    w_q, w_k, w_v = p.in_proj_weight.chunk(3, dim=0)
-    b_q, b_k, b_v = p.in_proj_bias.chunk(3, dim=0)
-    q = _split_heads(dense(query, w_q, b_q), num_heads)     # (B, H, Lq, D)
-    k = _split_heads(dense(key, w_k, b_k), num_heads)
-    v = _split_heads(dense(value, w_v, b_v), num_heads)
+    if "in_proj_weight_q" in p._buffers:
+        # one static scale for q, k and v: all three inputs are recorded
+        for act in (query, key, value):
+            Q.record_calibration_amax(p, act)
+        q, k, v = (
+            _split_heads(Q.in_proj_int8(p, x, slice(i * e, (i + 1) * e)),
+                         num_heads)
+            for i, x in enumerate((query, key, value)))
+    else:
+        w_q, w_k, w_v = p.in_proj_weight.chunk(3, dim=0)
+        b_q, b_k, b_v = p.in_proj_bias.chunk(3, dim=0)
+        q = _split_heads(dense(query, w_q, b_q), num_heads)  # (B, H, Lq, D)
+        k = _split_heads(dense(key, w_k, b_k), num_heads)
+        v = _split_heads(dense(value, w_v, b_v), num_heads)
     scale = 1.0 / math.sqrt(e // num_heads)
     weights = None
     if need_weights or dropout_on(dropout_rate, train):
@@ -294,6 +315,8 @@ class Linear(nn.Module):
         self.bias = _param(out_features) if bias else None
 
     def forward(self, x):
+        if "weight_q" in self._buffers:
+            return Q.dense_int8(self, x)
         return dense(x, self.weight, self.bias)
 
 
@@ -329,6 +352,8 @@ class Conv2d(nn.Module):
         self.stride, self.padding, self.groups = stride, padding, groups
 
     def forward(self, x):
+        if "weight_q" in self._buffers:
+            return Q.conv2d_int8(self, x)
         return conv2d(x, self.weight, self.bias, stride=self.stride,
                       padding=self.padding, groups=self.groups)
 

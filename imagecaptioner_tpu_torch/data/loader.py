@@ -13,17 +13,20 @@ The shuffle draws from ``np.random.default_rng(seed)``, one permutation per
 epoch, so one seed gives the JAX loader's batch order.  Images decode in a
 thread pool and come from the dataset's RAM cache once decoded; a
 background thread prefetches batches and stops when the iterator is
-abandoned.  ``device_prefetch`` (pinned memory and a side stream) is ROADMAP
-Queue 1 item 11.
+abandoned.  ``device_prefetch`` double-buffers batches onto a card from
+pinned host memory on a side stream; its form over a mesh of cards waits
+for multi-GPU training (ROADMAP Queue 1 item 13).
 """
 
 from __future__ import annotations
 
+import collections
 import queue
 import threading
 from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
+import torch
 
 from imagecaptioner_tpu_torch.data.dataset import CaptionDataset
 from imagecaptioner_tpu_torch.data.vocabulary import PAD
@@ -129,6 +132,51 @@ class BatchLoader:
                 yield item
         finally:
             stop.set()
+
+
+def device_prefetch(iterator, device, *, size: int = 2
+                    ) -> Iterator[Dict[str, torch.Tensor]]:
+    """Batches of ``iterator`` (dicts of numpy arrays) as tensors on
+    ``device``, ``size`` of them in flight ahead of the consumer, so host
+    decode and the host-to-device copy overlap the device's work (JAX
+    ``loader.device_prefetch``).  On a card each batch is copied into
+    pinned host buffers and then, without blocking, on a side stream; the
+    consumer's stream waits on the copy's event before it uses the batch
+    (PyTorch's pinned-memory cache reuses a buffer only after its copy has
+    completed).  On the CPU the batches come through as tensors.  Values
+    and dtypes are the iterator's."""
+    dev = torch.device(device)
+    it = iter(iterator)
+    if dev.type != "cuda":
+        for batch in it:
+            yield {k: torch.from_numpy(np.ascontiguousarray(v))
+                   for k, v in batch.items()}
+        return
+    side = torch.cuda.Stream(device=dev)
+    pending: "collections.deque" = collections.deque()
+
+    def put(batch):
+        host = {k: torch.from_numpy(np.ascontiguousarray(v)).pin_memory()
+                for k, v in batch.items()}
+        with torch.cuda.stream(side):
+            out = {k: v.to(dev, non_blocking=True) for k, v in host.items()}
+            done = torch.cuda.Event()
+            done.record(side)
+        return out, done
+
+    for batch in it:
+        pending.append(put(batch))
+        if len(pending) >= size:
+            break
+    while pending:
+        out, done = pending.popleft()
+        torch.cuda.current_stream(dev).wait_event(done)
+        for t in out.values():            # freed only after this stream's use
+            t.record_stream(torch.cuda.current_stream(dev))
+        nxt = next(it, None)
+        if nxt is not None:
+            pending.append(put(nxt))
+        yield out
 
 
 def get_loader(root_folder: str,

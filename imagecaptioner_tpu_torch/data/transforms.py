@@ -19,6 +19,8 @@ from typing import Optional
 
 import torch
 
+from imagecaptioner_tpu_torch.core.device import device_constant
+
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
@@ -48,8 +50,10 @@ OPTIMIZED_KD_AUG = AugmentConfig(brightness=0.2, contrast=0.2, saturation=0.2,
 
 def _standardize(x: torch.Tensor, mean, std, dtype) -> torch.Tensor:
     """[0, 1] NHWC floats -> normalized NCHW in ``dtype``."""
-    m = torch.tensor(mean, dtype=torch.float32, device=x.device)
-    s = torch.tensor(std, dtype=torch.float32, device=x.device)
+    m = device_constant(("mean", tuple(mean)), lambda: torch.tensor(
+        mean, dtype=torch.float32), x.device)
+    s = device_constant(("std", tuple(std)), lambda: torch.tensor(
+        std, dtype=torch.float32), x.device)
     return ((x - m) / s).permute(0, 3, 1, 2).contiguous().to(dtype)
 
 
@@ -65,7 +69,8 @@ def _uniform(generator, shape, low: float, high: float, device):
 
 
 def _rgb_to_gray(x: torch.Tensor) -> torch.Tensor:
-    w = torch.tensor([0.299, 0.587, 0.114], dtype=x.dtype, device=x.device)
+    w = device_constant(("luma", x.dtype), lambda: torch.tensor(
+        [0.299, 0.587, 0.114], dtype=x.dtype), x.device)
     return (x * w).sum(-1, keepdim=True)
 
 

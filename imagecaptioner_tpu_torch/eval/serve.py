@@ -3,23 +3,31 @@
 ``imagecaptioner_tpu/eval/serve.py`` with the same flags: ``--model
 student`` captions by greedy decode (the full, compact or enhanced student,
 as the checkpoint's ``model_type`` says), ``--model teacher`` by packed beam
-search in the parameters' dtype as loaded (float32).  ``--data-parallel``
-is a no-op on one card and on the CPU, as the reference serves without a
-mesh on one device; the flags whose paths are not ported yet (int8, data
-parallelism over more than one card) exit with an error that says so.
-Images are decoded with PIL, imported only here, so ``make_greedy_captioner``
-and ``make_beam_captioner`` (which take uint8 arrays) run on a machine
-without PIL.  Runs on ``--device`` (default ``cuda``): without a card it
-raises, and only ``--device cpu`` runs on the CPU.
+search in the parameters' dtype as loaded (float32, or ``--dtype bfloat16``,
+the serving point of ``bench.py``).  ``--int8`` serves a copy whose encoder
+is quantized, ``--int8-full`` (teacher only) one whose transformer decoder
+is too, and ``--int8-calibrate N`` bakes static activation scales from the
+first N images (``int8_serving_copy``; ``ops/quant.py``,
+``csrc/int8_conv.cu``).  ``--data-parallel`` is a no-op on one card and on
+the CPU, as the reference serves without a mesh on one device; over more
+than one card it exits as not ported yet.  A binary PPM (``.ppm``, which
+the JAX CLI does not list) is decoded by numpy and any other image by PIL,
+imported only then (``data/dataset.decode_image_file``), so the CLI runs on
+PPM files on a machine without PIL, as ``make_greedy_captioner`` and
+``make_beam_captioner`` (which take uint8 arrays) do.  Runs on
+``--device`` (default ``cuda``): without a card it raises, and only
+``--device cpu`` runs on the CPU.
 
 Usage:
   python -m imagecaptioner_tpu_torch.eval.serve \\
       --model student --checkpoint saved_models/best_student_model.npz \\
       --vocab saved_models/vocab.json --images data/flickr8k/Images \\
       --out captions.jsonl [--batch 16] [--max-length 20] [--temperature 1.0] \\
-      [--device cuda|cpu]
+      [--int8 [--int8-calibrate N] [--int8-margin M]] \\
+      [--dtype float32|bfloat16] [--device cuda|cpu]
   python -m imagecaptioner_tpu_torch.eval.serve --model teacher \\
-      --checkpoint saved_models/best_teacher_model.npz [...] [--beam-size 5]
+      --checkpoint saved_models/best_teacher_model.npz [...] [--beam-size 5] \\
+      [--int8 | --int8-full] [--int8-calibrate N]
 """
 
 from __future__ import annotations
@@ -29,7 +37,7 @@ import json
 import os
 import sys
 import time
-from typing import Callable, List, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -37,18 +45,22 @@ import torch
 from imagecaptioner_tpu_torch.core.config import StudentConfig
 from imagecaptioner_tpu_torch.core.device import resolve_device
 from imagecaptioner_tpu_torch.core.modules import cast_parameters
+from imagecaptioner_tpu_torch.core.precision import as_dtype
 from imagecaptioner_tpu_torch.data import transforms as T
-from imagecaptioner_tpu_torch.data.vocabulary import Vocabulary
+from imagecaptioner_tpu_torch.data.dataset import decode_image_file
+from imagecaptioner_tpu_torch.data.vocabulary import START, Vocabulary
 from imagecaptioner_tpu_torch.models.student import Student
 from imagecaptioner_tpu_torch.models.teacher import Teacher, load_teacher
+from imagecaptioner_tpu_torch.ops import quant as Q
 from imagecaptioner_tpu_torch.ops.decode import (beam_result_to_captions,
                                                  beam_search_teacher_packed,
                                                  best_greedy_decode_student,
+                                                 greedy_decode_teacher,
                                                  tokens_to_caption)
 from imagecaptioner_tpu_torch.utils.checkpoint import load_student_checkpoint
 from imagecaptioner_tpu_torch.utils.convert import jax_student_to_state_dict
 
-IMAGE_EXTS = (".jpg", ".jpeg", ".png", ".bmp", ".tiff")
+IMAGE_EXTS = (".jpg", ".jpeg", ".png", ".bmp", ".tiff", ".ppm")
 
 
 def list_images(path: str) -> List[str]:
@@ -120,6 +132,60 @@ def make_beam_captioner(teacher: Teacher, cfg, device, *, max_length: int = 20,
     return caption
 
 
+def int8_serving_copy(model, kind: str, *, int8: bool = False,
+                      int8_full: bool = False,
+                      calibrate_images: Optional[np.ndarray] = None,
+                      margin: Optional[float] = None, max_length: int = 20,
+                      verbose: bool = True):
+    """The model the CLI serves for its int8 flags (``kind`` "student" or
+    "teacher"): ``model`` itself without them; else a copy with the
+    student's or the teacher's encoder quantized (``int8``), or the whole
+    teacher (``int8_full``).  With ``calibrate_images`` (uint8 NHWC) the
+    copy gets static activation scales from one eager forward on them, on
+    the model's device and in its dtype: the student's ``encode_image``,
+    the teacher's full forward under captions that the float teacher
+    decodes greedily for them with START prepended (``int8_full``) or
+    under a 2-token START placeholder (encoder only).  ``margin`` defaults
+    to 1.25 with ``int8_full`` and to 1.0 otherwise."""
+    if kind == "teacher" and int8_full:
+        q = Q.quantize_teacher_full_int8(model)
+    elif int8:
+        q = (Q.quantize_teacher_encoder_int8(model) if kind == "teacher"
+             else Q.quantize_student_encoder_int8(model))
+    else:
+        return model
+    if calibrate_images is None:
+        return q
+    p = next(model.parameters())
+    with torch.inference_mode():
+        imgs = T.normalize(torch.from_numpy(
+            np.ascontiguousarray(calibrate_images)).to(p.device),
+            dtype=p.dtype)
+    n = imgs.shape[0]
+    if kind == "teacher":
+        if int8_full:
+            with torch.inference_mode():
+                toks = greedy_decode_teacher(
+                    model, model.encode_image(imgs), max_length=max_length)
+            caps = torch.cat([torch.full((1, n), START, device=p.device),
+                              toks.t().long()])
+        else:
+            caps = torch.full((2, n), START, device=p.device)
+
+        def run(m):
+            return m(imgs, caps)
+    else:
+        def run(m):
+            return m.encode_image(imgs)
+    if margin is None:
+        margin = 1.25 if int8_full else 1.0
+    q = Q.calibrate_activation_scales(q, run, margin=margin)
+    if verbose:
+        print(f"[int8] static activation scales calibrated on {n} images "
+              f"(margin {margin})")
+    return q
+
+
 def _not_ported(what: str, item: str) -> SystemExit:
     return SystemExit(f"{what} is not ported yet (ROADMAP Queue 1 {item}); "
                       "use python -m imagecaptioner_tpu.eval.serve")
@@ -138,32 +204,58 @@ def main(argv=None):
                     help="teacher only (students are greedy)")
     ap.add_argument("--temperature", type=float, default=1.0,
                     help="student only; != 1.0 samples")
-    ap.add_argument("--int8", action="store_true")
-    ap.add_argument("--int8-full", action="store_true")
-    ap.add_argument("--int8-calibrate", type=int, default=0, metavar="N")
-    ap.add_argument("--int8-margin", type=float, default=None)
+    ap.add_argument("--int8", action="store_true",
+                    help="int8 serving encoder (ops/quant.py)")
+    ap.add_argument("--int8-full", action="store_true",
+                    help="teacher only: int8 encoder and transformer decoder")
+    ap.add_argument("--int8-calibrate", type=int, default=0, metavar="N",
+                    help="with --int8/--int8-full: bake static activation "
+                         "scales calibrated on the first N input images")
+    ap.add_argument("--int8-margin", type=float, default=None,
+                    help="headroom multiplier on calibrated scales "
+                         "(default 1.0, 1.25 with --int8-full)")
     ap.add_argument("--data-parallel", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--dtype", default="float32",
+                    choices=["float32", "bfloat16"],
+                    help="parameters and activations (default float32, as "
+                         "the JAX CLI serves)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
     args = ap.parse_args(argv)
-    if args.int8 or args.int8_full or args.int8_calibrate:
-        raise _not_ported("int8 serving", "item 12")
+    if args.int8_full and args.model != "teacher":
+        ap.error("--int8-full applies to the teacher's transformer decoder; "
+                 "students keep float decoders (use --int8)")
+    if args.int8_calibrate and not (args.int8 or args.int8_full):
+        ap.error("--int8-calibrate requires --int8 or --int8-full")
     if (args.data_parallel and torch.device(args.device).type == "cuda"
             and torch.cuda.device_count() > 1):
         raise _not_ported("data-parallel serving", "item 13")
 
     device = resolve_device(args.device)
-
-    from PIL import Image
+    dtype = as_dtype(args.dtype)
 
     vocab = Vocabulary.load(args.vocab)
     files = list_images(args.images)
     if not files:
         print(f"no images found under {args.images}")
         return 1
+    def load(path, size):
+        return decode_image_file(path, size)
+
+    def calibration_images(size):
+        if not args.int8_calibrate:
+            return None
+        n = max(1, min(args.int8_calibrate, len(files)))
+        return np.stack([load(f, size) for f in files[:n]])
+
+    int8_kw = dict(int8=args.int8, int8_full=args.int8_full,
+                   margin=args.int8_margin, max_length=args.max_length)
     if args.model == "teacher":
-        teacher, cfg = load_teacher(args.checkpoint, device)
+        teacher, cfg = load_teacher(args.checkpoint, device, dtype)
+        teacher = int8_serving_copy(
+            teacher, "teacher", calibrate_images=calibration_images(
+                cfg.image_size), **int8_kw)
         beam_fn = make_beam_captioner(teacher, cfg, device,
                                       max_length=args.max_length,
                                       beam_size=args.beam_size)
@@ -173,7 +265,10 @@ def main(argv=None):
             return [beam_result_to_captions(seqs[i], scores[i], vocab, 1)[0]
                     for i in range(len(arr))]
     else:
-        student, cfg = load_student(args.checkpoint, device)
+        student, cfg = load_student(args.checkpoint, device, dtype)
+        student = int8_serving_copy(
+            student, "student", calibrate_images=calibration_images(
+                cfg.image_size), **int8_kw)
         greedy_fn = make_greedy_captioner(
             student, cfg, device, max_length=args.max_length,
             temperature=args.temperature, seed=args.seed)
@@ -182,19 +277,13 @@ def main(argv=None):
             return [tokens_to_caption(t, vocab) for t in greedy_fn(arr)]
 
     size = cfg.image_size
-
-    def load(path):
-        im = Image.open(path).convert("RGB").resize((size, size),
-                                                    Image.BILINEAR)
-        return np.asarray(im, np.uint8)
-
     B = args.batch
     t0 = time.perf_counter()
     n_done = 0
     with open(args.out, "w") as out:
         for s in range(0, len(files), B):
             chunk = files[s:s + B]
-            arr = np.stack([load(p) for p in chunk])
+            arr = np.stack([load(p, size) for p in chunk])
             if len(chunk) < B:  # keep one batch shape for the whole run
                 arr = np.concatenate(
                     [arr, np.repeat(arr[-1:], B - len(chunk), axis=0)])

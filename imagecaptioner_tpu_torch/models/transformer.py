@@ -25,6 +25,7 @@ from imagecaptioner_tpu_torch.core.modules import (LayerNorm, Linear,
                                                    MultiheadAttention, dropout,
                                                    dense, layer_norm_init,
                                                    linear_init, mha_init)
+from imagecaptioner_tpu_torch.ops import quant as Q
 from imagecaptioner_tpu_torch.ops.attention import attention_core_plain
 from imagecaptioner_tpu_torch.ops.beam_attn import (beam_cross_attention,
                                                     beam_self_attention)
@@ -99,13 +100,19 @@ def _proj_qkv(mha: MultiheadAttention, x: torch.Tensor
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The packed in-projection of x (B, L, E) as one product; q, k and v
     are its column blocks (views, each element what a separate product would
-    give)."""
+    give).  A quantized in-projection is one int8 product."""
+    if "in_proj_weight_q" in mha._buffers:
+        return Q.in_proj_int8(mha, x, slice(None)).chunk(3, dim=-1)
     return dense(x, mha.in_proj_weight, mha.in_proj_bias).chunk(3, dim=-1)
 
 
 def _proj_q(mha: MultiheadAttention, x: torch.Tensor) -> torch.Tensor:
     """Q-only projection for cross-attention decode steps: the query
-    token's K and V are never used there."""
+    token's K and V are never used there.  A quantized in-projection
+    records x against the packed weight, as JAX does."""
+    if "in_proj_weight_q" in mha._buffers:
+        e = mha.in_proj_weight_q.shape[1]
+        return Q.in_proj_int8(mha, x, slice(0, e))
     e = mha.in_proj_weight.shape[1]
     return dense(x, mha.in_proj_weight[:e], mha.in_proj_bias[:e])
 

@@ -120,9 +120,10 @@ def attention_core_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if k.shape != (B, H, Lk, D) or v.shape != k.shape:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
-    if D not in HEAD_DIMS or not 0 < Lk <= MAX_LK or Lq == 0:
-        raise ValueError(f"kernel takes D in {HEAD_DIMS}, 0 < Lk <= {MAX_LK}; "
-                         f"got D={D}, Lq={Lq}, Lk={Lk}")
+    if D not in HEAD_DIMS or not 0 < Lk <= MAX_LK or Lq == 0 or B * H == 0:
+        raise ValueError(f"kernel takes D in {HEAD_DIMS}, 0 < Lk <= {MAX_LK}, "
+                         f"a batch of heads; got D={D}, Lq={Lq}, Lk={Lk}, "
+                         f"B*H={B * H}")
     if causal and Lq != Lk:
         raise ValueError(f"kernel takes a causal mask only for Lq == Lk; "
                          f"got Lq={Lq}, Lk={Lk}")

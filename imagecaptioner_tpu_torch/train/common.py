@@ -40,6 +40,16 @@ def flatten_step_metrics(fetched: List[Dict]) -> List[Dict]:
     return out
 
 
+def fetch_step_metrics(step_metrics: List[Dict[str, torch.Tensor]]
+                       ) -> List[Dict[str, float]]:
+    """The epoch's one host fetch: per-step dicts of 0-d tensors and chained
+    dicts of (k,) tensors -> one flat list of per-step float dicts."""
+    return [{k: float(v) for k, v in m.items()}
+            for m in flatten_step_metrics(
+                [{k: v.cpu().numpy() for k, v in m.items()}
+                 for m in step_metrics])]
+
+
 def stacked_batches(loader, accumulation_steps: int) -> Iterator[Dict]:
     """Group loader batches into stacks of ``A`` for in-step accumulation.
     A trailing incomplete group is dropped: the reference only steps the

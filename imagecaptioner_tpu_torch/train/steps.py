@@ -306,9 +306,10 @@ def make_kd_train_step(teacher: Teacher, t_cfg: TeacherConfig,
                        others_wd: Optional[float] = None):
     """Returns ``step(state, batch, sched_t, generator, epoch=0) ->
     metrics``; the state is updated in place.  ``metrics`` holds the loss
-    terms (mean over the micro-batches), ``grad_norm`` (before clipping) and
-    ``lr`` (the rate at scale 1) as 0-d tensors on the device: fetching them
-    is the caller's synchronisation point.  ``tr_cfg`` is a
+    terms (mean over the micro-batches) and ``grad_norm`` (before clipping)
+    as 0-d tensors on the device (fetching them is the caller's
+    synchronisation point), and ``lr`` (the rate at scale 1) as a 0-d
+    tensor on the host, where it is computed (no upload a step).  ``tr_cfg`` is a
     ``KDTrainConfig``, or with ``optimized=True`` an
     ``OptimizedKDTrainConfig``; then ``sched_t`` is the optimizer step of
     a OneCycle over ``onecycle_total_steps`` and ``epoch`` drives the loss's
@@ -367,13 +368,54 @@ def make_kd_train_step(teacher: Teacher, t_cfg: TeacherConfig,
                            params, weight_decay=tr_cfg.weight_decay,
                            others_wd=others_wd),
                        trainable=trainable)
-        dev = gnorm.device
         metrics = {k: v / A for k, v in ld_sum.items()}
         metrics["grad_norm"] = gnorm
-        metrics["lr"] = torch.tensor(lr_fn(1.0), device=dev)
+        metrics["lr"] = torch.tensor(lr_fn(1.0))
         return metrics
 
     return step
+
+
+def make_device_data_step(train_step, chain_steps: int = 1):
+    """Wrap a KD train step to take its batches from a device-resident
+    dataset (``data/device_cache.DeviceDataset``) and to run
+    ``chain_steps`` optimizer steps back to back (JAX
+    ``steps.make_device_data_step``).
+
+    The returned ``chained(state, data, idx_k, sched_t0, dsched, epoch,
+    generator) -> metrics`` takes the dataset's ``arrays`` and a (K, A, B)
+    int32 array of row indices, uploaded once: the only host-to-device
+    traffic of the chain.  Step i gathers its batch on the card and runs at
+    schedule time ``sched_t0 + dsched * i``, computed in float32 as JAX
+    computes it on the device.  Every metric comes back stacked (K,): the
+    loss terms and ``grad_norm`` on the device, ``lr`` on the host; nothing
+    inside the chain waits for the card.  Capturing the chain as one CUDA
+    graph is a later speed change."""
+    from imagecaptioner_tpu_torch.data.device_cache import gather_batch
+
+    K = max(1, chain_steps)
+
+    def chained(state: TrainState, data: Dict[str, torch.Tensor], idx_k,
+                sched_t0, dsched, epoch: int,
+                generator: Optional[torch.Generator]
+                ) -> Dict[str, torch.Tensor]:
+        idx = torch.as_tensor(np.ascontiguousarray(idx_k, np.int32))
+        if idx.dim() != 3 or idx.shape[0] != K:
+            raise ValueError(f"idx_k must be ({K}, A, B), got "
+                             f"{tuple(idx.shape)}")
+        idx = idx.to(data["images"].device, non_blocking=True)
+        ts = np.float32(sched_t0) + np.float32(dsched) * np.arange(
+            K, dtype=np.float32)
+        ms = []
+        for i in range(K):
+            b = gather_batch(data, idx[i])
+            ms.append(train_step(state, {
+                "images": b["images"], "captions": b["captions"].long(),
+                "lengths": b["lengths"].long()}, float(ts[i]), generator,
+                epoch))
+        return {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
+
+    return chained
 
 
 def make_kd_eval_step(teacher: Teacher, t_cfg: TeacherConfig,

@@ -27,9 +27,15 @@ caller that asks for ``cpu`` gets the CPU.
       [--metrics-jsonl metrics.jsonl] [--device cuda|cpu]
 
 Data parallelism is on by default, as in the reference, and a no-op on one
-card (``--no-data-parallel`` turns it off).  Not ported yet, each exiting
-with its roadmap item: data parallelism over more than one card (item 13)
-and ``device_dataset`` with its ``stream_steps`` (item 11).  On the card each
+card (``--no-data-parallel`` turns it off); over more than one card it is
+not ported yet and exits with its roadmap item (item 13).
+``--device-dataset`` (``device_dataset=True``) decodes the training rows
+once into a ``data/device_cache.DeviceDataset`` on the device, gathers each
+batch there from uploaded row indices, and runs full chunks of
+``--stream-steps`` optimizer steps through one chained step function
+(``steps.make_device_data_step``), a trailing partial chunk one step at a
+time, with the metrics fetched once an epoch, as the JAX trainer does; its
+batches are the host loader's for the same seed.  On the card each
 variant's teacher-forced recurrence is its kernel: the JAX trainer's table
 of per-variant decoder implementations is a TPU measurement and is not
 carried over.
@@ -72,15 +78,12 @@ def not_ported(what: str, item: str,
                       f"use python -m imagecaptioner_tpu.train.{jax_entry}")
 
 
-def check_options(*, data_parallel: bool, device, device_dataset: bool,
-                  student_variant: str,
+def check_options(*, data_parallel: bool, device, student_variant: str,
                   jax_entry: str = "train_student_kd") -> None:
     """Refuse what is not ported, before any data or card is touched;
     ``jax_entry`` names the JAX trainer that has it."""
     if common.data_parallel_over_cards(data_parallel, device):
         raise not_ported("data-parallel KD training", "item 13", jax_entry)
-    if device_dataset:
-        raise not_ported("the device-resident dataset", "item 11", jax_entry)
     if student_variant not in STUDENT_CONFIGS:
         raise ValueError(f"unknown student_variant {student_variant!r}")
 
@@ -149,7 +152,6 @@ def train_student_with_kd(
     shuffled with ``seed``, the validation loader over the same rows in
     order, with the train vocabulary.  Returns ``(state, s_cfg, vocab)``."""
     check_options(data_parallel=data_parallel, device=device,
-                  device_dataset=device_dataset,
                   student_variant=student_variant)
     device = resolve_device(device)
     tr = train_cfg or KDTrainConfig()
@@ -173,6 +175,7 @@ def train_student_with_kd(
         use_attention_refinement=use_attention_refinement,
         student_variant=student_variant,
         student_cfg_overrides=student_cfg_overrides, aug=aug,
+        device_dataset=device_dataset, stream_steps=stream_steps,
         verbose=verbose, device=device)
 
 
@@ -252,6 +255,53 @@ def kd_checkpoint_tree(state: steps.TrainState, s_cfg, vocab_size: int,
         **extra)
 
 
+def make_device_dataset(train_loader, train_step, stream_steps: int,
+                        seed: int, device, verbose: bool):
+    """The train loader's rows on the device, seeded with ``seed``, and the
+    chained step functions over it: ``(data, K-step, 1-step)``."""
+    from imagecaptioner_tpu_torch.data.device_cache import DeviceDataset
+
+    dataset = getattr(train_loader, "dataset", None)
+    if dataset is None:
+        raise ValueError("device_dataset=True needs a train loader with a "
+                         "dataset (data/loader.BatchLoader)")
+    data = DeviceDataset(dataset, max_caption_len=train_loader.max_caption_len,
+                         device=device)
+    data.seed(seed)
+    dd_step = steps.make_device_data_step(train_step, stream_steps)
+    dd_step1 = (dd_step if stream_steps == 1
+                else steps.make_device_data_step(train_step, 1))
+    if verbose:
+        print(f"[device-data] {data.n} rows resident on device; "
+              f"{stream_steps} chained steps/dispatch")
+    return data, dd_step, dd_step1
+
+
+def run_device_epoch(data, dd_step, dd_step1, stream_steps: int, state,
+                     batch_size: int, accumulation_steps: int,
+                     max_steps_per_epoch: Optional[int], generator,
+                     epoch: int, sched) -> list:
+    """One epoch of the device-resident path: full chunks of
+    ``stream_steps`` steps through ``dd_step``, a trailing partial chunk
+    one step at a time through ``dd_step1``.  ``sched(s)`` gives the
+    float32 ``(sched_t0, dsched)`` of the chunk starting at step ``s``.
+    Returns the chunks' stacked metrics, unfetched."""
+    idx_all = data.epoch_indices(batch_size=batch_size,
+                                 accumulation_steps=accumulation_steps)
+    n_steps = idx_all.shape[0]
+    if max_steps_per_epoch is not None:
+        n_steps = min(n_steps, max_steps_per_epoch)
+    out, s = [], 0
+    while s < n_steps:
+        fn, span = ((dd_step, stream_steps)
+                    if n_steps - s >= stream_steps else (dd_step1, 1))
+        t0, dt = sched(s)
+        out.append(fn(state, data.arrays, idx_all[s:s + span], t0, dt,
+                      epoch, generator))
+        s += span
+    return out
+
+
 def train_student_with_kd_on_loaders(
     train_loader,
     val_loader,
@@ -280,10 +330,10 @@ def train_student_with_kd_on_loaders(
 ):
     """``train_student_with_kd`` over ready loaders: ``train_loader``
     (re-iterable, with ``__len__`` and ``batch_size``; batches in the
-    loader's layout) and ``val_loader``, tokens of ``vocab``.  Returns
-    ``(state, s_cfg, vocab)``."""
+    loader's layout) and ``val_loader``, tokens of ``vocab``.  With
+    ``device_dataset`` the train loader's ``dataset`` goes to the device
+    (``make_device_dataset``).  Returns ``(state, s_cfg, vocab)``."""
     check_options(data_parallel=data_parallel, device=device,
-                  device_dataset=device_dataset,
                   student_variant=student_variant)
     device = resolve_device(device)
     compute_dtype = as_dtype(compute_dtype)
@@ -336,6 +386,10 @@ def train_student_with_kd_on_loaders(
     os.makedirs(output_dir, exist_ok=True)
     vocab.save(os.path.join(output_dir, "vocab.json"))
     steps_per_epoch = max(len(train_loader) // tr.accumulation_steps, 1)
+    device_data = None
+    if device_dataset:
+        device_data, dd_step, dd_step1 = make_device_dataset(
+            train_loader, train_step, stream_steps, seed, device, verbose)
     stopper = common.EarlyStopping(tr.patience, mode="min")
     train_losses, val_losses, val_bleu_scores = [], [], []
     loss_components_history = defaultdict(list)
@@ -349,19 +403,27 @@ def train_student_with_kd_on_loaders(
 
     for epoch in range(start_epoch, tr.num_epochs):
         step_metrics = []  # device tensors; one host fetch per epoch
-        for idx, stacked in enumerate(
-                common.stacked_batches(train_loader, tr.accumulation_steps)):
-            if max_steps_per_epoch is not None and idx >= max_steps_per_epoch:
-                break
-            metrics = train_step(
-                state, steps.batch_to_device(stacked, device),
-                epoch + idx / steps_per_epoch, generator)
-            step_metrics.append(metrics)
-            if verbose and idx % 50 == 0:  # sync only at log boundaries
-                common.log_progress(epoch, idx, metrics, float(metrics["lr"]),
-                                    steps_per_epoch)
-        fetched = common.flatten_step_metrics(
-            [{k: float(v) for k, v in m.items()} for m in step_metrics])
+        if device_data is not None:
+            step_metrics = run_device_epoch(
+                device_data, dd_step, dd_step1, stream_steps, state,
+                train_loader.batch_size, tr.accumulation_steps,
+                max_steps_per_epoch, generator, epoch,
+                lambda s: (np.float32(epoch + s / steps_per_epoch),
+                           np.float32(1.0 / steps_per_epoch)))
+        else:
+            for idx, stacked in enumerate(common.stacked_batches(
+                    train_loader, tr.accumulation_steps)):
+                if (max_steps_per_epoch is not None
+                        and idx >= max_steps_per_epoch):
+                    break
+                metrics = train_step(
+                    state, steps.batch_to_device(stacked, device),
+                    epoch + idx / steps_per_epoch, generator)
+                step_metrics.append(metrics)
+                if verbose and idx % 50 == 0:  # sync only at log boundaries
+                    common.log_progress(epoch, idx, metrics,
+                                        float(metrics["lr"]), steps_per_epoch)
+        fetched = common.fetch_step_metrics(step_metrics)
         for si, m in enumerate(fetched):
             mlog.log_step(epoch * steps_per_epoch + si, m, epoch=epoch)
         nb = len(fetched)

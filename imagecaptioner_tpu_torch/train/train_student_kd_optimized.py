@@ -19,10 +19,14 @@ performance metrics, and ``optimized_training_history.json``.
       [--resume-from saved_models/best_optimized_student_model.npz] \\
       [--device cuda|cpu]
 
-Runs on ``device`` (default ``cuda``): without a card it raises.  Not
-ported yet, each exiting with its roadmap item as in the flagship trainer:
-data parallelism over more than one card (item 13) and ``device_dataset``
-with its ``stream_steps`` (item 11).
+Runs on ``device`` (default ``cuda``): without a card it raises.  Data
+parallelism over more than one card is not ported yet and exits with its
+roadmap item (item 13), as in the flagship trainer.  ``--device-dataset``
+keeps the training rows, stored at ``image_size + 32``, on the device and
+chains ``--stream-steps`` optimizer steps as the flagship trainer does
+(``train_student_kd.run_device_epoch``); the random crop to ``image_size``
+and the augmentation run on the device either way, so its batches are the
+host loader's, and OneCycle's step counter advances by one inside a chain.
 """
 
 from __future__ import annotations
@@ -48,8 +52,8 @@ from imagecaptioner_tpu_torch.distill.losses import OPTIMIZED_LOSS_NAMES
 from imagecaptioner_tpu_torch.eval.metrics import monitoring_bleu
 from imagecaptioner_tpu_torch.train import common, steps
 from imagecaptioner_tpu_torch.train.train_student_kd import (
-    check_options, kd_checkpoint_tree, load_teacher,
-    make_student_and_projectors, resume_train_state)
+    check_options, kd_checkpoint_tree, load_teacher, make_device_dataset,
+    make_student_and_projectors, resume_train_state, run_device_epoch)
 from imagecaptioner_tpu_torch.utils import checkpoint as CKPT
 
 BEST = "best_optimized_student_model.npz"
@@ -109,7 +113,6 @@ def train_student_with_kd_optimized(
     checkpoint of either package and goes on from its epoch and
     ``global_step``.  Returns ``(state, s_cfg, vocab)``."""
     check_options(data_parallel=data_parallel, device=device,
-                  device_dataset=device_dataset,
                   student_variant=student_variant,
                   jax_entry="train_student_kd_optimized")
     device = resolve_device(device)
@@ -170,6 +173,10 @@ def train_student_with_kd_optimized(
 
     os.makedirs(output_dir, exist_ok=True)
     vocab.save(os.path.join(output_dir, "vocab.json"))
+    device_data = None
+    if device_dataset:
+        device_data, dd_step, dd_step1 = make_device_dataset(
+            train_loader, train_step, stream_steps, seed, device, verbose)
     stopper = common.EarlyStopping(tr.patience, mode="min")
     train_losses, val_losses, val_bleu_scores, epoch_times = [], [], [], []
     loss_components_history = defaultdict(list)
@@ -189,16 +196,26 @@ def train_student_with_kd_optimized(
     for epoch in range(start_epoch, tr.num_epochs):
         ep_timer = common.Timer()
         step_metrics = []  # device tensors; one host fetch per epoch
-        for idx, stacked in enumerate(
-                common.stacked_batches(train_loader, tr.accumulation_steps)):
-            if max_steps_per_epoch is not None and idx >= max_steps_per_epoch:
-                break
-            step_metrics.append(train_step(
-                state, steps.batch_to_device(stacked, device), global_step,
-                generator, epoch))
-            global_step += 1
-        fetched = common.flatten_step_metrics(
-            [{k: float(v) for k, v in m.items()} for m in step_metrics])
+        if device_data is not None:
+            # OneCycle is stepped per optimizer update: sched_t is the
+            # global step counter, advancing by 1 inside the chain
+            step_metrics = run_device_epoch(
+                device_data, dd_step, dd_step1, stream_steps, state,
+                train_loader.batch_size, tr.accumulation_steps,
+                max_steps_per_epoch, generator, epoch,
+                lambda s: (np.float32(global_step + s), np.float32(1.0)))
+            global_step += sum(len(m["lr"]) for m in step_metrics)
+        else:
+            for idx, stacked in enumerate(common.stacked_batches(
+                    train_loader, tr.accumulation_steps)):
+                if (max_steps_per_epoch is not None
+                        and idx >= max_steps_per_epoch):
+                    break
+                step_metrics.append(train_step(
+                    state, steps.batch_to_device(stacked, device),
+                    global_step, generator, epoch))
+                global_step += 1
+        fetched = common.fetch_step_metrics(step_metrics)
         nb = len(fetched)
         avg_train = (float(np.mean([m["total_loss"] for m in fetched]))
                      if fetched else float("nan"))

@@ -29,8 +29,11 @@ from imagecaptioner_tpu_torch.models.student import check_variant
 
 
 def tree_to_state_dict(tree: Any, prefix: str = "") -> Dict[str, torch.Tensor]:
-    """Flatten a nested dict/list tree of float arrays into dotted keys
-    (``lstm/0/weight_ih`` -> ``lstm.0.weight_ih``), copied to float32."""
+    """Flatten a nested dict/list tree of arrays into dotted keys
+    (``lstm/0/weight_ih`` -> ``lstm.0.weight_ih``), copied to float32; the
+    int8 leaves of a quantized tree (``weight_q``, ``in_proj_weight_q``)
+    stay int8, and a calibrated ``x_scale`` stays 0-d, so a quantized JAX
+    tree loads into a quantized copy (``ops.quant.load_int8_state_dict``)."""
     out: Dict[str, torch.Tensor] = {}
 
     def walk(node: Any, path: str) -> None:
@@ -41,7 +44,9 @@ def tree_to_state_dict(tree: Any, prefix: str = "") -> Dict[str, torch.Tensor]:
             for i, v in enumerate(node):
                 walk(v, f"{path}.{i}")
         else:
-            out[path] = torch.from_numpy(np.array(node, dtype=np.float32))
+            arr = np.asarray(node)
+            out[path] = torch.from_numpy(np.array(
+                arr, dtype=np.int8 if arr.dtype == np.int8 else np.float32))
 
     walk(tree, prefix)
     return out

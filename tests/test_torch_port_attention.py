@@ -122,11 +122,12 @@ def test_build_module_imports_without_nvcc():
             "os.environ['PATH'] = ''\n"
             "os.environ['CUDA_HOME'] = '/nonexistent'\n"
             "from imagecaptioner_tpu_torch.ops import (_build, attention,\n"
-            "    beam_attn, enhanced_scan, greedy, lstm_scan)\n"
+            "    beam_attn, enhanced_scan, greedy, int8, lstm_scan, quant)\n"
             "assert shutil.which('nvcc') is None\n"
             "assert set(_build.SOURCES) == {'attention_core', 'greedy_decode',\n"
             "    'decoder_scan', 'decoder_scan_bwd', 'beam_attention',\n"
-            "    'greedy_decode_compact', 'compact_scan', 'enhanced_scan'}\n"
+            "    'greedy_decode_compact', 'compact_scan', 'enhanced_scan',\n"
+            "    'int8_conv'}\n"
             "assert all((_build.CSRC / (s + '.cu')).is_file()"
             " for s in _build.SOURCES)\n")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120,

@@ -735,15 +735,21 @@ def test_port_resumes_at_the_saved_global_step(trained, tmp_path,
 
 @pytest.mark.parametrize("kw,match", [
     (dict(data_parallel=True, device="cuda"), "item 13"),
-    (dict(device_dataset=True), "item 11"),
+    # accepted now: the trainer goes on to read its data
+    pytest.param(dict(device_dataset=True), "captions_clean.csv",
+                 id="kw1-item 11"),
     (dict(student_variant="tiny"), "unknown student_variant"),
 ])
 def test_unported_options_and_the_default_device(kw, match, monkeypatch):
     """The options the flagship trainer refuses, refused the same way
-    before any data is read; without a card the default device raises."""
+    before any data is read; ``device_dataset`` is ported and goes on to
+    the data (here a missing CSV); without a card the default device
+    raises."""
     if "data_parallel" in kw:
         monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    err = ValueError if "student_variant" in kw else SystemExit
+    err = {"student_variant": ValueError,
+           "device_dataset": FileNotFoundError}.get(next(iter(kw)),
+                                                    SystemExit)
     with pytest.raises(err, match=match) as e:
         PTO.train_student_with_kd_optimized("no/data", None, "t.npz", "out",
                                             **{"device": "cpu", **kw})

@@ -87,18 +87,26 @@ def test_teacher_cli_default_device_raises_without_a_card(artifacts):
                                    ["--int8", "--int8-calibrate", "2"],
                                    ["--data-parallel"]])
 def test_unported_teacher_flags_exit(artifacts, extra, monkeypatch):
-    """int8 serving exits as not ported; so does data parallelism, but only
-    with more than one card visible (on one device it is a no-op)."""
+    """Data parallelism exits as not ported, but only with more than one
+    card visible (on one device it is a no-op).  The int8 flags are ported:
+    with each, the port's CLI writes the JAX CLI's captions (the encoder
+    quantized, or encoder and decoder, dynamically or with static scales
+    calibrated on the first two images)."""
     if extra == ["--data-parallel"]:
         monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
         args = _args(artifacts, artifacts / "x.jsonl", *extra)
-    else:
-        args = _args(artifacts, artifacts / "x.jsonl", "--device", "cpu",
-                     *extra)
-    with pytest.raises(SystemExit, match="not ported yet") as e:
-        serve.main(args)
-    assert ("item 13" in str(e.value)) == (extra == ["--data-parallel"])
-    assert not (artifacts / "x.jsonl").exists()
+        with pytest.raises(SystemExit, match="not ported yet") as e:
+            serve.main(args)
+        assert "item 13" in str(e.value)
+        assert not (artifacts / "x.jsonl").exists()
+        return
+    tag = "_".join(a.strip("-") for a in extra)
+    ref, got = artifacts / f"jax_{tag}.jsonl", artifacts / f"port_{tag}.jsonl"
+    assert jserve.main(_args(artifacts, ref, *extra)) == 0
+    assert serve.main(_args(artifacts, got, "--device", "cpu", *extra)) == 0
+    rows = [json.loads(line) for line in got.read_text().splitlines()]
+    assert len(rows) == 5
+    assert rows == [json.loads(line) for line in ref.read_text().splitlines()]
 
 
 def test_data_parallel_is_a_no_op_on_one_device(artifacts):

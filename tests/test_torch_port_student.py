@@ -151,10 +151,12 @@ def test_port_checkpoint_reads_back_in_jax(tmp_path):
             (7, "x", True, 0.5, (1, 2))
 
 
-def test_unported_variants_and_flags_raise(tmp_path, monkeypatch):
+def test_unported_variants_and_flags_raise(tmp_path, monkeypatch, capsys):
     """All three variants build; what no kernel takes raises: a layer count
-    other than the variant's, an unknown variant or ``model_type``; and the
-    serve flags not ported yet exit."""
+    other than the variant's, an unknown variant or ``model_type``; the
+    int8 flags (ported) exit with the JAX CLI's two parse errors where they
+    do not apply; data parallelism over several cards exits as not ported
+    yet."""
     for variant, layers in (("full", 2), ("compact", 1), ("enhanced", 3)):
         cfg = PC.STUDENT_CONFIGS[variant](V, embed_size=E, hidden_size=H)
         assert cfg.variant == variant and cfg.num_layers == layers
@@ -174,10 +176,16 @@ def test_unported_variants_and_flags_raise(tmp_path, monkeypatch):
     with pytest.raises(ValueError, match="unknown student model_type"):
         PCKPT.load_student_checkpoint(path)
     base = ["--checkpoint", "c", "--vocab", "v", "--images", "i"]
-    for extra in (["--model", "teacher", "--int8-full", "--device", "cpu"],
-                  ["--model", "student", "--int8", "--device", "cpu"]):
-        with pytest.raises(SystemExit, match="not ported yet"):
+    for extra, msg in (
+            (["--model", "student", "--int8-full", "--device", "cpu"],
+             "--int8-full applies to the teacher's transformer decoder"),
+            (["--model", "teacher", "--int8-calibrate", "2", "--device",
+              "cpu"], "--int8-calibrate requires --int8 or --int8-full")):
+        with pytest.raises(SystemExit) as e:
             serve.main(base + extra)
+        assert e.value.code == 2
+        err = capsys.readouterr().err
+        assert msg in err
     # data parallelism is a no-op on one device and refused over several
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     with pytest.raises(SystemExit, match="not ported yet.*item 13"):

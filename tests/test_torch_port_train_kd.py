@@ -166,9 +166,12 @@ def test_checkpoint_reads_in_jax_and_serves_through_the_port(trained, grid):
 
 @pytest.mark.parametrize("kw,match", [
     (dict(data_parallel=True, device="cuda"), "item 13"),
-    # a CPU run has one device: past data parallelism to the next check
-    (dict(data_parallel=True, device_dataset=True), "item 11"),
-    (dict(device_dataset=True), "item 11"),
+    # a CPU run has one device: past data parallelism to the next check;
+    # the device-resident dataset is accepted and the trainer goes on to
+    # read its data (a missing CSV or teacher checkpoint here)
+    pytest.param(dict(data_parallel=True, device_dataset=True), "No such file",
+                 id="kw1-item 11"),
+    pytest.param(dict(device_dataset=True), "No such file", id="kw2-item 11"),
     (dict(student_variant="tiny"), "unknown student_variant"),
 ])
 def test_unported_options_exit_with_their_roadmap_item(grid, kw, match,
@@ -177,17 +180,22 @@ def test_unported_options_exit_with_their_roadmap_item(grid, kw, match,
     three student variants are all ported, and an unknown one raises.  Data
     parallelism is on by default and a no-op on one device, as the
     reference's ``maybe_mesh`` makes it: it exits only when training on the
-    card with more than one card visible (checked before any card is used)."""
+    card with more than one card visible (checked before any card is used).
+    ``device_dataset`` is ported: it passes the checks, and the trainers go
+    on to read the teacher checkpoint or the CSV."""
     train_loader, val_loader, vocab = grid
     if "data_parallel" in kw:
         monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     unknown = "student_variant" in kw
+    accepted = "device_dataset" in kw
+    err = (ValueError if unknown else FileNotFoundError if accepted
+           else SystemExit)
     for train in (lambda **k: TK.train_student_with_kd_on_loaders(
                       train_loader, val_loader, vocab, "t.npz", "out", **k),
                   lambda **k: TK.train_student_with_kd("no/data", None,
                                                        "t.npz", "out", **k)):
-        with pytest.raises(ValueError if unknown else SystemExit,
-                           match=match if unknown else "not ported yet") as e:
+        with pytest.raises(err, match=match if unknown or accepted
+                           else "not ported yet") as e:
             train(**{"device": "cpu", **kw})      # before any data is read
         assert match in str(e.value)
 
