@@ -178,13 +178,19 @@ Imports nothing of JAX.  In order it:
      --int8-calibrate 8``; each int8 arm's float32 copy on the card against
      the CPU's all-plain int8 path on 4 images (features 1e-3 relative L2,
      3 of 4 caption rows) and against float (students' features 0.10,
-     teacher's logits 0.15); int8 and bf16 images/s of the full student in
-     one call; then the int8 kernel against its plain version, bit for bit
-     at bf16 and float32 outputs, at every product of a full-student
-     serving batch (ResNet-50 at B=32 and its projection), a MobileNetV2
-     and an EfficientNet-B3 depthwise convolution and the ViT's patch
-     embedding at B=16, each timed beside cuDNN's bf16 convolution (and
-     ``torch._int_mm`` on the 1x1 shapes);
+     teacher's logits 0.15); every int8 arm launches the quantization
+     kernel (#12) and the product kernel (#11) and quantizes no CUDA
+     activation by the plain passes; int8 and bf16 images/s of the full
+     student in one call; #12 against its plain version, codes and scales
+     bit for bit, dynamic and static, at every activation one batch
+     quantizes in the three students and the teacher (and on exact ties
+     and zero examples), the full student's batch timed; then the int8
+     product kernel against its plain version, bit for bit at bf16 and
+     float32 outputs, at every product of a full-student serving batch
+     (ResNet-50 at B=32 and its projection), a MobileNetV2 and an
+     EfficientNet-B3 depthwise convolution and the ViT's patch embedding at
+     B=16, each timed (per call and queued) beside cuDNN's bf16 convolution
+     (and ``torch._int_mm`` on the 1x1 shapes);
  14. prints kernel, plain and library times (CUDA events, median after
      warm-up), each kernel's bound, the chain floor of the six cooperative
      kernels (#1, #3, #4/#5, #6, #7, #8: the median of 2,000 empty grid
@@ -206,9 +212,10 @@ decode whose blocks all read row 0's broadcast context, a scan forward whose
 layer 1 reads the broadcast h0 without its mask, a compact greedy decode
 whose row blocks all reduce row 0's partial argmaxes, a compact scan whose
 cell reads the previous step's recurrent part at even steps), then an
-int8 convolution that drops its last 32-deep slice of K, and plants one
-fault in Python (an on-device gather that takes each row's neighbour); it
-expects all thirteen checks to fail.
+int8 convolution whose ring drops its last K stage and an int8
+quantization that rounds half away from zero, and plants one fault in
+Python (an on-device gather that takes each row's neighbour); it expects
+all fourteen checks to fail.
 """
 
 from __future__ import annotations
@@ -276,6 +283,7 @@ from imagecaptioner_tpu_torch.ops import enhanced_scan as ES
 from imagecaptioner_tpu_torch.ops import greedy as G
 from imagecaptioner_tpu_torch.ops import int8 as I8
 from imagecaptioner_tpu_torch.ops import lstm_scan as S
+from imagecaptioner_tpu_torch.ops import quant as Q
 from imagecaptioner_tpu_torch.runners import streamlit_app as DEMO
 from imagecaptioner_tpu_torch.train import common, steps
 from imagecaptioner_tpu_torch.train import optim as O
@@ -3819,11 +3827,13 @@ def int8_operands(shape, dev, seed):
                                            groups=groups)
 
 
-def check_int8_kernel(dev, shapes: dict, mutant=False, timed=True) -> dict:
+def check_int8_kernel(dev, shapes: dict, mutant=False, timed=True,
+                      counts=None) -> dict:
     """The int8 kernel against its plain version at each shape, bf16 and
-    float32 outputs, bit for bit; each shape's median time, its bound,
-    cuDNN's bf16 convolution (and torch._int_mm where a 1x1 shape allows
-    it) on the same shape."""
+    float32 outputs, bit for bit; each shape's median time, its rate, its
+    bound, cuDNN's bf16 convolution (and torch._int_mm where a 1x1 shape
+    allows it) on the same shape, and its launches a batch (``counts``)."""
+    counts = counts or {}
     rows = {}
     for i, (name, shape) in enumerate(shapes.items()):
         x_q, w_q, s_x, w_scale, b, kw = int8_operands(shape, dev, SEED + i)
@@ -3868,7 +3878,10 @@ def check_int8_kernel(dev, shapes: dict, mutant=False, timed=True) -> dict:
         def cudnn():
             F.conv2d(xb, wb, bb, kw["stride"], kw["padding"], 1, kw["groups"])
         row = dict(ms=median_ms(kernel, 20), plain_ms=median_ms(plain, 3, 1),
-                   cudnn_bf16_ms=median_ms(cudnn, 20), bound_ms=bound[0],
+                   cudnn_bf16_ms=median_ms(cudnn, 20),
+                   queued_ms=queued_ms(kernel, 20),
+                   cudnn_bf16_queued_ms=queued_ms(cudnn, 20),
+                   bound_ms=bound[0],
                    bound_by=bound[1], m=m, k=kh * kw_ * cg, o=o, ops=ops,
                    bytes=nbytes(x_q, packed, s_x, w_scale, b) + 2 * m * o)
         if kh == kw_ == 1 and kw["groups"] == 1 and kw["stride"] == 1 \
@@ -3877,14 +3890,22 @@ def check_int8_kernel(dev, shapes: dict, mutant=False, timed=True) -> dict:
             try:
                 row["int_mm_ms"] = median_ms(lambda: torch._int_mm(a2, b2),
                                              20)
+                row["int_mm_queued_ms"] = queued_ms(
+                    lambda: torch._int_mm(a2, b2), 20)
             except RuntimeError as e:       # a yardstick only
                 print(f"int8 {name}: torch._int_mm refused: {e}")
+        row["tops"] = ops / row["ms"] / 1e9
+        row["launches_per_batch"] = counts.get(name)
         rows[name] = row
-        print(f"int8 {name}: M={m} K={row['k']} O={o}: kernel "
-              f"{row['ms']:.4f} ms ({ops / row['ms'] / 1e9:.1f} TOPS), plain "
+        print(f"int8 {name}: M={m} K={row['k']} O={o}, "
+              f"{counts.get(name, '-')} launches a batch: kernel "
+              f"{row['ms']:.4f} ms ({row['tops']:.1f} TOPS), queued "
+              f"{row['queued_ms']:.4f} ms ({ops / row['queued_ms'] / 1e9:.1f}"
+              f" TOPS; cuDNN bf16 {row['cudnn_bf16_queued_ms']:.4f}), plain "
               f"{row['plain_ms']:.3f} ms, cuDNN bf16 {row['cudnn_bf16_ms']:.4f}"
               f" ms, torch._int_mm {row.get('int_mm_ms', float('nan')):.4f} "
-              f"ms, bound {bound[0]:.5f} ms by {bound[1]}", flush=True)
+              f"ms ({row.get('int_mm_queued_ms', float('nan')):.4f} queued), "
+              f"bound {bound[0]:.5f} ms by {bound[1]}", flush=True)
     return rows
 
 
@@ -3920,17 +3941,119 @@ def serve_cli(dev, files_dir, ckpt, vocab_path, tmp, model, *extra):
 
 @contextlib.contextmanager
 def plain_int8_on_card():
-    """Inside the block the int8 product takes its plain version on CUDA
-    tensors too (the same float path around it)."""
-    real = I8.int8_conv_cuda
+    """Inside the block the activation quantization and the int8 product
+    take their plain versions on CUDA tensors too (the same float path
+    around them)."""
+    real, real_q = I8.int8_conv_cuda, I8.quantize_activation_cuda
 
     def plain(x_q, w_q, s_x, w_scale, bias, packed=None, **kw):
         return I8.int8_conv_plain(x_q, w_q, s_x, w_scale, bias, **kw)
-    I8.int8_conv_cuda = plain
+
+    def plain_q(x, n_examples, x_scale=None):
+        return Q.quantize_activation_plain(x, x_scale)
+    I8.int8_conv_cuda, I8.quantize_activation_cuda = plain, plain_q
     try:
         yield
     finally:
-        I8.int8_conv_cuda = real
+        I8.int8_conv_cuda, I8.quantize_activation_cuda = real, real_q
+
+
+@contextlib.contextmanager
+def plain_quantization_on_card(seen: list):
+    """Counts into ``seen`` every call of the plain quantization with a CUDA
+    tensor inside the block (the int8 serving path must make none)."""
+    real = Q.quantize_activation_plain
+
+    def counted(x, x_scale=None):
+        if x.is_cuda:
+            seen.append(tuple(x.shape))
+        return real(x, x_scale)
+    Q.quantize_activation_plain = counted
+    try:
+        yield
+    finally:
+        Q.quantize_activation_plain = real
+
+
+def record_quant_inputs(fn) -> list:
+    """(name, x, n_examples, x_scale) of every activation that one call of
+    ``fn`` hands the quantization kernel, copied as it was."""
+    seen, real = [], I8.quantize_activation_cuda
+
+    def recorder(x, n_examples, x_scale=None):
+        seen.append((f"{tuple(x.shape)} {str(x.dtype)[6:]}"
+                     f"{' static' if x_scale is not None else ''}",
+                     x.clone(), n_examples,
+                     None if x_scale is None else x_scale.clone()))
+        return real(x, n_examples, x_scale)
+    I8.quantize_activation_cuda = recorder
+    try:
+        fn()
+    finally:
+        I8.quantize_activation_cuda = real
+    return seen
+
+
+def quant_tie_cases(dev) -> list:
+    """Exact ties of the rounding and zero examples: per example scales of
+    exactly 1 (amax 127), ties at k + 0.5, an all-zero example (scale 1),
+    and a power-of-two static scale whose codes tie at odd quarters."""
+    ties = torch.arange(-254, 256, 2, device=dev, dtype=torch.float32) / 4
+    rows = torch.stack([torch.cat([ties, torch.tensor([127.0], device=dev)]),
+                        torch.zeros(ties.numel() + 1, device=dev),
+                        -torch.cat([ties, torch.tensor([127.0], device=dev)])])
+    cases = []
+    for dt in (torch.float32, torch.bfloat16):
+        x = rows.to(dt).reshape(3, 1, 1, -1).contiguous()
+        cases.append((f"ties and zeros {str(dt)[6:]}", x, 3, None))
+        cases.append((f"ties and zeros {str(dt)[6:]} static", x, 3,
+                      torch.tensor(0.5, device=dev)))
+    return cases
+
+
+def check_quant_kernel(dev, cases: list, mutant=False, timed=True) -> dict:
+    """Kernel #12 against its plain version (``Q.quantize_activation_plain``)
+    on each recorded activation, dynamic and static (the recorded static
+    scale, else three quarters of example 0's dynamic scale, so that codes
+    clip), codes and scales bit for bit; each distinct shape's median time
+    dynamic and static, the plain version's and its bound (bytes: the
+    activation read once, the codes and scales written once)."""
+    rows = {}
+    for name, x, n, x_scale in cases:
+        got, ref = I8.quantize_activation_cuda(x, n), \
+            Q.quantize_activation_plain(x)
+        st = x_scale if x_scale is not None else (ref[1][0] * 0.75).reshape(())
+        got_s = I8.quantize_activation_cuda(x, n, st)
+        ref_s = Q.quantize_activation_plain(x, st)
+        same = (torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+                and torch.equal(got_s[0], ref_s[0]))
+        if not same:
+            print(f"int8 quantization {name}: kernel codes differ from plain "
+                  f"in {int((got[0] != ref[0]).sum())} (dynamic) and "
+                  f"{int((got_s[0] != ref_s[0]).sum())} (static) places, "
+                  f"scales in {int((got[1] != ref[1]).sum())}", flush=True)
+            fail(f"the quantization kernel is not bit-identical at {name}")
+        key = name.replace(" static", "")
+        if mutant or not timed or key in rows:
+            continue
+        nbytes_ = x.numel() * (x.element_size() + 1) + 4 * n
+        rows[key] = dict(
+            ms=median_ms(lambda: I8.quantize_activation_cuda(x, n), 20),
+            static_ms=median_ms(lambda: I8.quantize_activation_cuda(x, n, st),
+                                20),
+            plain_ms=median_ms(lambda: Q.quantize_activation_plain(x), 10),
+            queued_ms=queued_ms(lambda: I8.quantize_activation_cuda(x, n),
+                                20),
+            static_queued_ms=queued_ms(
+                lambda: I8.quantize_activation_cuda(x, n, st), 20),
+            bound_ms=bound_ms(nbytes_, 0, "bf16")[0], bytes=nbytes_,
+            elements=x.numel())
+        r = rows[key]
+        print(f"int8 quantization {key}: kernel {r['ms']:.4f} ms per call, "
+              f"{r['queued_ms']:.4f} queued (static {r['static_ms']:.4f}, "
+              f"{r['static_queued_ms']:.4f}), plain {r['plain_ms']:.4f} ms, "
+              f"bound {r['bound_ms']:.5f} ms by bytes", flush=True)
+    return rows
 
 
 def int8_arm(where, ckpt, kind, flags, cal_u8, small_u8):
@@ -4007,8 +4130,11 @@ def run_int8_serving(dev, tmp, batches):
     teacher (float32, B=16, K=5) with --int8 and with --int8-full
     --int8-calibrate 8; the bf16 float path of each student beside it; each
     int8 path against the CPU's all-plain int8 path and against float.
-    Returns (launches, the int8 shapes of a full-student batch, rates,
-    comparisons)."""
+    Every int8 arm must launch both kernels (#11, #12) and never call the
+    plain quantization on a CUDA tensor.  Then kernel #12 against its plain
+    version at every activation the four models quantize (``quant_cases``).
+    Returns (launches, the int8 shapes of a full-student batch, their
+    launches a batch, rates, comparisons, #12's report)."""
     files = os.path.join(tmp, "ppm")
     os.makedirs(files)
     student_imgs = np.concatenate(batches)
@@ -4044,10 +4170,13 @@ def run_int8_serving(dev, tmp, batches):
         n_img = len(teach_imgs) if kind == "teacher" else len(student_imgs)
         torch.cuda.synchronize()
         zero_counters()
-        I8.launches = 0
-        caps, secs = serve_cli(dev, where, ckpts[variant], vocab_path, tmp,
-                               kind, *flags)
-        got = {"int8_conv": I8.launches, "attention_core": A.launches,
+        I8.launches = I8.quant_launches = 0
+        plain_on_card = []
+        with plain_quantization_on_card(plain_on_card):
+            caps, secs = serve_cli(dev, where, ckpts[variant], vocab_path,
+                                   tmp, kind, *flags)
+        got = {"int8_conv": I8.launches, "int8_quant": I8.quant_launches,
+               "attention_core": A.launches,
                "greedy_decode": G.launches,
                "greedy_decode_compact": G.launches_compact,
                "beam_self_attention": BA.launches_self,
@@ -4060,16 +4189,19 @@ def run_int8_serving(dev, tmp, batches):
                 "enhanced": ("attention_core",),
                 "teacher": ("attention_core", "beam_self_attention",
                             "beam_cross_attention")}[variant]
-        need += ("int8_conv",) if flags else ()
+        need += ("int8_conv", "int8_quant") if flags else ()
         print(f"serve.main {tag}: {len(caps)} captions, {n_img / secs:.1f} "
               f"images/s ({'float32' if kind == 'teacher' else 'bf16'}, host "
               f"clock for the whole CLI: checkpoint load, quantization, "
               f"calibration, PPM decode, first-call kernel loads); launches "
               f"{got}", flush=True)
         if len(caps) != n_img or min(got[k] for k in need) < 1 \
-                or (not flags and got["int8_conv"]):
+                or (not flags and (got["int8_conv"] or got["int8_quant"])):
             fail(f"serve.main {tag} did not caption every image through its "
                  "kernels")
+        if plain_on_card:
+            fail(f"serve.main {tag} quantized {len(plain_on_card)} CUDA "
+                 f"activations by the plain passes, e.g. {plain_on_card[0]}")
         if flags:
             imgs = teach_imgs if kind == "teacher" else student_imgs
             compare[tag] = int8_card_vs_cpu(
@@ -4098,9 +4230,74 @@ def run_int8_serving(dev, tmp, batches):
           f"{len(batches)}, T={MAX_LEN}, host clock incl. H2D/D2H); "
           f"{per_batch} int8 launches a batch over {len(shapes)} shapes",
           flush=True)
+    quant = quant_cases(dev, model16, q16, ckpts, batches[0], cal,
+                        teach_imgs)
     del model16, q16
     return (launches, shapes, counts, dict(cli=rates, steady=steady),
-            compare)
+            compare, quant)
+
+
+def quant_cases(dev, model16, q16, ckpts, batch, cal, teach_imgs) -> dict:
+    """Kernel #12 bit for bit against its plain version at every activation
+    that one batch quantizes in the full student (bf16, B=32, dynamic and
+    calibrated on ``cal``), the compact and enhanced students (bf16,
+    dynamic) and the teacher (float32, B=16: the encoder dynamic, the whole
+    model calibrated), plus the tie-and-zero cases; the full student's
+    batch timed layer by layer.  Returns each model's launches a batch and
+    the full student's batch sums."""
+    x16 = T.normalize(torch.from_numpy(batch).to(dev), dtype=torch.bfloat16)
+    models = {"full": q16,
+              "full calibrated": serve.int8_serving_copy(
+                  model16, "student", int8=True, calibrate_images=cal,
+                  verbose=False)}
+    for v in ("compact", "enhanced"):
+        m, _ = serve.load_student(ckpts[v], dev, torch.bfloat16)
+        models[v] = serve.int8_serving_copy(m, "student", int8=True,
+                                            verbose=False)
+    teacher, _ = TM.load_teacher(ckpts["teacher"], dev)
+    xt = T.normalize(torch.from_numpy(teach_imgs[:BEAM_B]).to(dev))
+    caps = torch.full((MAX_LEN, BEAM_B), START, device=dev)
+    models["teacher"] = serve.int8_serving_copy(teacher, "teacher", int8=True,
+                                                verbose=False)
+    models["teacher full calibrated"] = serve.int8_serving_copy(
+        teacher, "teacher", int8_full=True, calibrate_images=teach_imgs[:8],
+        max_length=MAX_LEN, verbose=False)
+    report, batch_rows = {}, {}
+    for name, m in models.items():
+        is_teacher = name.startswith("teacher")
+        I8.quant_launches = 0
+        with torch.inference_mode():
+            cases = record_quant_inputs(
+                (lambda: m(xt, caps)) if is_teacher
+                else (lambda: m.encode_image(x16)))
+        launches = I8.quant_launches
+        timed = name.startswith("full")
+        rows = check_quant_kernel(dev, cases, timed=timed)
+        report[name] = dict(layers=len(cases), launches_per_batch=launches,
+                            static_layers=sum(c[3] is not None
+                                              for c in cases))
+        if timed:
+            per = collections.Counter(c[0].replace(" static", "")
+                                      for c in cases)
+            batch_rows[name] = {
+                f: sum(n * rows[k][f] for k, n in per.items())
+                for f in ("ms", "static_ms", "queued_ms", "static_queued_ms",
+                          "plain_ms", "bound_ms", "bytes")}
+        print(f"int8 quantization, {name}: {len(cases)} activations "
+              f"({report[name]['static_layers']} under a static scale), "
+              f"{launches} kernel launches a batch, every one bit-identical "
+              f"to the plain version, dynamic and static", flush=True)
+        del cases
+    check_quant_kernel(dev, quant_tie_cases(dev), timed=False)
+    for name, b in batch_rows.items():
+        kind = "static_" if "calibrated" in name else ""
+        print(f"int8 quantization of one {name} student batch (B={BATCH}): "
+              f"kernel {b[kind + 'ms']:.4f} ms per call summed, "
+              f"{b[kind + 'queued_ms']:.4f} queued, plain "
+              f"{b['plain_ms']:.3f} ms, bound {b['bound_ms']:.5f} ms by "
+              f"bytes", flush=True)
+    del models
+    return dict(models=report, batch=batch_rows)
 
 
 def python_mutant_caught(module, name, bad, check, what: str) -> bool:
@@ -4127,8 +4324,8 @@ def gather_off_by_one(arrays, idx):
 
 
 GATHER = DC.gather_batch
-# the int8 kernel's mutation check: the 7x7 stem (K = 147, its last slice
-# partly padding) and a 3x3 (K = 576), at a small batch
+# the int8 kernel's mutation check: the 7x7 stem (K = 147, its last 128-byte
+# stage mostly padding) and a 3x3 (K = 576, five stages), at a small batch
 INT8_MUTANT_SHAPES = {
     "stem 7x7/2 B=2": ((2, 224, 224, 3), (64, 3, 7, 7), 2, 3, 1, False),
     "3x3 64 @56 B=2": ((2, 56, 56, 64), (64, 64, 3, 3), 1, 1, 1, False),
@@ -4143,7 +4340,8 @@ def forget_libraries() -> None:
     _build._GRIDS.clear()
     _build._WORKSPACES.clear()
     A._KERNEL = G._GREEDY = G._COMPACT = S._FWD = S._BWD = S._COMPACT = None
-    I8._KERNEL = None
+    I8._KERNEL = I8._QUANT = None
+    I8._MAPS.clear()
     BA._KERNELS = ES._LIB = None
 
 
@@ -4179,7 +4377,7 @@ def mutant_caught(source: str, good: str, bad: str, check, what: str) -> bool:
 
 
 def run_mutation(dev) -> int:
-    """Thirteen planted faults, each of which its check must catch: the scan
+    """Fourteen planted faults, each of which its check must catch: the scan
     backward without the dropout mask on layer 1's input gradient (``dh0 =
     dh0_c + (dgp1·W_ih1ᵀ) · mask``), a beam self-attention that reads its
     own slot's cache row instead of ``anc[n, i, s]``, one that stages each
@@ -4197,7 +4395,8 @@ def run_mutation(dev) -> int:
     drops the last 16 keys, a compact greedy decode whose row blocks all
     reduce row 0's partial argmaxes, a compact scan whose cell reads
     the previous step's recurrent part at even steps, an int8 convolution
-    that drops its last 32-deep slice of K, and an on-device batch gather
+    whose ring drops its last K stage, an int8 quantization that rounds half
+    away from zero, and an on-device batch gather
     that takes each row's neighbour (a Python fault, planted by replacing
     ``device_cache.gather_batch``)."""
     decoder = make_decoder(dev)
@@ -4272,11 +4471,17 @@ def run_mutation(dev) -> int:
                       "the cell reads the previous step's recurrent part at "
                       "even steps"),
         mutant_caught("int8_conv.cu",
-                      "for (int kt = 0; kt < nk; ++kt) {",
-                      "for (int kt = 0; kt < nk - 1; ++kt) {",
+                      "  return c.Kp / BK;",
+                      "  return c.Kp / BK - 1;",
                       lambda: check_int8_kernel(dev, INT8_MUTANT_SHAPES,
                                                 mutant=True),
-                      "the int8 kernel drops its last K-chunk"),
+                      "the int8 kernel's ring drops its last K stage"),
+        mutant_caught("int8_quant.cu",
+                      "float r = rintf(__fdiv_rn(v, scale));",
+                      "float r = roundf(__fdiv_rn(v, scale));",
+                      lambda: check_quant_kernel(dev, quant_tie_cases(dev),
+                                                 mutant=True),
+                      "the int8 quantization rounds half away from zero"),
     ]
     with tempfile.TemporaryDirectory() as tmp:
         root = os.path.join(tmp, "flickr")
@@ -4327,8 +4532,8 @@ def run_data_int8(dev) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         run_device_data(dev, tmp)
     with tempfile.TemporaryDirectory() as tmp:
-        _, shapes, _, _, _ = run_int8_serving(dev, tmp, batches)
-    check_int8_kernel(dev, {**shapes, **INT8_EXTRA})
+        _, shapes, counts, _, _, _ = run_int8_serving(dev, tmp, batches)
+    check_int8_kernel(dev, {**shapes, **INT8_EXTRA}, counts=counts)
     print(json.dumps({"ok": True, "phases": "data-int8"}))
     return 0
 
@@ -4554,21 +4759,25 @@ def main() -> int:
 
     # --- 13b. int8 serving through serve.main; the int8 kernel ----------
     with tempfile.TemporaryDirectory() as tmp:
-        i8_launches, i8_shapes, i8_counts, i8_rates, i8_compare = \
+        i8_launches, i8_shapes, i8_counts, i8_rates, i8_compare, i8_quant = \
             run_int8_serving(dev, tmp, batches)
     later["int8_serving"] = summed(i8_launches)
-    i8_rows = check_int8_kernel(dev, {**i8_shapes, **INT8_EXTRA})
+    i8_rows = check_int8_kernel(dev, {**i8_shapes, **INT8_EXTRA},
+                                counts=i8_counts)
     i8_batch = {f: sum(n * i8_rows[k][f] for k, n in i8_counts.items())
-                for f in ("ms", "plain_ms", "cudnn_bf16_ms", "bound_ms")}
+                for f in ("ms", "plain_ms", "cudnn_bf16_ms", "bound_ms",
+                          "queued_ms", "cudnn_bf16_queued_ms")}
     i8_by_ops = sum(n * i8_rows[k]["ops"] for k, n in i8_counts.items()) \
         / PEAK["int8"]
     i8_by_bytes = sum(n * i8_rows[k]["bytes"] for k, n in i8_counts.items()) \
         / HBM_BPS
     print(f"int8_conv: one bf16 serving batch of the full student's ResNet-50 "
           f"(B={BATCH}, {sum(i8_counts.values())} launches): kernel "
-          f"{i8_batch['ms']:.4f} ms, plain {i8_batch['plain_ms']:.3f} ms, "
-          f"cuDNN bf16 {i8_batch['cudnn_bf16_ms']:.4f} ms, bound "
-          f"{i8_batch['bound_ms']:.5f} ms (sum of the launches' bounds)",
+          f"{i8_batch['ms']:.4f} ms per call summed ({i8_batch['queued_ms']:.4f}"
+          f" queued), plain {i8_batch['plain_ms']:.3f} ms, cuDNN bf16 "
+          f"{i8_batch['cudnn_bf16_ms']:.4f} ms ({i8_batch['cudnn_bf16_queued_ms']:.4f}"
+          f" queued), bound {i8_batch['bound_ms']:.5f} ms (sum of the "
+          f"launches' bounds)",
           flush=True)
 
     # --- 14./15. timings, bounds and the result lines ----------------------
@@ -4654,8 +4863,26 @@ def main() -> int:
               launches_per_batch=sum(i8_counts.values()),
               launches_by_run={k: d["int8_conv"]
                                for k, d in i8_launches.items()},
+              queued_ms=i8_batch["queued_ms"],
+              library_queued_ms=i8_batch["cudnn_bf16_queued_ms"],
               bit_identical_shapes=len(i8_rows),
               by_shape=i8_rows),
+        entry("int8_quant", "int8_quant.cu", "quant.py:78",
+              sum(d["int8_quant"] for d in i8_launches.values()), 0.0,
+              i8_quant["batch"]["full"]["ms"],
+              i8_quant["batch"]["full"]["plain_ms"],
+              (i8_quant["batch"]["full"]["bound_ms"], "bytes"), None,
+              replaces_kind="XLA activation quantization of quant.py:78 "
+                            "quantize_activation_int8 and :91 "
+                            "_quantize_activation (no Pallas kernel)",
+              timed_as=f"the quantized activations of one serving batch of "
+                       f"the full student's ResNet-50 encoder, B={BATCH}, "
+                       f"bf16, per-example scales",
+              queued_ms=i8_quant["batch"]["full"]["queued_ms"],
+              calibrated=i8_quant["batch"]["full calibrated"],
+              launches_by_run={k: d["int8_quant"]
+                               for k, d in i8_launches.items()},
+              by_model=i8_quant["models"]),
         entry("attention_core", "attention_core.cu", "pallas_attention.py:198",
               sum(attn_by_path.values()),
               attn_err, attn_t["vit"]["ms"], attn_t["vit"]["plain_ms"],

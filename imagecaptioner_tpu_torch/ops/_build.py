@@ -30,7 +30,7 @@ CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
 SOURCES = ("attention_core", "greedy_decode", "decoder_scan",
            "decoder_scan_bwd", "beam_attention", "greedy_decode_compact",
-           "compact_scan", "enhanced_scan", "int8_conv")
+           "compact_scan", "enhanced_scan", "int8_conv", "int8_quant")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -8,8 +8,11 @@ activations symmetric per example (``amax`` over every axis but the
 batch), or with one static ``x_scale`` baked in by calibration.  The
 products are int8 x int8 with exact int32 sums, then JAX's epilogue
 ``float32(acc) * (s_x * w_scale)``, ``+ bias``, one rounding to the
-activation's dtype: ``ops/int8.py``, whose CUDA kernel is
-``csrc/int8_conv.cu``.
+activation's dtype: ``ops/int8.py``, whose CUDA kernels are
+``csrc/int8_quant.cu`` (the activation's codes and scales) and
+``csrc/int8_conv.cu`` (the products).  On the card an activation goes
+through both; on the CPU through their plain versions
+(``quantize_activation_plain``, ``int8_conv_plain``).
 
 ``quantize_params_int8`` returns a serving copy of a module tree in which
 every ``Conv2d`` (4-D weight) and every ``Linear`` with a bias (2-D weight
@@ -42,6 +45,7 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from imagecaptioner_tpu_torch.ops import int8 as I8
 from imagecaptioner_tpu_torch.ops.int8 import (conv2d_int8_nhwc,
                                                dense_int8_rows, pack_weight)
 
@@ -64,24 +68,45 @@ def quantize_weight_int8(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 def quantize_activation_int8(x: torch.Tensor
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Symmetric per-example dynamic int8: ``(x_q int8, scale float32
-    (B, 1, ..., 1))``."""
+    (B, 1, ..., 1))``.  Both divisions are by tensors, which is the IEEE
+    division on either device (CUDA turns a division by a Python scalar
+    into a multiply by its reciprocal; the CPU and eager JAX divide)."""
     xf = x.float()
     amax = xf.abs().amax(dim=tuple(range(1, x.dim())), keepdim=True)
-    scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    scale = torch.where(amax > 0, amax / torch.full_like(amax, 127.0),
+                        torch.ones_like(amax))
     x_q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
     return x_q, scale
+
+
+def quantize_activation_plain(x: torch.Tensor,
+                              x_scale: Optional[torch.Tensor] = None
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of kernel #12 (``ops/int8.quantize_activation_cuda``):
+    x (B, ...) -> (codes int8 of x's shape, s_x float32 (B,)) per example,
+    or (codes, ``x_scale``) under a calibrated static scale."""
+    if x_scale is None:
+        x_q, scale = quantize_activation_int8(x)
+        return x_q, scale.reshape(-1)
+    x_q = torch.clamp(torch.round(x.float() / x_scale), -127, 127
+                      ).to(torch.int8)
+    return x_q, x_scale
 
 
 def _quantize_activation(owner: nn.Module, x: torch.Tensor,
                          x_scale: Optional[torch.Tensor]):
     """The calibrated static ``x_scale`` when there is one, else dynamic
-    per-example quantization; feeds the recorder when one is active."""
+    per-example quantization (one scale per ``x.shape[0]``), as codes of
+    x's shape and layout and the scales flat; feeds the recorder when one
+    is active.  A CUDA tensor goes through kernel #12 (contiguous in the
+    layout the product reads), a CPU tensor through the plain version."""
     record_calibration_amax(owner, x)
-    if x_scale is None:
-        return quantize_activation_int8(x)
-    x_q = torch.clamp(torch.round(x.float() / x_scale), -127, 127
-                      ).to(torch.int8)
-    return x_q, x_scale
+    if x.is_cuda:
+        return I8.quantize_activation_cuda(x.contiguous(), x.shape[0],
+                                           x_scale)
+    if x.device.type != "cpu":
+        raise ValueError(f"int8 quantization: unsupported device {x.device}")
+    return quantize_activation_plain(x, x_scale)
 
 
 # ---------------------------------------------------------------------------
@@ -291,10 +316,13 @@ def dense_int8(mod: nn.Module, x: torch.Tensor) -> torch.Tensor:
 
 def conv2d_int8(mod: nn.Module, x: torch.Tensor) -> torch.Tensor:
     """A quantized ``Conv2d``'s forward: x (N, C, H, W) in any memory
-    format -> (N, O, Ho, Wo) in x's dtype, channels-last in memory."""
-    x_q, s_x = _quantize_activation(mod, x, mod._buffers.get("x_scale"))
+    format -> (N, O, Ho, Wo) in x's dtype, channels-last in memory.  The
+    activation is quantized as NHWC, the layout the product reads (no copy
+    when x is channels-last)."""
+    x_q, s_x = _quantize_activation(mod, x.permute(0, 2, 3, 1),
+                                    mod._buffers.get("x_scale"))
     y = conv2d_int8_nhwc(
-        x_q.permute(0, 2, 3, 1).contiguous(), mod.weight_q,
+        x_q.contiguous(), mod.weight_q,
         s_x.reshape(-1).contiguous(), mod.w_scale,
         None if mod.bias is None else mod.bias.float(), stride=mod.stride,
         padding=mod.padding, groups=mod.groups, out_dtype=x.dtype,

@@ -3,7 +3,7 @@
 the GPU.
 
     python3 scripts/torch_profile_serving.py [--student full|compact|enhanced] \\
-        [--batches 5] [--out serving_profile.json]
+        [--batches 5] [--int8 [--int8-calibrate N]] [--out serving_profile.json]
 
 Builds the student at full width from a numpy seed (random weights) in bf16,
 captions batches of 32 seeded uint8 224x224 images through
@@ -11,6 +11,14 @@ captions batches of 32 seeded uint8 224x224 images through
 batch's wall time (host clock; each call ends in a device-to-host copy), the
 device time by kind of kernel from ``torch.profiler`` over the same number
 of traced batches, and from it the card's busy share of an untraced batch.
+
+With ``--int8`` the student serves through ``serve.int8_serving_copy`` with
+its encoder int8 (``--int8-calibrate N``: static activation scales
+calibrated on N seeded images, as the serve CLI's flag); the report then
+also gives the activation quantization's device time and launches a batch
+(every kernel launched inside ``ops/quant._quantize_activation``, found by
+the launches' correlation ids in the CUDA trace), split into the
+quantization kernel (#12) and anything else (plain PyTorch passes).
 
 Needs one CUDA device; imports nothing of JAX.
 """
@@ -21,6 +29,7 @@ import argparse
 import json
 import os
 import statistics
+import tempfile
 import subprocess
 import sys
 import time
@@ -35,12 +44,18 @@ from imagecaptioner_tpu_torch.core.modules import cast_parameters  # noqa: E402
 from imagecaptioner_tpu_torch.eval import serve  # noqa: E402
 from imagecaptioner_tpu_torch.models.student import Student, student_init  # noqa: E402
 from imagecaptioner_tpu_torch.ops import _build  # noqa: E402
+from imagecaptioner_tpu_torch.ops import quant as Q  # noqa: E402
 from imagecaptioner_tpu_torch.utils import convert as CV  # noqa: E402
 
 VOCAB, BATCH, MAX_LEN, SEED = 2994, 32, 20, 0
 
 # kernel-name fragments -> kind, first match wins
 KINDS = [
+    ("int8 products kernel (#11)", ("conv_gemm_kernel", "depthwise_kernel",
+                                    "int8_gemm_kernel",
+                                    "int8_depthwise_kernel")),
+    ("int8 quantization kernel (#12)", ("int8_amax_kernel",
+                                        "int8_quantize_kernel")),
     ("greedy decode kernel", ("greedy_kernel", "greedy_compact_kernel")),
     ("attention kernel", ("attention_kernel",)),
     ("copies", ("memcpy", "memset")),
@@ -59,12 +74,69 @@ def kind_of(name: str) -> str:
     return "elementwise, reductions, softmax, other"
 
 
+QUANT_RANGE = "int8 activation quantization"
+
+
+def traced_quantization(prof, n_batches: int) -> dict:
+    """Device time (ms) and launches a batch of the kernels launched inside
+    ``QUANT_RANGE``: a launch belongs to it when its runtime call on the
+    host lies inside one of the range's host spans; its kernel is found by
+    the launch's correlation id."""
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        events = json.load(open(path))["traceEvents"]
+    finally:
+        os.remove(path)
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("name") == QUANT_RANGE and e.get("ph") == "X"
+                   and e.get("cat") == "user_annotation")
+    inside = set()
+    for e in events:
+        if e.get("cat") != "cuda_runtime" or "correlation" not in e.get(
+                "args", {}):
+            continue
+        t = e["ts"]
+        if any(a <= t <= b for a, b in spans):
+            inside.add(e["args"]["correlation"])
+    out = {f"{key}_{what}": 0.0 for key in ("kernel", "memset", "plain")
+           for what in ("ms", "launches")}
+    out["spans"] = len(spans) / n_batches
+    for e in events:
+        if e.get("cat") not in ("kernel", "gpu_memset", "gpu_memcpy") \
+                or e.get("args", {}).get("correlation") not in inside:
+            continue
+        key = ("memset" if e.get("cat") == "gpu_memset" else "kernel"
+               if kind_of(e["name"]) == "int8 quantization kernel (#12)"
+               else "plain")
+        out[f"{key}_ms"] += e["dur"] / 1e3 / n_batches
+        out[f"{key}_launches"] += 1 / n_batches
+    return out
+
+
+def traced_quantize_activation():
+    """``ops/quant._quantize_activation`` inside a named profiler range."""
+    real = Q._quantize_activation
+
+    def traced(*args, **kw):
+        with torch.profiler.record_function(QUANT_RANGE):
+            return real(*args, **kw)
+    Q._quantize_activation = traced
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--student", default="full", choices=sorted(STUDENT_CONFIGS))
     ap.add_argument("--batches", type=int, default=5)
+    ap.add_argument("--int8", action="store_true",
+                    help="serve with the student's encoder int8")
+    ap.add_argument("--int8-calibrate", type=int, default=0, metavar="N",
+                    help="with --int8: static scales from N seeded images")
     ap.add_argument("--out", default="serving_profile.json")
     args = ap.parse_args()
+    if args.int8_calibrate and not args.int8:
+        ap.error("--int8-calibrate needs --int8")
     if not torch.cuda.is_available():
         print("this script runs on a CUDA device", file=sys.stderr)
         return 1
@@ -72,7 +144,10 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
-    print(f"device: {smi}; student: {args.student}", flush=True)
+    arm = ("int8" + (f" calibrated on {args.int8_calibrate}"
+                     if args.int8_calibrate else "")) if args.int8 else "bf16"
+    print(f"device: {smi}; student: {args.student}; encoder {arm}",
+          flush=True)
     _build.build_all()
 
     cfg = STUDENT_CONFIGS[args.student](VOCAB)
@@ -80,11 +155,18 @@ def main() -> int:
     student = Student(cfg)
     student.load_state_dict(CV.jax_student_to_state_dict(p, s, cfg), strict=True)
     cast_parameters(student, torch.bfloat16)
-    caption = serve.make_greedy_captioner(student.to(dev).eval(), cfg, dev,
-                                          max_length=MAX_LEN)
+    model = student.to(dev).eval()
     rng = np.random.default_rng(SEED + 1)
     batches = [rng.integers(0, 256, (BATCH, 224, 224, 3), dtype=np.uint8)
                for _ in range(args.batches)]
+    if args.int8:
+        cal = (rng.integers(0, 256, (args.int8_calibrate, 224, 224, 3),
+                            dtype=np.uint8) if args.int8_calibrate else None)
+        model = serve.int8_serving_copy(model, "student", int8=True,
+                                        calibrate_images=cal, verbose=False)
+        traced_quantize_activation()
+    caption = serve.make_greedy_captioner(model, cfg, dev,
+                                          max_length=MAX_LEN)
 
     def run():
         times = []
@@ -100,15 +182,16 @@ def main() -> int:
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) as prof:
         traced = run()
-    by_kind, n_kernels = {}, 0
+    by_kind, by_name, n_kernels = {}, {}, 0
     for ev in prof.key_averages():
         dev_us = getattr(ev, "self_device_time_total", 0) or \
             getattr(ev, "self_cuda_time_total", 0)
         is_dev = str(getattr(ev, "device_type", "")).endswith("CUDA")
-        if dev_us <= 0 or not is_dev:
-            continue
+        if dev_us <= 0 or not is_dev or ev.key == QUANT_RANGE:
+            continue        # the range's device span is no kernel of its own
         k = kind_of(ev.key)
         by_kind[k] = by_kind.get(k, 0.0) + dev_us / 1e3 / args.batches
+        by_name[ev.key] = (dev_us / 1e3 / args.batches, ev.count / args.batches)
         n_kernels += ev.count
     device_ms = sum(by_kind.values())
     wall_ms = 1e3 * statistics.median(wall)
@@ -124,11 +207,28 @@ def main() -> int:
               f"{100 * device_ms / wall_ms:.1f}% of an untraced batch")
         for k, ms in sorted(by_kind.items(), key=lambda kv: -kv[1]):
             print(f"  {k}: {ms:.3f} ms ({100 * ms / device_ms:.1f}%)")
+        print("  the ten kernels that take the most device time a batch:")
+        for key, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0]
+                                   )[:10]:
+            print(f"    {ms:.3f} ms in {n:.0f} launches: {key[:110]}")
+    quant = traced_quantization(prof, args.batches) if args.int8 else None
+    if quant is not None:
+        total = quant["kernel_ms"] + quant["memset_ms"] + quant["plain_ms"]
+        print(f"activation quantization ({quant['spans']:.0f} layers a "
+              f"batch): {total:.3f} ms a batch "
+              f"({100 * total / max(device_ms, 1e-9):.1f}% of device time); "
+              f"kernel #12 {quant['kernel_ms']:.3f} ms in "
+              f"{quant['kernel_launches']:.0f} launches, memsets "
+              f"{quant['memset_ms']:.3f} ms in {quant['memset_launches']:.0f}, "
+              f"plain passes {quant['plain_ms']:.3f} ms in "
+              f"{quant['plain_launches']:.0f} launches")
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
-        json.dump({"device": smi, "student": args.student,
+        json.dump({"device": smi, "student": args.student, "encoder": arm,
+                   "quantization": quant,
                    "wall_ms": [1e3 * w for w in wall],
                    "device_ms_by_kind": by_kind,
+                   "device_ms_by_kernel": {k: v[0] for k, v in by_name.items()},
                    "kernel_launches_per_batch": n_kernels / args.batches}, f,
                   indent=1)
     return 0

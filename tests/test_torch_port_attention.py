@@ -127,7 +127,7 @@ def test_build_module_imports_without_nvcc():
             "assert set(_build.SOURCES) == {'attention_core', 'greedy_decode',\n"
             "    'decoder_scan', 'decoder_scan_bwd', 'beam_attention',\n"
             "    'greedy_decode_compact', 'compact_scan', 'enhanced_scan',\n"
-            "    'int8_conv'}\n"
+            "    'int8_conv', 'int8_quant'}\n"
             "assert all((_build.CSRC / (s + '.cu')).is_file()"
             " for s in _build.SOURCES)\n")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120,

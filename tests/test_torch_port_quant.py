@@ -261,12 +261,14 @@ def test_plain_int8_product_is_exact():
 
 def test_packed_weight_rows():
     """The kernel's weight rows: (kh, kw, C/g) order, zero up to a multiple
-    of 32; a dense weight packs as its 1x1 convolution; a row slice of a
-    packed in-projection is the packing of the slice."""
+    of 128 (the kernel's stage depth, and its TMA tile's 128 bytes); a dense
+    weight packs as its 1x1 convolution; a row slice of a packed
+    in-projection is the packing of the slice."""
     w = torch.arange(5 * 3 * 7 * 7, dtype=torch.int64).remainder(251).sub(
         125).to(torch.int8).reshape(5, 3, 7, 7)
     p = I8.pack_weight(w)
-    assert p.shape == (5, 160) and p.dtype == torch.int8 and p.is_contiguous()
+    assert I8.K_ALIGN == 128
+    assert p.shape == (5, 256) and p.dtype == torch.int8 and p.is_contiguous()
     assert torch.equal(p[:, :147], w.permute(0, 2, 3, 1).reshape(5, 147))
     assert not p[:, 147:].any()
     d = w.reshape(5, -1)[:, :64].contiguous()
