@@ -191,6 +191,23 @@ Imports nothing of JAX.  In order it:
      EfficientNet-B3 depthwise convolution and the ViT's patch embedding at
      B=16, each timed (per call and queued) beside cuDNN's bf16 convolution
      (and ``torch._int_mm`` on the 1x1 shapes);
+ 16. tooling and data parallelism: (a) right after the build, in a
+     spawned process whose profiler session is its first,
+     ``core.profiling.profile_device``
+     around 3 full-student serving batches (bf16, B=32), each inside a
+     ``record_function`` range: #1 once a batch, the busy share in (0, 1],
+     the kernel rows' sum within the device window; (b) after 7,
+     ``core.timing.steady_state`` + ``guarded_rate`` on the serving call,
+     beside 7's rate, host seconds and CUDA-event milliseconds; (c)
+     ``eval/serving``'s greedy (8 x 32, bf16) and beam (16 images, K=5,
+     float32) captioners over ``["cuda:0", "cuda:0"]`` against one device
+     on the same blocks (identical) and on whole batches; (d) before 14, two
+     processes started with ``spawn`` join a gloo world over a file store
+     and share the card: the KD trainer (full student, A=2 x B=16 a rank,
+     float32, ``host_shard`` loaders), the teacher trainer (A=3 x B=12 a
+     rank) and a device-resident chain of 2 steps against two direct steps
+     on each rank, held against one process on the global batch (1e-4);
+     each rank must launch #5 and #6 (#2 for the teacher);
  14. prints kernel, plain and library times (CUDA events, median after
      warm-up), each kernel's bound, the chain floor of the six cooperative
      kernels (#1, #3, #4/#5, #6, #7, #8: the median of 2,000 empty grid
@@ -213,9 +230,12 @@ layer 1 reads the broadcast h0 without its mask, a compact greedy decode
 whose row blocks all reduce row 0's partial argmaxes, a compact scan whose
 cell reads the previous step's recurrent part at even steps), then an
 int8 convolution whose ring drops its last K stage and an int8
-quantization that rounds half away from zero, and plants one fault in
-Python (an on-device gather that takes each row's neighbour); it expects
-all fourteen checks to fail.
+quantization that rounds half away from zero, and plants four faults in
+Python (an on-device gather that takes each row's neighbour; first, a
+profiler that counts a device-side ``record_function`` range as a kernel;
+last, in both ranks of the data-parallel world, batch norms whose
+statistics stay local and a ``max(lengths)`` that stays local); it expects
+all seventeen checks to fail.
 """
 
 from __future__ import annotations
@@ -242,7 +262,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from imagecaptioner_tpu_torch.core import mesh as MS
 from imagecaptioner_tpu_torch.core import modules as M
+from imagecaptioner_tpu_torch.core import profiling as PP
+from imagecaptioner_tpu_torch.core import timing as TI
 from imagecaptioner_tpu_torch.core.config import (STUDENT_CONFIGS,
                                                   DistillConfig,
                                                   KDTrainConfig,
@@ -266,6 +289,7 @@ from imagecaptioner_tpu_torch.data.vocabulary import (END, PAD, SPECIALS,
 from imagecaptioner_tpu_torch.eval import evaluate_student as EVS
 from imagecaptioner_tpu_torch.eval import evaluate_teacher as EVT
 from imagecaptioner_tpu_torch.eval import serve
+from imagecaptioner_tpu_torch.eval import serving as SV
 from imagecaptioner_tpu_torch.distill.losses import OPTIMIZED_LOSS_NAMES
 from imagecaptioner_tpu_torch.distill.projector import (
     create_feature_projectors, make_projectors)
@@ -284,6 +308,7 @@ from imagecaptioner_tpu_torch.ops import greedy as G
 from imagecaptioner_tpu_torch.ops import int8 as I8
 from imagecaptioner_tpu_torch.ops import lstm_scan as S
 from imagecaptioner_tpu_torch.ops import quant as Q
+from imagecaptioner_tpu_torch.parallel import multihost as MH
 from imagecaptioner_tpu_torch.runners import streamlit_app as DEMO
 from imagecaptioner_tpu_torch.train import common, steps
 from imagecaptioner_tpu_torch.train import optim as O
@@ -3678,8 +3703,8 @@ def run_device_kd(dev, tmp, root, csv_path, t_ckpt, variant="full"):
     size = OPT_HOST if optimized else DISK_SIZE
     calls, per_call, real = [], [], steps.make_device_data_step
 
-    def recording(step, k):
-        fn = real(step, k)
+    def recording(step, k, mesh=None):
+        fn = real(step, k, mesh)
 
         def chained(*a):
             before = kd_counters(variant)
@@ -4318,9 +4343,9 @@ def python_mutant_caught(module, name, bad, check, what: str) -> bool:
     return False
 
 
-def gather_off_by_one(arrays, idx):
+def gather_off_by_one(arrays, idx, mesh=None):
     """A gather that takes each row's neighbour: the planted fault."""
-    return GATHER(arrays, (idx + 1) % arrays["lengths"].shape[0])
+    return GATHER(arrays, (idx + 1) % arrays["lengths"].shape[0], mesh)
 
 
 GATHER = DC.gather_batch
@@ -4377,7 +4402,9 @@ def mutant_caught(source: str, good: str, bad: str, check, what: str) -> bool:
 
 
 def run_mutation(dev) -> int:
-    """Fourteen planted faults, each of which its check must catch: the scan
+    """Seventeen planted faults, each of which its check must catch: a
+    profiler that counts a device-side ``record_function`` range as a
+    kernel, the scan
     backward without the dropout mask on layer 1's input gradient (``dh0 =
     dh0_c + (dgp1·W_ih1ᵀ) · mask``), a beam self-attention that reads its
     own slot's cache row instead of ``anc[n, i, s]``, one that stages each
@@ -4398,11 +4425,16 @@ def run_mutation(dev) -> int:
     whose ring drops its last K stage, an int8 quantization that rounds half
     away from zero, and an on-device batch gather
     that takes each row's neighbour (a Python fault, planted by replacing
-    ``device_cache.gather_batch``)."""
+    ``device_cache.gather_batch``), and in both ranks of the data-parallel
+    KD check, batch norms whose statistics stay local and a
+    ``max(lengths)`` that stays local."""
+    caught = [spawned_mutant_caught(
+        lambda: check_profiling(dev, mutant=True),
+        "the profiler counts device-side record_function ranges as kernels")]
     decoder = make_decoder(dev)
     g_decoder, g_feats = greedy_inputs(dev)
     c_decoder, c_feats = compact_greedy_inputs(dev)
-    caught = [
+    caught += [
         mutant_caught("greedy_decode.cu",
                       "ctxsrc{a.ctx, E, E, nullptr}",
                       "ctxsrc{a.ctx, 0, E, nullptr}",
@@ -4490,7 +4522,29 @@ def run_mutation(dev) -> int:
             DC, "gather_batch", gather_off_by_one,
             lambda: check_resident_rows(dev, root, csv_path, DISK_SIZE),
             "the on-device gather takes each row's neighbour"))
+    for mutant, what in (("bn_local", "the batch norms' statistics left "
+                          "local to each rank"),
+                         ("lengths_local", "max(lengths) left local to each "
+                          "rank")):
+        caught.append(spawned_mutant_caught(
+            lambda: check_dp_training(dev, full=False, mutant=mutant), what))
+    print(f"mutation run: {sum(caught)} of {len(caught)} mutants caught",
+          flush=True)
     return 0 if all(caught) else 1
+
+
+def spawned_mutant_caught(check, what: str) -> bool:
+    """``check`` plants its fault in the processes it spawns (the
+    profiler's child, both data-parallel ranks): it must fail."""
+    try:
+        check()
+    except SystemExit:
+        print(f"mutation run: the check caught the mutant ({what}): ok",
+              flush=True)
+        return True
+    print(f"mutation run: the mutant ({what}) PASSED its check: the check "
+          "has no power", file=sys.stderr, flush=True)
+    return False
 
 
 def make_decoder(dev):
@@ -4538,6 +4592,591 @@ def run_data_int8(dev) -> int:
     return 0
 
 
+# --- 16. tooling and data parallelism -----------------------------------
+
+PROFILE_RUNS = 3          # serving batches traced by core/profiling
+DP_DEVICES = ["cuda:0", "cuda:0"]   # two ranks sharing the card, over gloo
+DP_LIMIT = 1e-4           # DP step vs one process on the global batch
+DP_SERVE_SCORE_LIMIT = 1e-4   # the beam's card-vs-CPU score limit
+# gradients outside the ResNet, the ResNet's parameters and its gradients
+# (together): see check_dp_training
+DP_GRAD_LIMIT, DP_RESNET_PARAM_LIMIT, DP_RESNET_GRAD_LIMIT = 1e-3, 1e-3, 3e-2
+# ResNet-50's multiply-adds at 224x224 (4.09e9) x 2: a lower bound of one
+# serving image's operations, so the rate ceiling it gives is an upper bound
+RESNET50_FLOPS = 2 * 4.09e9
+
+
+def serving_batch(i: int) -> np.ndarray:
+    """Distinct seeded uint8 images (BATCH, 224, 224, 3) for call ``i``."""
+    return np.random.default_rng(SEED + 100 + i).integers(
+        0, 256, (BATCH, 224, 224, 3), dtype=np.uint8)
+
+
+def serving_student16(dev):
+    """The serving phase's full student (sharpened decoder) in bf16."""
+    cfg = full_student_config(VOCAB)
+    params, state = student_init(SEED, cfg)
+    sharpen_decoder(params["decoder"])
+    model = Student(cfg)
+    model.load_state_dict(CV.jax_student_to_state_dict(params, state, cfg),
+                          strict=True)
+    M.cast_parameters(model, torch.bfloat16)
+    return model.to(dev).eval(), cfg
+
+
+def profiling_child(mutant: bool, queue) -> None:
+    """In a fresh process, whose profiler session is its first (a later
+    one was seen to lose events, and this process's own first session
+    belongs to the dense check): ``core.profiling.profile_device`` around
+    3 full-student serving batches (bf16, B=32), each inside a
+    ``record_function`` range.  ``mutant``: the parser counts those ranges
+    as kernels."""
+    if mutant:
+        PP.trace_rows = user_ranges_as_kernels
+    dev = torch.device("cuda", 0)
+    model, cfg = serving_student16(dev)
+    caption = serve.make_greedy_captioner(model, cfg, dev,
+                                          max_length=MAX_LEN)
+
+    def fn(x):
+        with torch.profiler.record_function("serving batch"):
+            return caption(x)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        zero_counters()
+        prof = PP.profile_device(fn, serving_batch, runs=PROFILE_RUNS,
+                                 warmup=1, trace_path=path)
+        ranges = sum(e.get("cat") == "gpu_user_annotation"
+                     for e in PP.load_trace_events(path))
+    queue.put(dict({k: v for k, v in prof.items()
+                    if k not in ("rows", "by_name")},
+                   launches=G.launches, ranges=ranges))
+
+
+def check_profiling(dev, mutant: bool = False) -> dict:
+    """``profiling_child`` in a spawned process: #1 once a batch, the busy
+    share in (0, 1], the kernel rows' sum within the device window."""
+    ctx = multiprocessing.get_context("spawn")
+    queue = ctx.Queue()
+    proc = ctx.Process(target=profiling_child, args=(mutant, queue))
+    proc.start()
+    try:
+        prof = queue.get(timeout=600)
+    finally:
+        proc.join(120)
+        if proc.is_alive():
+            proc.kill()
+    kinds = {d["kind"]: d for d in prof["by_kind"]}
+    greedy = kinds.get("#1 greedy decode", {}).get("count_per_run", 0.0)
+    window, kernels = prof["span_us_per_run"], prof["kernel_us_per_run"]
+    ok = (greedy == 1.0 and 0.0 < prof["busy_share"] <= 1.0
+          and kernels <= window and prof["launches"] == PROFILE_RUNS + 1)
+    print(f"profiling (core/profiling, {PROFILE_RUNS} bf16 serving batches "
+          f"of {BATCH}): #1 {greedy:g} a batch, {prof['launches_per_run']:g}"
+          f" kernel launches a batch, kernels {kernels / 1e3:.3f} ms of a "
+          f"{window / 1e3:.3f} ms device window a batch, busy share "
+          f"{100 * prof['busy_share']:.1f}%; {prof['ranges']} device-side "
+          f"record_function ranges in the trace (counted as nothing); kinds "
+          + ", ".join(f"{d['kind']} {d['dur_us_per_run'] / 1e3:.3f} ms"
+                      for d in prof["by_kind"][:5])
+          + f" {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail("the profiler's table of a serving batch is out of bounds")
+    return {"greedy_per_batch": greedy, "busy_share": prof["busy_share"],
+            "kernel_ms": kernels / 1e3, "window_ms": window / 1e3,
+            "launches_per_batch": prof["launches_per_run"],
+            "device_ranges": prof["ranges"]}
+
+
+def user_ranges_as_kernels(events, runs=1):
+    """The planted profiler fault: a device-side ``record_function`` range
+    counted as a kernel."""
+    return TRACE_ROWS([dict(e, cat="kernel")
+                       if e.get("cat") == "gpu_user_annotation" else e
+                       for e in events], runs)
+
+
+TRACE_ROWS = PP.trace_rows
+
+
+def check_timing(caption, loop_rate: float) -> dict:
+    """``core.timing.steady_state`` + ``guarded_rate`` on the serving
+    call, printed beside the serving loop's rate."""
+    stats = TI.steady_state(caption, serving_batch, n_small=2, n_large=6,
+                            pairs=3)
+    rate = TI.guarded_rate(stats, BATCH, RESNET50_FLOPS)
+    print(f"steady state (core/timing, bf16 B={BATCH}): "
+          f"{rate['items_per_sec']:.1f} images/s by {rate['estimator']} "
+          f"(total-based {rate['items_per_sec_total_based']:.1f}; ceiling "
+          f"{rate['physics_max_items_per_sec']:.0f} at "
+          f"{TI.H100_BF16_TFLOPS:g} TFLOP/s) beside the serving loop's "
+          f"{loop_rate:.1f}; a call: {1e3 * stats['per_call_marginal']:.3f} "
+          f"ms marginal, {1e3 * stats['per_call_total']:.3f} ms total-based "
+          f"on the host clock; {stats['per_call_marginal_device_ms']:.3f} ms "
+          f"marginal, {stats['per_call_total_device_ms']:.3f} ms "
+          f"total-based by CUDA events", flush=True)
+    if not (0 < rate["items_per_sec"] <= rate["physics_max_items_per_sec"]):
+        fail(f"the steady-state rate is out of bounds: {rate}")
+    return {k: rate[k] for k in ("items_per_sec", "items_per_sec_total_based",
+                                 "estimator", "physics_max_items_per_sec")}
+
+
+def write_dp_dataset(root: str) -> str:
+    """``write_disk_dataset`` with the first (3k mod 5) words of row k cut,
+    so that caption lengths differ between the ranks' micro-batches and a
+    rank-local max(lengths) shows (the vocabulary stays ``VOCAB``)."""
+    csv_path = write_disk_dataset(root)
+    lines = open(csv_path).read().splitlines()
+    out = [lines[0]]
+    for k, line in enumerate(lines[1:]):
+        name, cap = line.split(",", 1)
+        out.append(f"{name},{' '.join(cap.split()[(3 * k) % 5:])}")
+    with open(csv_path, "w") as f:
+        f.write("\n".join(out) + "\n")
+    if len(CaptionDataset(root, csv_path).vocab) != VOCAB:
+        fail("the data-parallel dataset's vocabulary is not VOCAB")
+    return csv_path
+
+
+def bn_local(x, weight, bias, running_mean, running_var, *, train=False,
+             momentum=0.1, eps=1e-5):
+    """The planted fault: a train-mode batch norm on this rank's rows."""
+    if train:
+        return F.batch_norm(x, running_mean, running_var, weight.float(),
+                            bias.float(), True, momentum, eps)
+    return BATCH_NORM(x, weight, bias, running_mean, running_var,
+                      train=False, momentum=momentum, eps=eps)
+
+
+BATCH_NORM = M.batch_norm
+
+
+def tensors_npz(prefix: str, named: dict) -> dict:
+    return {f"{prefix}{n}": t.detach().float().cpu().numpy()
+            for n, t in named.items()}
+
+
+def dp_rank(root, csv_path, t_ckpt, out, full=True, mutant=None,
+            device="cuda:0"):
+    """One rank of the data-parallel world on the card: the KD trainer
+    (``train_student_with_kd_on_loaders`` on ``host_shard`` loaders, one
+    float32 step of A=2 x B=16, dropout and augmentation off), then with
+    ``full`` the teacher trainer (one step of A=3 x B=12) and a
+    device-resident chain of 2 steps against two direct steps.  Writes what
+    the parent compares to ``out/rank<r>.npz``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    if mutant == "bn_local":
+        M.batch_norm = bn_local
+    elif mutant == "lengths_local":
+        MS.pmax_over_data = lambda x: x
+    rank = MS.world()[0]
+    res, t0 = {}, time.perf_counter()
+    train_loader, dataset = LD.get_loader(
+        root, csv_path, batch_size=KD_B, max_caption_len=KD_T + 1,
+        shuffle=True, seed=SEED, host_shard=True)
+    val_loader, _ = LD.get_loader(
+        root, csv_path, batch_size=KD_B, max_caption_len=KD_T + 1,
+        shuffle=False, vocab=dataset.vocab, host_shard=True)
+    zero_counters()
+    start = {}
+    real_init = steps.init_train_state
+
+    def recording_init(*a, **kw):      # the start values, for compare_step
+        st = real_init(*a, **kw)
+        start.update(tensors_npz("kd.start.", st.named_parameters()))
+        return st
+
+    steps.init_train_state = recording_init
+    with M.no_dropout():
+        state, _, _ = TK.train_student_with_kd_on_loaders(
+            train_loader, val_loader, dataset.vocab, t_ckpt,
+            os.path.join(out, "kd"), train_cfg=KDTrainConfig(dropout=0.0),
+            num_epochs=1, max_steps_per_epoch=1, compute_dtype=torch.float32,
+            aug=T.AugmentConfig(),
+            metrics_jsonl=os.path.join(out, "kd_metrics.jsonl"),
+            verbose=False, device=dev)
+    steps.init_train_state = real_init
+    res.update(start)
+    res["kd_launches"] = np.array([A.launches, S.launches_train,
+                                   S.launches_bwd])
+    res["rows"] = np.array([len(dataset)])
+    res.update(tensors_npz("kd.param.", state.named_parameters()))
+    res.update(tensors_npz("kd.mu.", state.opt_state.mu))
+    res.update(tensors_npz("kd.buffer.", dict(state.student.named_buffers())))
+    res["kd_s"] = np.array([time.perf_counter() - t0])
+    if full:
+        t0 = time.perf_counter()
+        zero_counters()
+        real_t_init = steps.init_teacher_train_state
+
+        def recording_t_init(*a, **kw):
+            st = real_t_init(*a, **kw)
+            start.update(tensors_npz("t.start.", st.named_parameters()))
+            return st
+
+        steps.init_teacher_train_state = recording_t_init
+        with M.no_dropout():
+            t_state, _, _ = TT.train(
+                root, csv_path, os.path.join(out, "teacher"),
+                num_epochs=1, max_steps_per_epoch=1,
+                max_caption_len=KD_T + 1, aug=T.AugmentConfig(),
+                compute_dtype=torch.float32,
+                teacher_cfg_overrides=dict(dropout=0.0), verbose=False,
+                device=dev)
+        steps.init_teacher_train_state = real_t_init
+        res.update(start)
+        res["teacher_launches"] = np.array([A.launches])
+        res.update(tensors_npz("t.param.", t_state.named_parameters()))
+        res.update(tensors_npz("t.mu.", t_state.opt_state.mu))
+        res["teacher_s"] = np.array([time.perf_counter() - t0])
+        # the device-resident chain on this rank's rows (both ranks run it:
+        # its steps reduce over the world)
+        t0 = time.perf_counter()
+        dd = DC.DeviceDataset(dataset, max_caption_len=KD_T + 1, device=dev)
+        cfg = dataclasses.replace(STUDENT_CONFIGS["full"](VOCAB), dropout=0.0)
+        teacher, t_cfg = TK.load_teacher(t_ckpt, VOCAB, dev)
+        dd.seed(SEED + 6)
+        idx = dd.epoch_indices(batch_size=KD_B, accumulation_steps=KD_A)[:2]
+        arms = {}
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        torch.backends.cudnn.deterministic = True
+        try:
+            for how in ("chain", "direct"):
+                chain_or_direct(how, cfg, teacher, t_cfg, dd, idx,
+                                T.AugmentConfig(), {}, arms, dev)
+        finally:
+            torch.use_deterministic_algorithms(False)
+            torch.backends.cudnn.deterministic = False
+        res["chain_worst"] = np.array([
+            max(rel_l2(c[k], d[k]) for k in c)
+            for c, d in zip(arms["chain"], arms["direct"])])
+        res["chain_s"] = np.array([time.perf_counter() - t0])
+    np.savez(os.path.join(out, f"rank{rank}.npz"), **res)
+
+
+def rank_stacks(root, csv_path, batch_size, accumulation, n_ranks=2):
+    """Each rank's first accumulation stack, as its ``host_shard`` loader
+    gives it, and the global batch they make (each micro-batch the ranks'
+    blocks side by side)."""
+    stacks = []
+    for r in range(n_ranks):
+        ds = CaptionDataset(root, csv_path)
+        ds.select(MH.host_shard(len(ds), process_index=r,
+                                process_count=n_ranks))
+        loader = BatchLoader(ds, batch_size=batch_size,
+                             max_caption_len=KD_T + 1, shuffle=True,
+                             seed=SEED)
+        stacks.append(next(common.stacked_batches(loader, accumulation)))
+    glob = {"images": np.concatenate([s["images"] for s in stacks], 1),
+            "captions": np.concatenate([s["captions"] for s in stacks], 2),
+            "lengths": np.concatenate([s["lengths"] for s in stacks], 1)}
+    return stacks, glob
+
+
+def kd_reference(dev, t_ckpt, glob) -> dict:
+    """One process's KD step on the global batch, as the ranks' trainer
+    starts it (the student from ``SEED``, dropout and augmentation off)."""
+    teacher, t_cfg = TK.load_teacher(t_ckpt, VOCAB, dev)
+    s_cfg = STUDENT_CONFIGS["full"](VOCAB, freeze_backbone=True, dropout=0.0)
+    student, projectors = TK.make_student_and_projectors(s_cfg, t_cfg, SEED,
+                                                         dev)
+    state = steps.init_train_state(student, projectors, s_cfg)
+    step = steps.make_kd_train_step(teacher, t_cfg, s_cfg, DistillConfig(),
+                                    KDTrainConfig(dropout=0.0),
+                                    aug=T.AugmentConfig(),
+                                    compute_dtype=torch.float32)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    with M.no_dropout():
+        m = step(state, steps.batch_to_device(glob, dev), 0.0, gen)
+    out = {k: float(v) for k, v in m.items()}
+    out.update(tensors_npz("kd.param.", state.named_parameters()))
+    out.update(tensors_npz("kd.mu.", state.opt_state.mu))
+    out.update(tensors_npz("kd.buffer.",
+                           dict(state.student.named_buffers())))
+    return out
+
+
+def teacher_reference(dev, glob) -> dict:
+    """One process's teacher step on the global batch, as ``train``
+    starts it (``teacher_init(SEED)``, dropout and augmentation off)."""
+    t_cfg = TeacherConfig(vocab_size=VOCAB, dropout=0.0, image_size=224)
+    teacher = TM.Teacher(t_cfg)
+    teacher.load_state_dict(CV.jax_teacher_to_state_dict(
+        teacher_init(SEED, t_cfg)), strict=True)
+    state = steps.init_teacher_train_state(teacher.to(dev), t_cfg)
+    step = steps.make_teacher_train_step(t_cfg, TeacherTrainConfig(),
+                                         aug=T.AugmentConfig(),
+                                         compute_dtype=torch.float32)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    with M.no_dropout():
+        m = step(state, steps.batch_to_device(glob, dev), 0.0, gen)
+    out = {k: float(v) for k, v in m.items()}
+    out.update(tensors_npz("t.param.", state.named_parameters()))
+    out.update(tensors_npz("t.mu.", state.opt_state.mu))
+    return out
+
+
+def compare_step(rank: dict, ref: dict, pre: str, lr: float) -> dict:
+    """A rank's step against the one process's: the worst relative L2 of
+    the updated parameters that start non-zero, outside and inside the
+    ResNet (a leaf that starts at zero,
+    a bias, holds only its update: each entry must lie within one AdamW
+    step, 2 x lr, of the reference's), of the gradients (AdamW's first
+    moment times the step's gradient norm) outside and inside the ResNet,
+    and of the batch norms' running statistics; frozen leaves must be
+    unmoved."""
+    def rel(a, b):
+        return float(np.linalg.norm(a.astype(np.float64) - b)
+                     / max(np.linalg.norm(b.astype(np.float64)), 1e-30))
+
+    gn, gn_ref = rank["grad_norm"], ref["grad_norm"]
+    out = {"params": (0.0, ""), "resnet_params": (0.0, ""),
+           "grads": (0.0, ""), "resnet_grads": 0.0, "stats": (0.0, ""),
+           "broken": []}
+    res_d, res_n = 0.0, 0.0
+    for k in (k for k in ref if k.startswith(pre + "param.")):
+        name = k[len(pre + "param."):]
+        mu, mu_ref = rank[pre + "mu." + name], ref[pre + "mu." + name]
+        start = rank[pre + "start." + name]
+        if not mu_ref.any() and not mu.any():                  # frozen
+            if not np.array_equal(rank[k], start):
+                out["broken"].append(k)
+            continue
+        if start.any():
+            key = "resnet_params" if ".resnet." in name else "params"
+            out[key] = max(out[key], (rel(rank[k], ref[k]), name))
+        elif np.abs(rank[k] - ref[k]).max() > 2.01 * lr:
+            out["broken"].append(k)
+        g, g_ref = mu * gn, mu_ref * gn_ref
+        if ".resnet." in name:
+            res_d += float(np.sum((g.astype(np.float64) - g_ref) ** 2))
+            res_n += float(np.sum(g_ref.astype(np.float64) ** 2))
+        else:
+            out["grads"] = max(out["grads"], (rel(g, g_ref), name))
+    out["resnet_grads"] = (res_d / res_n) ** 0.5 if res_n else 0.0
+    for k in (k for k in ref if k.startswith(pre + "buffer.")
+              and "running" in k):
+        out["stats"] = max(out["stats"], (rel(rank[k], ref[k]), k))
+    return out
+
+
+def check_dp_training(dev, full: bool = True, mutant=None) -> dict:
+    """Two processes, started with ``spawn``, join a gloo world over a
+    file store and share the card (NCCL refuses two ranks on one card).
+    Each trains the full student one float32 KD step on its ``host_shard``
+    (A=2 x B=16 a rank, T=47, V=2994) through
+    ``train_student_with_kd_on_loaders``, and with ``full`` the teacher one
+    step (A=3 x B=12 a rank) through ``train_teacher.train`` and a
+    device-resident chain of 2 steps against two direct steps.  Held
+    against one process on the global batch (A=2 x 32, A=3 x 24): loss
+    terms and the gradient norm 1e-4 relative, every updated parameter
+    outside the ResNet 1e-4 relative in L2 (a leaf that starts at zero
+    within one AdamW step an entry), every batch norm's running statistics
+    1e-4; the ResNet's updated parameters 1e-3, the gradients outside the
+    ResNet 1e-3 and the ResNet's together 3e-2.  The encoder's cuDNN and
+    cuBLAS calls pick their algorithms by the batch (16 rows a rank, 32 in
+    one process), and the train-mode ResNet amplifies those last bits into
+    its gradients (measured here: 2.1e-4 on a layer3 weight after the
+    step, 9.9e-3 over the ResNet's gradients; on the CPU the batch norm's
+    formula alone moves layer3's gradients by 1%, while the world equals
+    one process of the same arithmetic to 4e-7,
+    tests/test_torch_port_data_parallel.py): hence the ResNet's looser
+    bounds.  Each rank must launch #5 and #6
+    (#2 for the teacher), and the ranks' micro-batches must have different
+    longest captions (else a local max(lengths) could not show)."""
+    t_all = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "flickr")
+        csv_path = write_dp_dataset(root)
+        t_ckpt = os.path.join(tmp, "teacher.npz")
+        t_cfg = TeacherConfig(vocab_size=VOCAB)
+        mc = dataclasses.asdict(t_cfg)
+        mc.pop("vocab_size")
+        save_checkpoint(t_ckpt, {
+            "model_state_dict": {"params": teacher_init(SEED + 3, t_cfg)},
+            "vocab_size": VOCAB, "model_config": mc})
+        _build.build_all()        # the ranks load, never build, the kernels
+        t0 = time.perf_counter()
+        MH.launch(dp_rank, DP_DEVICES, backend="gloo", in_parent=False,
+                  kwargs=dict(root=root, csv_path=csv_path, t_ckpt=t_ckpt,
+                              out=tmp, full=full, mutant=mutant),
+                  timeout_s=300, join_timeout_s=600,
+                  init_file=os.path.join(tmp, "store"))
+        world_s = time.perf_counter() - t0
+        ranks = [dict(np.load(os.path.join(tmp, f"rank{r}.npz")))
+                 for r in range(len(DP_DEVICES))]
+        log = metric_records(os.path.join(tmp, "kd_metrics.jsonl"))
+        stacks, glob = rank_stacks(root, csv_path, KD_B, KD_A)
+        one = kd_reference(dev, t_ckpt, glob)
+        if full:
+            t_stacks, t_glob = rank_stacks(root, csv_path, 12, 3)
+            t_one = teacher_reference(dev, t_glob)
+            with open(os.path.join(tmp, "teacher",
+                                   "training_history.json")) as f:
+                t_hist = json.load(f)
+    maxima = [s["lengths"].max(axis=1).tolist() for s in stacks]
+    loss_err = max((abs(log[0][k] - one[k]) / max(abs(one[k]), 1e-30), k)
+                   for k in ("total_loss", "ce_loss", "token_kd_loss",
+                             "feature_kd_loss", "grad_norm"))
+    lr = KDTrainConfig().learning_rate
+    for r in ranks:
+        r["grad_norm"] = log[0]["grad_norm"]
+    rows = [compare_step(r, one, "kd.", lr) for r in ranks]
+    kd_launches = [r["kd_launches"].tolist() for r in ranks]
+    ok = (maxima[0] != maxima[1] and len(log) == 1
+          and loss_err[0] <= DP_LIMIT
+          and all(n[1] > 0 and n[2] > 0 for n in kd_launches)
+          and all(not c["broken"] and c["params"][0] <= DP_LIMIT
+                  and c["resnet_params"][0] <= DP_RESNET_PARAM_LIMIT
+                  and c["stats"][0] <= DP_LIMIT
+                  and c["grads"][0] <= DP_GRAD_LIMIT
+                  and c["resnet_grads"] <= DP_RESNET_GRAD_LIMIT
+                  for c in rows))
+    print(f"data-parallel KD step, 2 ranks on one card (gloo) vs one "
+          f"process on the global batch: loss terms and grad norm "
+          f"{loss_err[0]:.3e} ({loss_err[1]}; limit {DP_LIMIT:g}); "
+          + "; ".join(f"rank {i}: updated parameters {c['params'][0]:.3e} "
+                      f"({c['params'][1]}; limit {DP_LIMIT:g}), the "
+                      f"ResNet's {c['resnet_params'][0]:.3e} "
+                      f"({c['resnet_params'][1]}; limit "
+                      f"{DP_RESNET_PARAM_LIMIT:g}), running statistics "
+                      f"{c['stats'][0]:.3e} (limit {DP_LIMIT:g}), gradients "
+                      f"outside the ResNet {c['grads'][0]:.3e} "
+                      f"({c['grads'][1]}; limit {DP_GRAD_LIMIT:g}), the "
+                      f"ResNet's {c['resnet_grads']:.3e} (limit "
+                      f"{DP_RESNET_GRAD_LIMIT:g})"
+                      + (f", BROKEN {c['broken']}" if c["broken"] else "")
+                      for i, c in enumerate(rows)), flush=True)
+    out = dict(world_s=world_s, rank_rows=int(ranks[0]["rows"][0]),
+               kd_launches=kd_launches, longest_by_rank=maxima,
+               kd_loss_err=loss_err[0],
+               kd_params_err=max(c["params"][0] for c in rows),
+               kd_resnet_params_err=max(c["resnet_params"][0] for c in rows),
+               kd_stats_err=max(c["stats"][0] for c in rows),
+               kd_grads_err=max(c["grads"][0] for c in rows),
+               kd_resnet_grads_err=max(c["resnet_grads"] for c in rows),
+               kd_s=[float(r["kd_s"][0]) for r in ranks])
+    print(f"data-parallel KD: launches (#2, #5, #6) by rank {kd_launches}; "
+          f"longest caption of each micro-batch by rank {maxima}; "
+          f"{out['rank_rows']} rows a rank; the world took {world_s:.1f} s "
+          f"(KD trainer {out['kd_s']} s a rank)", flush=True)
+    if full:
+        t_loss = abs(t_hist["train_losses"][0] - t_one["loss"]) \
+            / abs(t_one["loss"])
+        lr_t = TeacherTrainConfig().learning_rate
+        for r in ranks:
+            r["grad_norm"] = t_one["grad_norm"]   # no log: compare moments
+        t_rows = [compare_step(r, t_one, "t.", lr_t) for r in ranks]
+        t_launches = [int(r["teacher_launches"][0]) for r in ranks]
+        chain = [r["chain_worst"].tolist() for r in ranks]
+        t_max = [s["lengths"].max(axis=1).tolist() for s in t_stacks]
+        ok &= (t_loss <= DP_LIMIT and all(n > 0 for n in t_launches)
+               and all(max(c) <= DD_CHAIN_LIMIT for c in chain)
+               and all(not c["broken"] and c["params"][0] <= DP_LIMIT
+                       and c["grads"][0] <= DP_GRAD_LIMIT for c in t_rows))
+        print(f"data-parallel teacher step, 2 ranks x A=3 x B=12 vs one "
+              f"process on A=3 x 24: loss {t_loss:.3e}; "
+              + "; ".join(f"rank {i}: updated parameters "
+                          f"{c['params'][0]:.3e} ({c['params'][1]}), "
+                          f"gradients {c['grads'][0]:.3e} ({c['grads'][1]})"
+                          + (f", BROKEN {c['broken']}" if c["broken"]
+                             else "")
+                          for i, c in enumerate(t_rows))
+              + f"; #2 launches by rank {t_launches}; longest captions by "
+              f"rank {t_max}", flush=True)
+        print(f"data-parallel device-resident chain of 2 vs two direct steps "
+              f"on each rank (float32, lr {DD_CHAIN_LR:g}, deterministic): "
+              f"worst relative L2 of (metrics, parameters, first moments, "
+              f"second moments) by rank {chain} (limit {DD_CHAIN_LIMIT:g}); "
+              f"teacher {[float(r['teacher_s'][0]) for r in ranks]} s, chain "
+              f"{[float(r['chain_s'][0]) for r in ranks]} s a rank", flush=True)
+        out.update(teacher_launches=t_launches, chain_worst=chain,
+                   teacher_loss_err=t_loss,
+                   teacher_params_err=max(c["params"][0] for c in t_rows),
+                   teacher_grads_err=max(c["grads"][0] for c in t_rows))
+    out["seconds"] = time.perf_counter() - t_all
+    print(f"data-parallel training phase {'ok' if ok else 'FAIL'} in "
+          f"{out['seconds']:.1f} s", flush=True)
+    if not ok:
+        fail("the data-parallel steps differ from one process on the global "
+             "batch")
+    return out
+
+
+def check_dp_serving(dev, model16, cfg16, batches) -> dict:
+    """``make_dp_greedy_captioner(["cuda:0", "cuda:0"])`` on 8 batches of
+    32 (bf16) and ``make_dp_beam_captioner`` on 16 images (float32, K=5)
+    against the single-device captioners on the same blocks (identical:
+    tokens, hypotheses, scores and lengths), and on the whole batch: the
+    encoders' cuDNN and cuBLAS calls pick their algorithms by the batch, so
+    a block's features differ from the whole batch's in their last bits;
+    greedy rows may then depart at a bf16 near tie (at least 31 of 32 rows
+    a batch on average), beam best hypotheses must be identical and scores
+    within 1e-4 (the beam's card-vs-CPU limit).  Each block launches #1
+    (greedy) or #9/#10 (beam)."""
+    single = serve.make_greedy_captioner(model16, cfg16, dev,
+                                         max_length=MAX_LEN)
+    dp = SV.make_dp_greedy_captioner(model16, cfg16, DP_DEVICES,
+                                     max_length=MAX_LEN)
+    whole = [single(b) for b in batches]
+    blocks = [np.concatenate([single(x) for x in np.split(b, 2)])
+              for b in batches]
+    dp(batches[0])                                         # warm-up
+    zero_counters()
+    t0 = time.perf_counter()
+    got = [dp(b) for b in batches]
+    greedy_s = time.perf_counter() - t0
+    g_launches = G.launches
+    n_rows = BATCH * len(batches)
+    same_blocks = sum(int((g == r).all(axis=1).sum())
+                      for g, r in zip(got, blocks))
+    same_whole = sum(int((g == r).all(axis=1).sum())
+                     for g, r in zip(got, whole))
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "beam_teacher.npz")
+        write_beam_teacher(ckpt)
+        teacher, t_cfg = serve.load_teacher(ckpt, dev, torch.float32)
+    images = beam_images(1, SEED + 31)[0]
+    kw = dict(max_length=MAX_LEN, beam_size=BEAM_K)
+    beam = serve.make_beam_captioner(teacher, t_cfg, dev, **kw)
+    b_whole = beam(images)
+    b_blocks = tuple(np.concatenate(p) for p in zip(
+        *(beam(x) for x in np.split(images, 2))))
+    zero_counters()
+    b_got = SV.make_dp_beam_captioner(teacher, t_cfg, DP_DEVICES,
+                                      **kw)(images)
+    b_launches = (BA.launches_self, BA.launches_cross)
+    blocks_same = all(np.array_equal(g, r) for g, r in zip(b_got, b_blocks))
+    best = int((b_got[0][:, 0] == b_whole[0][:, 0]).all(axis=1).sum())
+    fin = np.isfinite(b_whole[1])
+    score_err = float(np.abs(b_got[1][fin] - b_whole[1][fin]).max())
+    ok = (same_blocks == n_rows and same_whole >= n_rows * 31 // 32
+          and g_launches == 2 * len(batches) and blocks_same
+          and best == BEAM_B and score_err <= DP_SERVE_SCORE_LIMIT
+          and (np.isfinite(b_got[1]) == fin).all() and min(b_launches) > 0)
+    print(f"data-parallel serving over {DP_DEVICES}: greedy (bf16) "
+          f"{same_blocks}/{n_rows} rows identical to one device on the same "
+          f"blocks, {same_whole}/{n_rows} to one device on whole batches "
+          f"(need {n_rows * 31 // 32}), #1 launched {g_launches} times "
+          f"({n_rows / greedy_s:.1f} images/s on the host clock); beam "
+          f"(K={BEAM_K}, float32) identical to one device on the same blocks"
+          f": {blocks_same}; on the whole batch {best}/{BEAM_B} best "
+          f"hypotheses identical, scores within {score_err:.2e} (limit "
+          f"{DP_SERVE_SCORE_LIMIT:g}); #9/#10 launched {b_launches} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail("data-parallel serving differs from single-device serving")
+    return dict(greedy_rows_blocks=f"{same_blocks}/{n_rows}",
+                greedy_rows_whole=f"{same_whole}/{n_rows}",
+                greedy_launches=g_launches, beam_blocks_identical=blocks_same,
+                beam_best=f"{best}/{BEAM_B}", beam_score_err=score_err,
+                beam_launches=list(b_launches),
+                greedy_images_per_s=n_rows / greedy_s)
+
+
 def main() -> int:
     faulthandler.enable()     # a crash in native code prints where it was
     if not torch.cuda.is_available():
@@ -4565,6 +5204,9 @@ def main() -> int:
                 print(f"  {src}: {line.strip()}")
     if "--data-int8" in sys.argv[1:]:
         return run_data_int8(dev)
+
+    # --- 16a. core/profiling, in a spawned process -------------------------
+    prof_row = check_profiling(dev)
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
@@ -4649,6 +5291,10 @@ def main() -> int:
           f"per batch ms: median {1e3 * statistics.median(batch_s):.3f}, "
           f"min {1e3 * min(batch_s):.3f}, max {1e3 * max(batch_s):.3f}",
           flush=True)
+
+    # --- 16b-c. core/timing on the same call; data-parallel serving ------
+    timing_row = check_timing(caption, imgs_per_s)
+    dp_serving = check_dp_serving(dev, model16, cfg16, batches)
 
     # float32 on the card (both kernels) vs the all-plain CPU path
     small = batches[1][:4]
@@ -4779,6 +5425,9 @@ def main() -> int:
           f" queued), bound {i8_batch['bound_ms']:.5f} ms (sum of the "
           f"launches' bounds)",
           flush=True)
+
+    # --- 16d. data-parallel training: two ranks sharing the card ----------
+    dp_training = check_dp_training(dev)
 
     # --- 14./15. timings, bounds and the result lines ----------------------
     floors = chain_floors(dev)
@@ -5006,7 +5655,10 @@ def main() -> int:
                       "device_data": dd_times,
                       "device_data_launches_per_step": dd_per_step,
                       "device_prefetch": prefetch,
-                      "int8_serving": dict(i8_rates, compare=i8_compare)}))
+                      "int8_serving": dict(i8_rates, compare=i8_compare),
+                      "profiling": prof_row, "timing": timing_row,
+                      "data_parallel_serving": dp_serving,
+                      "data_parallel_training": dp_training}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from imagecaptioner_tpu_torch.core import mesh as MS
 from imagecaptioner_tpu_torch.core.device import device_constant
 from imagecaptioner_tpu_torch.ops import quant as Q
 from imagecaptioner_tpu_torch.ops.attention import attention_core
@@ -129,12 +130,76 @@ def batch_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     ``x.dtype``.  Eval mode uses the running statistics.  Train mode uses
     the batch statistics (biased variance) and updates the running
     statistics in place with torch's rule: ``momentum`` and the unbiased
-    batch variance, as ``modules.batch_norm`` does."""
+    batch variance, as ``modules.batch_norm`` does.  In train mode under a
+    data-parallel world the statistics are the global batch's
+    (``_GlobalBatchNorm``), as GSPMD's batch norm reduces over the whole
+    batch axis."""
+    if train and MS.data_size() > 1:
+        return _GlobalBatchNorm.apply(x, weight, bias, running_mean,
+                                      running_var, momentum, eps)
     if train:
         return F.batch_norm(x, running_mean, running_var, weight.float(),
                             bias.float(), True, momentum, eps)
     return F.batch_norm(x, running_mean.float(), running_var.float(),
                         weight.float(), bias.float(), False, 0.0, eps)
+
+
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Train-mode batch norm over the global batch of a data-parallel world
+    (``nn.SyncBatchNorm``'s scheme, which refuses CPU tensors).  Forward:
+    the sum and count, then the squared deviations from the global mean,
+    each all-reduced (two passes); the running statistics take the global
+    count's unbiased variance.  Backward: this rank's ``sum(dy)`` and
+    ``sum(dy * xhat)`` are the weight's and bias's gradients (the train
+    step all-reduces them with every other gradient); their all-reduced
+    sums give the input's gradient.  The values are float32 and every sum
+    accumulates in float64, as PyTorch's CPU batch norm accumulates."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, running_mean, running_var, momentum,
+                eps):
+        xf = x.float()
+        dims = [0] + list(range(2, x.dim()))
+        n_local = x.numel() // x.shape[1]
+        f64 = torch.float64
+        stats = torch.cat([xf.sum(dims, dtype=f64),
+                           torch.full((1,), float(n_local), dtype=f64,
+                                      device=x.device)])
+        stats = MS.psum_over_data(stats)
+        count = stats[-1]
+        mean = stats[:-1] / count
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        centered = xf - mean.float().view(shape)
+        var = MS.psum_over_data(centered.square().sum(dims, dtype=f64)) \
+            / count
+        invstd = torch.rsqrt(var + eps).float()
+        with torch.no_grad():
+            running_mean.mul_(1.0 - momentum).add_(
+                (momentum * mean).to(running_mean.dtype))
+            running_var.mul_(1.0 - momentum).add_(
+                (momentum * var * count / (count - 1.0)).to(
+                    running_var.dtype))
+        xhat = centered * invstd.view(shape)
+        ctx.save_for_backward(xhat, weight, invstd, count)
+        return (xhat * weight.float().view(shape)
+                + bias.float().view(shape)).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        xhat, weight, invstd, count = ctx.saved_tensors
+        dims = [0] + list(range(2, dy.dim()))
+        shape = [1, -1] + [1] * (dy.dim() - 2)
+        dyf = dy.float()
+        sum_dy = dyf.sum(dims, dtype=torch.float64)
+        sum_dy_xhat = (dyf * xhat).sum(dims, dtype=torch.float64)
+        glob = MS.psum_over_data(torch.cat([sum_dy, sum_dy_xhat]))
+        c = sum_dy.shape[0]
+        mean_dy = (glob[:c] / count).float()
+        mean_dy_xhat = (glob[c:] / count).float()
+        dx = (weight.float() * invstd).view(shape) * (
+            dyf - mean_dy.view(shape) - xhat * mean_dy_xhat.view(shape))
+        return (dx.to(dy.dtype), sum_dy_xhat.to(weight.dtype),
+                sum_dy.to(weight.dtype), None, None, None, None)
 
 
 _DROPOUT_OFF = False

@@ -209,6 +209,17 @@ class CaptionDataset:
     def __len__(self) -> int:
         return len(self.imgs)
 
+    def __getstate__(self):
+        """Pickles (a trainer sends its loaders to the processes it starts)
+        without the lock and the decoded images."""
+        state = dict(self.__dict__, _cache={}, _cache_bytes=0)
+        del state["_cache_lock"]
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self._cache_lock = threading.Lock()
+
     def select(self, indices) -> "CaptionDataset":
         """Narrow to a subset of rows in place, after the vocabulary was
         built over all captions (token ids agree across shards).  Cache

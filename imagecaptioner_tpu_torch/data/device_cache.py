@@ -19,9 +19,15 @@ cap of 16, the shuffle order from ``np.random.default_rng(seed)`` (one
 permutation an epoch), drop_last, captions (T, B) time-major with their
 lengths; trailing incomplete accumulation groups are dropped, as the
 trainers' ``stacked_batches`` drops them.  A byte budget (4 GiB, or
-``IC_DEVICE_DATASET_BYTES``) refuses a dataset that would not fit.  The
-JAX class's ``mesh`` argument (rows replicated over a device mesh) waits
-for multi-GPU training, ROADMAP Queue 1 item 13.
+``IC_DEVICE_DATASET_BYTES``) refuses a dataset that would not fit.
+
+Under data parallelism (``core/mesh.py``) each rank holds the rows of its
+own loader on its card, as the JAX class replicates them over a mesh, and
+``gather_batch(..., mesh)`` assembles its part of each index batch: its
+contiguous block of the batch axis when the world's batches are global
+(``mesh.split``), the whole batch when each process loaded its own rows.
+The chained steps (``train/steps.make_device_data_step``) are unchanged
+per rank.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from imagecaptioner_tpu_torch.core import mesh as MS
 from imagecaptioner_tpu_torch.data.dataset import CaptionDataset
 from imagecaptioner_tpu_torch.data.vocabulary import PAD
 
@@ -118,12 +125,15 @@ class DeviceDataset:
         return used.reshape(steps, a, bs).astype(np.int32)
 
 
-def gather_batch(arrays: Dict[str, torch.Tensor], idx: torch.Tensor
-                 ) -> Dict[str, torch.Tensor]:
+def gather_batch(arrays: Dict[str, torch.Tensor], idx: torch.Tensor,
+                 mesh=None) -> Dict[str, torch.Tensor]:
     """idx (A, B) int32 on the arrays' device -> the batch a host
     ``BatchLoader`` stack gives: (A, B, H, W, 3) uint8 images, (A, T, B)
     captions, (A, B) lengths; rows gathered on the leading axis with
-    ``index_select``."""
+    ``index_select``.  With a ``mesh`` whose batches are global, only this
+    rank's block of the B axis is gathered (module docstring)."""
+    if mesh is not None and mesh.split:
+        idx = MS.batch_block(idx, mesh, 1)
     a, b = idx.shape
     flat = idx.reshape(-1)
     imgs = arrays["images"].index_select(0, flat)

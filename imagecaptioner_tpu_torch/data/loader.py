@@ -14,8 +14,9 @@ epoch, so one seed gives the JAX loader's batch order.  Images decode in a
 thread pool and come from the dataset's RAM cache once decoded; a
 background thread prefetches batches and stops when the iterator is
 abandoned.  ``device_prefetch`` double-buffers batches onto a card from
-pinned host memory on a side stream; its form over a mesh of cards waits
-for multi-GPU training (ROADMAP Queue 1 item 13).
+pinned host memory on a side stream.  ``get_loader(host_shard=True)``
+narrows the dataset to this process's rows in a data-parallel world
+(``parallel/multihost.host_shard``), each process onto its own card.
 """
 
 from __future__ import annotations
@@ -52,6 +53,10 @@ class BatchLoader:
         self._pool = None
         self._rng = np.random.default_rng(seed)
         self._tokens: Optional[list] = None
+
+    def __getstate__(self):
+        """Pickles without the decode pool, which is made again at use."""
+        return dict(self.__dict__, _pool=None)
 
     def _decode_pool(self):
         if self._pool is None and self.num_workers > 1:
@@ -185,20 +190,22 @@ def get_loader(root_folder: str,
                shuffle: bool = True, image_size: int = 224,
                freq_threshold: int = 5, seed: int = 0, vocab=None,
                host_shard: bool = False) -> Tuple[BatchLoader, CaptionDataset]:
-    """The reference's entry point: ``(loader, dataset)``.  ``host_shard``
-    is a no-op in one process; sharding rows over the processes of a
-    ``torch.distributed`` world is ROADMAP Queue 1 item 13."""
+    """The reference's entry point: ``(loader, dataset)``.
+
+    ``host_shard=True``: in a world of more than one process whose
+    processes load their own rows, narrow the dataset to this process's
+    ``host_shard`` AFTER the vocabulary is built (token ids must agree
+    across processes): the train-loader setting for data parallelism.  A
+    no-op in one process, and where the world's loader batches are global
+    (``parallel/multihost.launch(split=True)``)."""
+    from imagecaptioner_tpu_torch.parallel import multihost as MH
+
     dataset = CaptionDataset(root_folder, annotation_file,
                              freq_threshold=freq_threshold,
                              image_size=image_size, vocab=vocab)
-    if host_shard:
-        import torch.distributed as dist
-
-        if dist.is_available() and dist.is_initialized() \
-                and dist.get_world_size() > 1:
-            raise NotImplementedError(
-                "sharding the dataset over processes is not ported yet "
-                "(ROADMAP Queue 1 item 13)")
+    if (host_shard and MH.process_info()["process_count"] > 1
+            and not MH.split_batches()):
+        dataset.select(MH.host_shard(len(dataset)))
     loader = BatchLoader(dataset, batch_size=batch_size,
                          max_caption_len=max_caption_len, shuffle=shuffle,
                          seed=seed)

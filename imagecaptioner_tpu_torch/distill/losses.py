@@ -10,6 +10,13 @@ over the batch's own maximum length.  Every normalizer therefore masks to
   * With the default weights the CE coefficient (1-a-b-g) is exactly 0:
     preserved, not fixed.
 
+Under a data-parallel world (``core/mesh.py``) each rank's loss is its
+share of the global batch's loss, so that the ranks' losses and gradients
+sum to those of one process on the whole batch: ``max(lengths)`` is the
+world's, a masked mean divides by the world's count, the KL's B is the
+global batch, and a mean over equal shards is this rank's mean over the
+world size (``_share``).
+
 The optimized trainer's ``optimized_distillation_loss`` weighs its terms
 by a warmup over epochs (at epoch 0 only the token loss counts), takes a
 soft-CE token KD and a ``focal_loss`` hard term, both over the step mask
@@ -22,6 +29,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from imagecaptioner_tpu_torch.core import mesh as MS
 from imagecaptioner_tpu_torch.core.config import (DistillConfig,
                                                   OptimizedDistillConfig)
 
@@ -33,13 +41,26 @@ OPTIMIZED_LOSS_NAMES = ("total_loss", "token_kd_loss", "feature_kd_loss",
                         "hidden_kd_loss", "kd_loss", "hard_loss")
 
 
+def _share(x: torch.Tensor) -> torch.Tensor:
+    """A mean over this rank's rows as its share of the mean over the
+    world's equal shards (the identity in one process)."""
+    n = MS.data_size()
+    return x if n == 1 else x / n
+
+
+def _count(c: torch.Tensor) -> torch.Tensor:
+    """A count of rows or positions, summed over the world, at least 1."""
+    return torch.clamp(MS.psum_over_data(c), min=1.0)
+
+
 def _step_mask(T: int, B: int, lengths: Optional[torch.Tensor], device
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(T, B) float mask of steps < valid_steps, and valid_steps."""
     if lengths is None:
         return (torch.ones(T, B, device=device),
                 torch.tensor(float(T), device=device))
-    valid_steps = torch.clamp(lengths.max() - 1, min=1).float()
+    valid_steps = torch.clamp(MS.pmax_over_data(lengths.max()) - 1,
+                              min=1).float()
     steps = torch.arange(T, dtype=torch.float32, device=device)[:, None]
     return (steps < valid_steps).float().expand(T, B), valid_steps
 
@@ -51,7 +72,7 @@ def cross_entropy_ignore_pad(logits: torch.Tensor, targets: torch.Tensor
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -logp.gather(-1, targets[..., None]).squeeze(-1)
     mask = (targets != 0).float()
-    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return (nll * mask).sum() / _count(mask.sum())
 
 
 def token_level_distillation(student_logits: torch.Tensor,
@@ -66,7 +87,8 @@ def token_level_distillation(student_logits: torch.Tensor,
                         torch.zeros_like(t))
     kl = (t * (log_t - s)).sum(-1)                                  # (T, B)
     mask, valid_steps = _step_mask(T, B, lengths, kl.device)
-    return (kl * mask).sum() / (valid_steps * B) * (temperature ** 2)
+    return ((kl * mask).sum() / (valid_steps * B * MS.data_size())
+            * (temperature ** 2))
 
 
 def encoder_feature_distillation(student_features: torch.Tensor,
@@ -80,7 +102,7 @@ def encoder_feature_distillation(student_features: torch.Tensor,
     t_attn = torch.softmax(tf.sum(-1), dim=1)
     s_w = (sf * s_attn[..., None]).sum(1)
     t_w = (tf * t_attn[..., None]).sum(1)
-    return 0.6 * global_loss + 0.4 * (s_w - t_w).square().mean()
+    return _share(0.6 * global_loss + 0.4 * (s_w - t_w).square().mean())
 
 
 def decoder_hidden_state_distillation(student_hiddens: Optional[torch.Tensor],
@@ -98,7 +120,7 @@ def decoder_hidden_state_distillation(student_hiddens: Optional[torch.Tensor],
     mse = (s - t).square().mean(dim=(1, 2))
     cos = (s * t).sum(-1) / torch.clamp(s.norm(dim=-1) * t.norm(dim=-1),
                                         min=1e-8)
-    return (0.7 * mse + 0.3 * (1.0 - cos).mean(dim=1)).mean()
+    return _share((0.7 * mse + 0.3 * (1.0 - cos).mean(dim=1)).mean())
 
 
 def distillation_loss(student_outputs: Dict, teacher_outputs: Dict,
@@ -143,8 +165,8 @@ def focal_loss(logits_flat: torch.Tensor, targets_flat: torch.Tensor,
     pt = torch.exp(-ce)
     fl = alpha * (1.0 - pt) ** gamma * ce
     if mask is None:
-        return fl.mean()
-    return (fl * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+        return _share(fl.mean())
+    return (fl * mask).sum() / _count(mask.sum())
 
 
 def optimized_distillation_loss(
@@ -167,7 +189,7 @@ def optimized_distillation_loss(
     s_flat = student_outputs["logits"].reshape(-1, V).float()
     t_flat = teacher_outputs["logits"].reshape(-1, V).float()
     mask = _step_mask(T, B, lengths, s_flat.device)[0].reshape(-1)
-    denom = torch.clamp(mask.sum(), min=1.0)
+    denom = _count(mask.sum())
     t_probs = torch.softmax(t_flat / cfg.temperature, -1)
     s_logp = torch.log_softmax(s_flat / cfg.temperature, -1)
     kd_rows = -(t_probs * s_logp).sum(-1)
@@ -184,15 +206,15 @@ def optimized_distillation_loss(
         tf = teacher_outputs["encoder_features"].float()
         sn = sf / torch.clamp(sf.norm(dim=-1, keepdim=True), min=1e-12)
         tn = tf / torch.clamp(tf.norm(dim=-1, keepdim=True), min=1e-12)
-        feature_loss = 1.0 - (sn * tn).sum(-1).mean()
+        feature_loss = _share(1.0 - (sn * tn).sum(-1).mean())
 
     hidden_loss = zero
     sh = student_outputs.get("hidden_states")
     th = teacher_outputs.get("hidden_states")
     if sh is not None and th is not None and hidden_noise is not None:
         w = torch.softmax(hidden_noise.float(), dim=0)[..., None]
-        hidden_loss = ((sh.float() * w).sum(0)
-                       - (th.float() * w).sum(0)).square().mean()
+        hidden_loss = _share(((sh.float() * w).sum(0)
+                              - (th.float() * w).sum(0)).square().mean())
 
     total = token_loss + cur_beta * feature_loss + cur_gamma * hidden_loss
     return total, {"total_loss": total, "token_kd_loss": token_loss,

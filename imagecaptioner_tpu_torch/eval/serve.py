@@ -9,8 +9,10 @@ is quantized, ``--int8-full`` (teacher only) one whose transformer decoder
 is too, and ``--int8-calibrate N`` bakes static activation scales from the
 first N images (``int8_serving_copy``; ``ops/quant.py``,
 ``csrc/int8_conv.cu``).  ``--data-parallel`` is a no-op on one card and on
-the CPU, as the reference serves without a mesh on one device; over more
-than one card it exits as not ported yet.  A binary PPM (``.ppm``, which
+the CPU, as the reference serves without a mesh on one device; with several
+cards visible it serves each batch split over every card
+(``eval/serving.py``), and ``--batch`` must divide by the cards, as the JAX
+CLI requires of its mesh's data axis.  A binary PPM (``.ppm``, which
 the JAX CLI does not list) is decoded by numpy and any other image by PIL,
 imported only then (``data/dataset.decode_image_file``), so the CLI runs on
 PPM files on a machine without PIL, as ``make_greedy_captioner`` and
@@ -186,11 +188,6 @@ def int8_serving_copy(model, kind: str, *, int8: bool = False,
     return q
 
 
-def _not_ported(what: str, item: str) -> SystemExit:
-    return SystemExit(f"{what} is not ported yet (ROADMAP Queue 1 {item}); "
-                      "use python -m imagecaptioner_tpu.eval.serve")
-
-
 def main(argv=None):
     ap = argparse.ArgumentParser(description="Batch caption images")
     ap.add_argument("--model", choices=["teacher", "student"], required=True)
@@ -228,12 +225,18 @@ def main(argv=None):
                  "students keep float decoders (use --int8)")
     if args.int8_calibrate and not (args.int8 or args.int8_full):
         ap.error("--int8-calibrate requires --int8 or --int8-full")
+    cards = []       # serve over every card: eval/serving.py
     if (args.data_parallel and torch.device(args.device).type == "cuda"
+            and torch.device(args.device).index is None
             and torch.cuda.device_count() > 1):
-        raise _not_ported("data-parallel serving", "item 13")
+        cards = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+        if args.batch % len(cards):
+            raise SystemExit(f"--batch {args.batch} must divide by the mesh "
+                             f"data axis ({len(cards)})")
 
     device = resolve_device(args.device)
     dtype = as_dtype(args.dtype)
+    from imagecaptioner_tpu_torch.eval import serving as SV
 
     vocab = Vocabulary.load(args.vocab)
     files = list_images(args.images)
@@ -256,9 +259,11 @@ def main(argv=None):
         teacher = int8_serving_copy(
             teacher, "teacher", calibrate_images=calibration_images(
                 cfg.image_size), **int8_kw)
-        beam_fn = make_beam_captioner(teacher, cfg, device,
-                                      max_length=args.max_length,
-                                      beam_size=args.beam_size)
+        beam_fn = (SV.make_dp_beam_captioner(
+            teacher, cfg, cards, max_length=args.max_length,
+            beam_size=args.beam_size) if cards else make_beam_captioner(
+                teacher, cfg, device, max_length=args.max_length,
+                beam_size=args.beam_size))
 
         def caption_batch(arr: np.ndarray) -> List[str]:
             seqs, scores, _ = beam_fn(arr)
@@ -269,8 +274,9 @@ def main(argv=None):
         student = int8_serving_copy(
             student, "student", calibrate_images=calibration_images(
                 cfg.image_size), **int8_kw)
-        greedy_fn = make_greedy_captioner(
-            student, cfg, device, max_length=args.max_length,
+        greedy_fn = (SV.make_dp_greedy_captioner if cards
+                     else make_greedy_captioner)(
+            student, cfg, cards or device, max_length=args.max_length,
             temperature=args.temperature, seed=args.seed)
 
         def caption_batch(arr: np.ndarray) -> List[str]:

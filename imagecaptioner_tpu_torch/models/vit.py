@@ -7,8 +7,9 @@ KD features.  Submodule names follow the JAX tree (timm naming).
 The ViT applies no dropout, in training either: the JAX
 ``vit_forward_features`` defaults ``dropout=0.0`` and the teacher passes
 none.  So a training forward is the same forward with gradients through
-the blocks; ``vit_trainable_mask`` says which parameters train.  Sequence
-parallelism is ROADMAP Queue 1 item 13.
+the blocks; ``vit_trainable_mask`` says which parameters train.  The JAX
+module's sequence-parallel hook (``models/vit.py:109-116``) waits for the
+tensor- and sequence-parallel slice (ROADMAP Queue 1, TP/SP).
 """
 
 from __future__ import annotations

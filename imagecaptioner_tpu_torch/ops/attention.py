@@ -16,6 +16,12 @@ PyTorch for the CPU tests; nothing on the card calls it.  The JAX package
 has no backward kernel for this core: its ``custom_vjp`` recomputes the
 plain core and differentiates that (``pallas_attention.py:_bwd``).  ``_AttentionCore`` does
 the same around the CUDA forward.
+
+The JAX DP form, ``fused_attention_sharded`` (``pallas_attention.py:238``),
+runs the kernel per batch shard under ``shard_map``.  Here each rank of a
+data-parallel world (``core/mesh.py``) already holds only its rows, so it
+calls this core on them; the replicated weights' gradients are summed by
+the train step's all-reduce.  No other code path is needed.
 """
 
 from __future__ import annotations

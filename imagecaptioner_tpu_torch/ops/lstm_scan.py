@@ -28,6 +28,12 @@ launches ``csrc/decoder_scan_bwd.cu``.  Nothing falls back: a shape or
 layout the kernels do not take raises.  ``decoder_scan_bwd_plain`` is the
 step-by-step PyTorch version of the backward (``_fused_core_bwd``), which
 the kernel is held against.
+
+The JAX DP form, ``_shard_core_over_batch`` (``pallas_lstm.py:73``), runs
+the recurrence per batch shard under ``shard_map``.  Each rank of a
+data-parallel world (``core/mesh.py``) holds only its rows and calls these
+kernels on them; the weights' gradients are summed by the train step's
+all-reduce, so no other code path is needed.
 """
 
 from __future__ import annotations

@@ -18,6 +18,8 @@ from typing import Callable, Dict, Optional, Union
 
 import torch
 
+from imagecaptioner_tpu_torch.core import mesh as MS
+
 
 @dataclass
 class AdamWState:
@@ -133,7 +135,9 @@ def label_smoothing_loss(logits: torch.Tensor, targets: torch.Tensor, *,
     rows included.  With ``lengths`` (B,) the rows at or past
     ``max(lengths) - 1`` are cut from the sum and from the count, which
     undoes the static padding.  logits (T, B, V), targets (T, B) -> a
-    0-d float32 tensor."""
+    0-d float32 tensor.  Under a data-parallel world the count and
+    ``max(lengths)`` are the global batch's, so that the ranks' losses sum
+    to the global batch's loss."""
     T, B, V = logits.shape
     logp = torch.log_softmax(logits.float(), dim=-1)
     true_dist = torch.full_like(logp, smoothing / (num_classes - 1))
@@ -141,9 +145,11 @@ def label_smoothing_loss(logits: torch.Tensor, targets: torch.Tensor, *,
     true_dist[..., ignore_index] = 0.0
     row_valid = (targets != ignore_index).float()
     loss_rows = -(true_dist * logp).sum(-1) * row_valid
+    B = B * MS.data_size()      # the global batch under data parallelism
     if lengths is None:
         return loss_rows.sum() / float(T * B)
-    valid_steps = torch.clamp(lengths.max() - 1, min=1).float()
+    valid_steps = torch.clamp(MS.pmax_over_data(lengths.max()) - 1,
+                              min=1).float()
     steps = torch.arange(T, device=logits.device, dtype=torch.float32)
     in_range = (steps[:, None] < valid_steps).float()
     return (loss_rows * in_range).sum() / (valid_steps * B)

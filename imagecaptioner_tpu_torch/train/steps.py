@@ -39,6 +39,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from imagecaptioner_tpu_torch.core import mesh as MS
 from imagecaptioner_tpu_torch.core.config import (DistillConfig,
                                                   OptimizedDistillConfig,
                                                   StudentConfig,
@@ -174,11 +175,12 @@ def make_teacher_train_step(t_cfg: TeacherConfig,
         grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
                  for n, p in params.items() if trainable[n]}
         torch._foreach_div_(list(grads.values()), float(A))
+        MS.psum_tensors_(list(grads.values()))
         gnorm = O.clip_by_global_norm(grads, tr_cfg.grad_clip)
         O.adamw_update(grads, state.opt_state, params, lr_fn=lr_fn,
                        lr_scale=scales, weight_decay=tr_cfg.weight_decay,
                        trainable=trainable)
-        return {"loss": loss_sum / A, "grad_norm": gnorm,
+        return {"loss": MS.psum_over_data(loss_sum / A), "grad_norm": gnorm,
                 "lr": torch.tensor(lr_fn(1.0), device=gnorm.device)}
 
     return step
@@ -194,9 +196,9 @@ def make_teacher_eval_step(t_cfg: TeacherConfig, tr_cfg: TeacherTrainConfig,
     def step(teacher: Teacher, batch: Dict) -> torch.Tensor:
         teacher.eval()
         images = T.normalize(batch["images"], dtype=compute_dtype)
-        return _teacher_loss(teacher, t_cfg, tr_cfg, images,
-                             batch["captions"], batch["lengths"],
-                             generator=None)
+        return MS.psum_over_data(_teacher_loss(
+            teacher, t_cfg, tr_cfg, images, batch["captions"],
+            batch["lengths"], generator=None))
 
     return step
 
@@ -254,6 +256,18 @@ def kd_weight_decays(names, *, weight_decay: float,
     return {n: weight_decay if n.startswith(("student.encoder.",
                                              "student.decoder."))
             else others_wd for n in names}
+
+
+def world_sums(metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """0-d metrics summed over a data-parallel world in one all-reduce:
+    each rank's loss terms are its shares of the global batch's
+    (``distill/losses.py``), so their sums are the global batch's.  The
+    metrics themselves with no world."""
+    if MS.data_size() == 1:
+        return metrics
+    keys = list(metrics)
+    tot = MS.psum_over_data(torch.stack([metrics[k].float() for k in keys]))
+    return dict(zip(keys, tot.unbind()))
 
 
 def batch_to_device(batch: Dict, device) -> Dict[str, torch.Tensor]:
@@ -361,6 +375,7 @@ def make_kd_train_step(teacher: Teacher, t_cfg: TeacherConfig,
         grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
                  for n, p in params.items() if trainable[n]}
         torch._foreach_div_(list(grads.values()), float(A))
+        MS.psum_tensors_(list(grads.values()))
         gnorm = O.clip_by_global_norm(grads, tr_cfg.grad_clip)
         O.adamw_update(grads, state.opt_state, params, lr_fn=lr_fn,
                        lr_scale=scales,
@@ -368,7 +383,7 @@ def make_kd_train_step(teacher: Teacher, t_cfg: TeacherConfig,
                            params, weight_decay=tr_cfg.weight_decay,
                            others_wd=others_wd),
                        trainable=trainable)
-        metrics = {k: v / A for k, v in ld_sum.items()}
+        metrics = world_sums({k: v / A for k, v in ld_sum.items()})
         metrics["grad_norm"] = gnorm
         metrics["lr"] = torch.tensor(lr_fn(1.0))
         return metrics
@@ -376,7 +391,7 @@ def make_kd_train_step(teacher: Teacher, t_cfg: TeacherConfig,
     return step
 
 
-def make_device_data_step(train_step, chain_steps: int = 1):
+def make_device_data_step(train_step, chain_steps: int = 1, mesh=None):
     """Wrap a KD train step to take its batches from a device-resident
     dataset (``data/device_cache.DeviceDataset``) and to run
     ``chain_steps`` optimizer steps back to back (JAX
@@ -390,7 +405,9 @@ def make_device_data_step(train_step, chain_steps: int = 1):
     computes it on the device.  Every metric comes back stacked (K,): the
     loss terms and ``grad_norm`` on the device, ``lr`` on the host; nothing
     inside the chain waits for the card.  Capturing the chain as one CUDA
-    graph is a later speed change."""
+    graph is a later speed change.  With a ``mesh`` each rank gathers its
+    part of each index batch (``device_cache.gather_batch``) and the steps'
+    reductions run over the world."""
     from imagecaptioner_tpu_torch.data.device_cache import gather_batch
 
     K = max(1, chain_steps)
@@ -408,7 +425,7 @@ def make_device_data_step(train_step, chain_steps: int = 1):
             K, dtype=np.float32)
         ms = []
         for i in range(K):
-            b = gather_batch(data, idx[i])
+            b = gather_batch(data, idx[i], mesh)
             ms.append(train_step(state, {
                 "images": b["images"], "captions": b["captions"].long(),
                 "lengths": b["lengths"].long()}, float(ts[i]), generator,
@@ -440,7 +457,8 @@ def make_kd_eval_step(teacher: Teacher, t_cfg: TeacherConfig,
             teacher_dtype=torch.float32)
         loss, ld = _kd_loss(optimized, loss_cfg, student_out, teacher_out,
                             cap_tgt, batch["lengths"], epoch)
+        ld = world_sums(ld)
         preds = student_out["logits"].float().argmax(-1)
-        return loss, ld, preds, cap_tgt
+        return ld["total_loss"], ld, preds, cap_tgt
 
     return step

@@ -27,8 +27,16 @@ caller that asks for ``cpu`` gets the CPU.
       [--metrics-jsonl metrics.jsonl] [--device cuda|cpu]
 
 Data parallelism is on by default, as in the reference, and a no-op on one
-card (``--no-data-parallel`` turns it off); over more than one card it is
-not ported yet and exits with its roadmap item (item 13).
+card (``--no-data-parallel`` turns it off).  Over several cards the trainer
+runs one process per card (``train/common.py``): in a world that the
+environment (``IC_COORDINATOR``, ``IC_NUM_PROCESSES``, ``IC_PROCESS_ID``)
+or the caller made, each process trains on its own rows
+(``get_loader(host_shard=True)``); with no world and several cards visible
+it starts one process per card itself, and the loader's batch is the global
+batch.  Gradients, batch-norm statistics and loss normalizers are the
+global batch's, so a step equals one process's step on it; only rank 0
+writes checkpoints, the metric log and the history, and a resume loads on
+every rank.
 ``--device-dataset`` (``device_dataset=True``) decodes the training rows
 once into a ``data/device_cache.DeviceDataset`` on the device, gathers each
 batch there from uploaded row indices, and runs full chunks of
@@ -53,6 +61,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from imagecaptioner_tpu_torch.core import mesh as MS
 from imagecaptioner_tpu_torch.core.config import (STUDENT_CONFIGS,
                                                   DistillConfig,
                                                   KDTrainConfig)
@@ -72,18 +81,8 @@ from imagecaptioner_tpu_torch.utils import convert as CV
 from imagecaptioner_tpu_torch.utils.logging import MetricLogger
 
 
-def not_ported(what: str, item: str,
-               jax_entry: str = "train_student_kd") -> SystemExit:
-    return SystemExit(f"{what} is not ported yet (ROADMAP Queue 1 {item}); "
-                      f"use python -m imagecaptioner_tpu.train.{jax_entry}")
-
-
-def check_options(*, data_parallel: bool, device, student_variant: str,
-                  jax_entry: str = "train_student_kd") -> None:
-    """Refuse what is not ported, before any data or card is touched;
-    ``jax_entry`` names the JAX trainer that has it."""
-    if common.data_parallel_over_cards(data_parallel, device):
-        raise not_ported("data-parallel KD training", "item 13", jax_entry)
+def check_options(*, student_variant: str) -> None:
+    """Refuse a bad option before any data or card is touched."""
     if student_variant not in STUDENT_CONFIGS:
         raise ValueError(f"unknown student_variant {student_variant!r}")
 
@@ -99,16 +98,22 @@ def load_teacher(teacher_checkpoint: str, vocab_size: int, device):
 
 
 def validate_student(eval_step, state, val_loader, vocab, device, *,
-                     max_batches: int = 50):
+                     max_batches: int = 50, mesh=None):
     """Loss over at most ``max_batches`` batches, and monitoring BLEU on 2
-    samples of each of the first 5."""
+    samples of each of the first 5.  With a ``mesh`` each batch is this
+    rank's part of a global batch, the eval step's loss is the global
+    batch's, and BLEU reads this rank's rows (rank 0's are the global
+    batch's first)."""
     losses, bleus, n = [], [], 0
     for bi, batch in enumerate(val_loader):
         if bi >= max_batches:
             break
-        loss, _, preds, cap_tgt = eval_step(
-            state, steps.batch_to_device(batch, device))
+        batch = (steps.batch_to_device(batch, device) if mesh is None
+                 else common.put_global_batch(mesh, batch, stacked=False))
+        loss, _, preds, cap_tgt = eval_step(state, batch)
         b = int(preds.shape[1])
+        if mesh is not None:
+            b *= mesh.size                  # the global batch's rows
         losses.append(float(loss) * b)
         n += b
         if bi < 5:
@@ -151,10 +156,15 @@ def train_student_with_kd(
     defaults to ``<data_root>/captions_clean.csv``): the train loader
     shuffled with ``seed``, the validation loader over the same rows in
     order, with the train vocabulary.  Returns ``(state, s_cfg, vocab)``."""
-    check_options(data_parallel=data_parallel, device=device,
-                  student_variant=student_variant)
-    device = resolve_device(device)
+    call = dict(locals())
+    check_options(student_variant=student_variant)
     tr = train_cfg or KDTrainConfig()
+    n_cards = common.cards_to_spawn(min(tr.batch_size, 16), data_parallel,
+                                    device)
+    if n_cards:
+        return common.run_per_card(train_student_with_kd, n_cards, call)
+    common.distributed_init_from_env(device)
+    resolve_device(device)
     captions_file = captions_file or os.path.join(data_root,
                                                   "captions_clean.csv")
     train_loader, dataset = get_loader(
@@ -256,9 +266,11 @@ def kd_checkpoint_tree(state: steps.TrainState, s_cfg, vocab_size: int,
 
 
 def make_device_dataset(train_loader, train_step, stream_steps: int,
-                        seed: int, device, verbose: bool):
+                        seed: int, device, verbose: bool, mesh=None):
     """The train loader's rows on the device, seeded with ``seed``, and the
-    chained step functions over it: ``(data, K-step, 1-step)``."""
+    chained step functions over it: ``(data, K-step, 1-step)``.  With a
+    ``mesh`` each rank holds its loader's rows and gathers its part of each
+    index batch (``device_cache.gather_batch``)."""
     from imagecaptioner_tpu_torch.data.device_cache import DeviceDataset
 
     dataset = getattr(train_loader, "dataset", None)
@@ -268,9 +280,9 @@ def make_device_dataset(train_loader, train_step, stream_steps: int,
     data = DeviceDataset(dataset, max_caption_len=train_loader.max_caption_len,
                          device=device)
     data.seed(seed)
-    dd_step = steps.make_device_data_step(train_step, stream_steps)
+    dd_step = steps.make_device_data_step(train_step, stream_steps, mesh)
     dd_step1 = (dd_step if stream_steps == 1
-                else steps.make_device_data_step(train_step, 1))
+                else steps.make_device_data_step(train_step, 1, mesh))
     if verbose:
         print(f"[device-data] {data.n} rows resident on device; "
               f"{stream_steps} chained steps/dispatch")
@@ -332,10 +344,21 @@ def train_student_with_kd_on_loaders(
     (re-iterable, with ``__len__`` and ``batch_size``; batches in the
     loader's layout) and ``val_loader``, tokens of ``vocab``.  With
     ``device_dataset`` the train loader's ``dataset`` goes to the device
-    (``make_device_dataset``).  Returns ``(state, s_cfg, vocab)``."""
-    check_options(data_parallel=data_parallel, device=device,
-                  student_variant=student_variant)
-    device = resolve_device(device)
+    (``make_device_dataset``).  Under data parallelism (module
+    docstring) the loaders are this process's, or global when this
+    function started the processes.  Returns ``(state, s_cfg, vocab)``."""
+    call = dict(locals())
+    check_options(student_variant=student_variant)
+    n_cards = common.cards_to_spawn(train_loader.batch_size, data_parallel,
+                                    device)
+    if n_cards:
+        return common.run_per_card(train_student_with_kd_on_loaders,
+                                   n_cards, call)
+    common.distributed_init_from_env(device)
+    mesh = common.maybe_mesh(train_loader.batch_size, data_parallel, device)
+    device = resolve_device(device if mesh is None else mesh.device)
+    primary = common.is_primary(mesh)
+    verbose = verbose and primary
     compute_dtype = as_dtype(compute_dtype)
     tr = train_cfg or KDTrainConfig()
     if num_epochs is not None:
@@ -369,6 +392,7 @@ def train_student_with_kd_on_loaders(
         verbose=verbose)
 
     state = steps.init_train_state(student, projectors, s_cfg)
+    MS.replicate(mesh, [state.student, state.projectors])
     start_epoch = 0
     if resume_from is not None:
         start_epoch = int(resume_train_state(state, resume_from, s_cfg,
@@ -381,20 +405,23 @@ def train_student_with_kd_on_loaders(
         **aug_kw)
     eval_step = steps.make_kd_eval_step(teacher, t_cfg, s_cfg, d_cfg,
                                         compute_dtype=compute_dtype)
-    generator = torch.Generator(device=device).manual_seed(seed)
+    generator = torch.Generator(device=device).manual_seed(
+        common.rank_seed(seed, mesh))
 
-    os.makedirs(output_dir, exist_ok=True)
-    vocab.save(os.path.join(output_dir, "vocab.json"))
+    if primary:
+        os.makedirs(output_dir, exist_ok=True)
+        vocab.save(os.path.join(output_dir, "vocab.json"))
     steps_per_epoch = max(len(train_loader) // tr.accumulation_steps, 1)
     device_data = None
     if device_dataset:
         device_data, dd_step, dd_step1 = make_device_dataset(
-            train_loader, train_step, stream_steps, seed, device, verbose)
+            train_loader, train_step, stream_steps, seed, device, verbose,
+            mesh)
     stopper = common.EarlyStopping(tr.patience, mode="min")
     train_losses, val_losses, val_bleu_scores = [], [], []
     loss_components_history = defaultdict(list)
     best_val = float("inf")
-    mlog = MetricLogger(metrics_jsonl)
+    mlog = MetricLogger(metrics_jsonl if primary else None)
 
     def ckpt_tree(epoch, extra):
         return kd_checkpoint_tree(
@@ -412,7 +439,7 @@ def train_student_with_kd_on_loaders(
                            np.float32(1.0 / steps_per_epoch)))
         else:
             for idx, stacked in enumerate(common.stacked_batches(
-                    train_loader, tr.accumulation_steps)):
+                    train_loader, tr.accumulation_steps, mesh=mesh)):
                 if (max_steps_per_epoch is not None
                         and idx >= max_steps_per_epoch):
                     break
@@ -436,7 +463,7 @@ def train_student_with_kd_on_loaders(
 
         if epoch % tr.validate_every == 0:
             val_loss, val_bleu = validate_student(eval_step, state, val_loader,
-                                                  vocab, device)
+                                                  vocab, device, mesh=mesh)
             val_losses.append(val_loss)
             val_bleu_scores.append(val_bleu)
             if verbose:
@@ -448,10 +475,11 @@ def train_student_with_kd_on_loaders(
                 best_val = val_loss
                 # the snapshot is taken now, the write is off the step's
                 # path; wait_for_saves() below lands it before return
-                CKPT.save_checkpoint_async(
-                    os.path.join(output_dir, "best_student_model.npz"),
-                    ckpt_tree(epoch, dict(val_loss=val_loss,
-                                          val_bleu=val_bleu)))
+                if primary:
+                    CKPT.save_checkpoint_async(
+                        os.path.join(output_dir, "best_student_model.npz"),
+                        ckpt_tree(epoch, dict(val_loss=val_loss,
+                                              val_bleu=val_bleu)))
                 if verbose:
                     print(f"  New best model saved! Val Loss: {val_loss:.4f}, "
                           f"BLEU: {val_bleu:.4f}")
@@ -464,22 +492,24 @@ def train_student_with_kd_on_loaders(
             print(f"Epoch {epoch+1}: Train Loss: {avg_train:.4f}")
 
     CKPT.wait_for_saves()
-    CKPT.save_checkpoint(
-        os.path.join(output_dir, "final_student_model.npz"),
-        ckpt_tree(tr.num_epochs, dict(
-            train_losses=train_losses, val_losses=val_losses,
-            val_bleu_scores=val_bleu_scores,
-            loss_components=dict(loss_components_history))))
-    common.write_history(
-        os.path.join(output_dir, "student_training_history.json"),
-        dict(train_losses=train_losses, val_losses=val_losses,
-             val_bleu_scores=val_bleu_scores,
-             loss_components=dict(loss_components_history),
-             hyperparameters=dict(
-                 learning_rate=tr.learning_rate, batch_size=tr.batch_size,
-                 embed_size=s_cfg.embed_size, hidden_size=s_cfg.hidden_size,
-                 alpha=d_cfg.alpha, beta=d_cfg.beta, gamma=d_cfg.gamma,
-                 temperature=d_cfg.temperature)))
+    if primary:
+        CKPT.save_checkpoint(
+            os.path.join(output_dir, "final_student_model.npz"),
+            ckpt_tree(tr.num_epochs, dict(
+                train_losses=train_losses, val_losses=val_losses,
+                val_bleu_scores=val_bleu_scores,
+                loss_components=dict(loss_components_history))))
+        common.write_history(
+            os.path.join(output_dir, "student_training_history.json"),
+            dict(train_losses=train_losses, val_losses=val_losses,
+                 val_bleu_scores=val_bleu_scores,
+                 loss_components=dict(loss_components_history),
+                 hyperparameters=dict(
+                     learning_rate=tr.learning_rate,
+                     batch_size=tr.batch_size, embed_size=s_cfg.embed_size,
+                     hidden_size=s_cfg.hidden_size, alpha=d_cfg.alpha,
+                     beta=d_cfg.beta, gamma=d_cfg.gamma,
+                     temperature=d_cfg.temperature)))
     mlog.close()
     if verbose:
         print("\nTraining completed!")

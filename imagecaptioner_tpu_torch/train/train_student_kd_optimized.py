@@ -20,8 +20,8 @@ performance metrics, and ``optimized_training_history.json``.
       [--device cuda|cpu]
 
 Runs on ``device`` (default ``cuda``): without a card it raises.  Data
-parallelism over more than one card is not ported yet and exits with its
-roadmap item (item 13), as in the flagship trainer.  ``--device-dataset``
+parallelism over several cards runs one process per card, as in the
+flagship trainer (``train/common.py``).  ``--device-dataset``
 keeps the training rows, stored at ``image_size + 32``, on the device and
 chains ``--stream-steps`` optimizer steps as the flagship trainer does
 (``train_student_kd.run_device_epoch``); the random crop to ``image_size``
@@ -41,6 +41,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from imagecaptioner_tpu_torch.core import mesh as MS
 from imagecaptioner_tpu_torch.core.config import (STUDENT_CONFIGS,
                                                   OptimizedDistillConfig,
                                                   OptimizedKDTrainConfig)
@@ -61,16 +62,20 @@ HISTORY = "optimized_training_history.json"
 
 
 def validate_fast(eval_step, state, val_loader, vocab, device, epoch: int, *,
-                  max_batches: int = 15):
+                  max_batches: int = 15, mesh=None):
     """Loss over at most ``max_batches`` batches at ``epoch``'s loss
-    weights, and monitoring BLEU on 2 samples of the first batch."""
+    weights, and monitoring BLEU on 2 samples of the first batch (with a
+    ``mesh``, as ``train_student_kd.validate_student``)."""
     losses, bleus, n = [], [], 0
     for bi, batch in enumerate(val_loader):
         if bi >= max_batches:
             break
-        loss, _, preds, cap_tgt = eval_step(
-            state, steps.batch_to_device(batch, device), epoch)
+        batch = (steps.batch_to_device(batch, device) if mesh is None
+                 else common.put_global_batch(mesh, batch, stacked=False))
+        loss, _, preds, cap_tgt = eval_step(state, batch, epoch)
         b = int(preds.shape[1])
+        if mesh is not None:
+            b *= mesh.size                  # the global batch's rows
         losses.append(float(loss) * b)
         n += b
         if bi == 0:
@@ -112,12 +117,17 @@ def train_student_with_kd_optimized(
     ``image_size``, with the train vocabulary.  ``resume_from`` takes a
     checkpoint of either package and goes on from its epoch and
     ``global_step``.  Returns ``(state, s_cfg, vocab)``."""
-    check_options(data_parallel=data_parallel, device=device,
-                  student_variant=student_variant,
-                  jax_entry="train_student_kd_optimized")
-    device = resolve_device(device)
+    call = dict(locals())
+    check_options(student_variant=student_variant)
     compute_dtype = as_dtype(compute_dtype)
     tr = train_cfg or OptimizedKDTrainConfig()
+    n_cards = common.cards_to_spawn(min(tr.batch_size, 16), data_parallel,
+                                    device)
+    if n_cards:
+        return common.run_per_card(train_student_with_kd_optimized, n_cards,
+                                   call)
+    common.distributed_init_from_env(device)
+    device = resolve_device(device)
     if num_epochs is not None:
         tr = replace(tr, num_epochs=num_epochs)
     od_cfg = distill_cfg or OptimizedDistillConfig()
@@ -137,6 +147,11 @@ def train_student_with_kd_optimized(
         image_size=image_size, host_shard=True)
     vocab = dataset.vocab
     vocab_size = len(vocab)
+    mesh = common.maybe_mesh(train_loader.batch_size, data_parallel, device)
+    if mesh is not None:
+        device = mesh.device
+    primary = common.is_primary(mesh)
+    verbose = verbose and primary
 
     teacher, t_cfg = load_teacher(teacher_checkpoint, vocab_size, device)
     s_cfg = STUDENT_CONFIGS[student_variant](vocab_size)
@@ -149,6 +164,7 @@ def train_student_with_kd_optimized(
         print(f"{s_cfg.variant.capitalize()} student parameters: {n:,} "
               f"(compression vs 25M teacher: {25e6 / n:.2f}x)")
     state = steps.init_train_state(student, projectors, s_cfg)
+    MS.replicate(mesh, [state.student, state.projectors])
 
     steps_per_epoch = max(len(train_loader) // tr.accumulation_steps, 1)
     total_opt_steps = steps_per_epoch * tr.num_epochs
@@ -169,14 +185,17 @@ def train_student_with_kd_optimized(
     eval_step = steps.make_kd_eval_step(teacher, t_cfg, s_cfg, None,
                                         compute_dtype=compute_dtype,
                                         optimized=True, od_cfg=od_cfg)
-    generator = torch.Generator(device=device).manual_seed(seed)
+    generator = torch.Generator(device=device).manual_seed(
+        common.rank_seed(seed, mesh))
 
-    os.makedirs(output_dir, exist_ok=True)
-    vocab.save(os.path.join(output_dir, "vocab.json"))
+    if primary:
+        os.makedirs(output_dir, exist_ok=True)
+        vocab.save(os.path.join(output_dir, "vocab.json"))
     device_data = None
     if device_dataset:
         device_data, dd_step, dd_step1 = make_device_dataset(
-            train_loader, train_step, stream_steps, seed, device, verbose)
+            train_loader, train_step, stream_steps, seed, device, verbose,
+            mesh)
     stopper = common.EarlyStopping(tr.patience, mode="min")
     train_losses, val_losses, val_bleu_scores, epoch_times = [], [], [], []
     loss_components_history = defaultdict(list)
@@ -207,7 +226,7 @@ def train_student_with_kd_optimized(
             global_step += sum(len(m["lr"]) for m in step_metrics)
         else:
             for idx, stacked in enumerate(common.stacked_batches(
-                    train_loader, tr.accumulation_steps)):
+                    train_loader, tr.accumulation_steps, mesh=mesh)):
                 if (max_steps_per_epoch is not None
                         and idx >= max_steps_per_epoch):
                     break
@@ -226,7 +245,7 @@ def train_student_with_kd_optimized(
                 sum(m[k] for m in fetched) / max(nb, 1))
 
         val_loss, val_bleu = validate_fast(eval_step, state, val_loader,
-                                           vocab, device, epoch)
+                                           vocab, device, epoch, mesh=mesh)
         val_losses.append(val_loss)
         val_bleu_scores.append(val_bleu)
         if verbose:
@@ -236,12 +255,14 @@ def train_student_with_kd_optimized(
         if stopper.update(val_loss):
             best_val = val_loss
             # the snapshot is taken now, the write is off the step's path
-            CKPT.save_checkpoint_async(
-                os.path.join(output_dir, BEST),
-                ckpt_tree(epoch, dict(
-                    val_loss=val_loss, val_bleu=val_bleu,
-                    performance_metrics=dict(epoch_time=epoch_times[-1],
-                                             total_time=timer.elapsed()))))
+            if primary:
+                CKPT.save_checkpoint_async(
+                    os.path.join(output_dir, BEST),
+                    ckpt_tree(epoch, dict(
+                        val_loss=val_loss, val_bleu=val_bleu,
+                        performance_metrics=dict(
+                            epoch_time=epoch_times[-1],
+                            total_time=timer.elapsed()))))
         if stopper.should_stop:
             if verbose:
                 print("Early stopping triggered")
@@ -249,17 +270,19 @@ def train_student_with_kd_optimized(
 
     total_time = timer.elapsed()
     CKPT.wait_for_saves()
-    common.write_history(
-        os.path.join(output_dir, HISTORY),
-        dict(train_losses=train_losses, val_losses=val_losses,
-             val_bleu_scores=val_bleu_scores,
-             loss_components=dict(loss_components_history),
-             epoch_times=epoch_times, total_training_time=total_time,
-             avg_epoch_time=float(np.mean(epoch_times)) if epoch_times else 0.0,
-             hyperparameters=dict(
-                 learning_rate=tr.learning_rate, batch_size=tr.batch_size,
-                 alpha=od_cfg.alpha, beta=od_cfg.beta, gamma=od_cfg.gamma,
-                 temperature=od_cfg.temperature)))
+    if primary:
+        common.write_history(
+            os.path.join(output_dir, HISTORY),
+            dict(train_losses=train_losses, val_losses=val_losses,
+                 val_bleu_scores=val_bleu_scores,
+                 loss_components=dict(loss_components_history),
+                 epoch_times=epoch_times, total_training_time=total_time,
+                 avg_epoch_time=(float(np.mean(epoch_times)) if epoch_times
+                                 else 0.0),
+                 hyperparameters=dict(
+                     learning_rate=tr.learning_rate, batch_size=tr.batch_size,
+                     alpha=od_cfg.alpha, beta=od_cfg.beta, gamma=od_cfg.gamma,
+                     temperature=od_cfg.temperature)))
     if verbose:
         print(f"Training completed in {total_time:.1f}s. "
               f"Best validation loss: {best_val:.4f}")

@@ -20,8 +20,12 @@ caller that asks for ``cpu`` gets the CPU.
       [--resume-from saved_models/best_teacher_model.npz] [--device cuda|cpu]
 
 Data parallelism is on by default, as in the reference, and a no-op on one
-card; over more than one card it is not ported yet (ROADMAP Queue 1 item
-13) and exits.
+card.  Over several cards it runs one process per card as the KD trainer
+does (``train/common.py``): each process loads its own rows in a world
+made by the environment or the caller, or reads the global batch and takes
+its block when the trainer started the processes itself; gradients and
+the loss's normalizers are the global batch's, and only rank 0 writes
+files.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from imagecaptioner_tpu_torch.core import mesh as MS
 from imagecaptioner_tpu_torch.core.config import (TeacherConfig,
                                                   TeacherTrainConfig)
 from imagecaptioner_tpu_torch.core.device import resolve_device
@@ -44,15 +49,6 @@ from imagecaptioner_tpu_torch.models import teacher as TM
 from imagecaptioner_tpu_torch.train import common, steps
 from imagecaptioner_tpu_torch.utils import checkpoint as CKPT
 from imagecaptioner_tpu_torch.utils import convert as CV
-
-
-def check_options(*, data_parallel: bool, device) -> None:
-    """Refuse what is not ported, before any data or card is touched."""
-    if common.data_parallel_over_cards(data_parallel, device):
-        raise SystemExit(
-            "data-parallel teacher training is not ported yet (ROADMAP "
-            "Queue 1 item 13); use python -m "
-            "imagecaptioner_tpu.train.train_teacher")
 
 
 def resume_teacher_state(state: steps.TeacherTrainState, path: str,
@@ -92,10 +88,15 @@ def train(
     """Train from a CSV/image dataset under ``data_root`` (``captions_file``
     defaults to ``<data_root>/captions_clean.csv``).  ``aug=None`` keeps
     ``TEACHER_TRAIN_AUG``.  Returns ``(state, t_cfg, vocab)``."""
-    check_options(data_parallel=data_parallel, device=device)
-    device = resolve_device(device)
+    call = dict(locals())
     compute_dtype = as_dtype(compute_dtype)
     tr = train_cfg or TeacherTrainConfig()
+    n_cards = common.cards_to_spawn(min(tr.batch_size, 16), data_parallel,
+                                    device)
+    if n_cards:
+        return common.run_per_card(train, n_cards, call)
+    common.distributed_init_from_env(device)
+    device = resolve_device(device)
     if num_epochs is not None:
         tr = replace(tr, num_epochs=num_epochs)
     captions_file = captions_file or os.path.join(data_root,
@@ -110,6 +111,10 @@ def train(
         image_size=image_size, host_shard=True)
     vocab = dataset.vocab
     vocab_size = len(vocab)
+    mesh = common.maybe_mesh(train_loader.batch_size, data_parallel, device)
+    device = resolve_device(device if mesh is None else mesh.device)
+    primary = common.is_primary(mesh)
+    verbose = verbose and primary
     if verbose:
         print(f"Vocabulary size: {vocab_size}")
 
@@ -123,6 +128,7 @@ def train(
     if verbose:
         print(f"Total parameters: {TM.count_parameters(teacher):,}")
     state = steps.init_teacher_train_state(teacher, t_cfg)
+    MS.replicate(mesh, state.teacher)
     start_epoch = 0
     if resume_from is not None:
         start_epoch = resume_teacher_state(state, resume_from, device)
@@ -133,17 +139,21 @@ def train(
         t_cfg, tr, compute_dtype=compute_dtype, **aug_kw)
     eval_step = steps.make_teacher_eval_step(t_cfg, tr,
                                              compute_dtype=compute_dtype)
-    generator = torch.Generator(device=device).manual_seed(seed)
+    generator = torch.Generator(device=device).manual_seed(
+        common.rank_seed(seed, mesh))
 
-    os.makedirs(output_dir, exist_ok=True)
-    vocab.save(os.path.join(output_dir, "vocab.json"))
+    if primary:
+        os.makedirs(output_dir, exist_ok=True)
+        vocab.save(os.path.join(output_dir, "vocab.json"))
     steps_per_epoch = max(len(train_loader) // tr.accumulation_steps, 1)
     stopper = common.EarlyStopping(tr.patience, mode="min")
     train_losses, val_losses = [], []
     best_val = float("inf")
 
     def validate() -> float:
-        losses = [eval_step(state.teacher, steps.batch_to_device(b, device))
+        losses = [eval_step(state.teacher, (
+            steps.batch_to_device(b, device) if mesh is None
+            else common.put_global_batch(mesh, b, stacked=False)))
                   for b in val_loader]
         return (float(torch.stack(losses).mean()) if losses
                 else float("nan"))
@@ -174,7 +184,8 @@ def train(
     for epoch in range(start_epoch, tr.num_epochs):
         epoch_losses = []  # device tensors; one host fetch per epoch
         for idx, stacked in enumerate(
-                common.stacked_batches(train_loader, tr.accumulation_steps)):
+                common.stacked_batches(train_loader, tr.accumulation_steps,
+                                       mesh=mesh)):
             if max_steps_per_epoch is not None and idx >= max_steps_per_epoch:
                 break
             metrics = train_step(state, steps.batch_to_device(stacked, device),
@@ -194,9 +205,10 @@ def train(
                 best_val = val_loss
                 # the snapshot is taken now, the write is off the step's
                 # path; wait_for_saves() below lands it before return
-                CKPT.save_checkpoint_async(
-                    os.path.join(output_dir, "best_teacher_model.npz"),
-                    ckpt_tree(epoch, dict(val_loss=val_loss)))
+                if primary:
+                    CKPT.save_checkpoint_async(
+                        os.path.join(output_dir, "best_teacher_model.npz"),
+                        ckpt_tree(epoch, dict(val_loss=val_loss)))
                 if verbose:
                     print(f"New best model saved with validation loss: "
                           f"{val_loss:.4f}")
@@ -209,13 +221,14 @@ def train(
             print(f"Epoch {epoch+1}: Train Loss: {avg_train:.4f}")
 
     CKPT.wait_for_saves()
-    CKPT.save_checkpoint(
-        os.path.join(output_dir, "final_teacher_model.npz"),
-        ckpt_tree(tr.num_epochs, dict(train_losses=train_losses,
-                                      val_losses=val_losses)))
-    common.write_history(
-        os.path.join(output_dir, "training_history.json"),
-        dict(train_losses=train_losses, val_losses=val_losses))
+    if primary:
+        CKPT.save_checkpoint(
+            os.path.join(output_dir, "final_teacher_model.npz"),
+            ckpt_tree(tr.num_epochs, dict(train_losses=train_losses,
+                                          val_losses=val_losses)))
+        common.write_history(
+            os.path.join(output_dir, "training_history.json"),
+            dict(train_losses=train_losses, val_losses=val_losses))
     if verbose:
         print("Training completed. Final model saved.")
         print(f"Best validation loss: {best_val:.4f}")

@@ -40,33 +40,12 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import chip_smoke as CS  # noqa: E402
+from imagecaptioner_tpu_torch.core import profiling as PP  # noqa: E402
 from imagecaptioner_tpu_torch.data import transforms as T  # noqa: E402
 from imagecaptioner_tpu_torch.eval import serve  # noqa: E402
 from imagecaptioner_tpu_torch.models import transformer as TD  # noqa: E402
 from imagecaptioner_tpu_torch.ops import _build  # noqa: E402
 from imagecaptioner_tpu_torch.ops import decode as D  # noqa: E402
-
-# kernel-name fragments -> kind, first match wins
-KINDS = [
-    ("beam self-attention kernel", ("beam_self_kernel",)),
-    ("beam cross-attention kernel", ("beam_cross_kernel",)),
-    ("attention kernel (ViT)", ("attention_kernel",)),
-    ("copies", ("memcpy", "memset")),
-    ("top-k and sorts", ("topk", "sort", "radix", "bitonic", "gather_topk")),
-    ("softmax and log-softmax", ("softmax",)),
-    ("convolution (patch embedding)", ("cudnn", "conv", "implicit", "nchw",
-                                       "nhwc")),
-    ("matrix products (cuBLAS)", ("gemm", "gemv", "cutlass", "cublas", "xmma")),
-]
-
-
-def kind_of(name: str) -> str:
-    low = name.lower()
-    for kind, frags in KINDS:
-        if any(f in low for f in frags):
-            return kind
-    return "elementwise, reductions, indexing, other"
-
 
 def main() -> int:
     ap = argparse.ArgumentParser()
@@ -110,17 +89,10 @@ def main() -> int:
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) as prof:
         traced = run()
-    by_kind, n_kernels = {}, 0
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "self_device_time_total", 0) or \
-            getattr(ev, "self_cuda_time_total", 0)
-        is_dev = str(getattr(ev, "device_type", "")).endswith("CUDA")
-        if dev_us <= 0 or not is_dev:
-            continue
-        k = kind_of(ev.key)
-        by_kind[k] = by_kind.get(k, 0.0) + dev_us / 1e3 / args.batches
-        n_kernels += ev.count
-    device_ms = sum(by_kind.values())
+    traced_rows = PP.trace_rows(PP.profiler_events(prof), args.batches)
+    by_kind = {d["kind"]: d["dur_us_per_run"] / 1e3
+               for d in traced_rows["by_kind"]}
+    device_ms = traced_rows["device_us_per_run"] / 1e3
     wall_ms = 1e3 * statistics.median(wall)
     print(f"untraced batch ({args.dtype}, B={CS.BEAM_B}, K={CS.BEAM_K}, "
           f"T={CS.MAX_LEN}): median {wall_ms:.3f} ms, min "
@@ -130,9 +102,13 @@ def main() -> int:
     if device_ms <= 0:
         print("the profiler saw no device time: kinds not measured")
     else:
-        print(f"device time {device_ms:.3f} ms per batch in "
-              f"{n_kernels / args.batches:.0f} kernel launches: busy "
-              f"{100 * device_ms / wall_ms:.1f}% of an untraced batch")
+        print(f"device time {device_ms:.3f} ms per batch (kernels and "
+              f"copies) in {traced_rows['launches_per_run']:.0f} kernel "
+              f"launches: busy {100 * device_ms / wall_ms:.1f}% of an "
+              f"untraced batch; kernels cover "
+              f"{100 * traced_rows['busy_share']:.1f}% of the traced "
+              f"window's {traced_rows['span_us_per_run'] / 1e3:.3f} ms a "
+              f"batch on the device")
         for k, ms in sorted(by_kind.items(), key=lambda kv: -kv[1]):
             print(f"  {k}: {ms:.3f} ms ({100 * ms / device_ms:.1f}%)")
 
@@ -165,7 +141,10 @@ def main() -> int:
         json.dump({"device": smi, "dtype": args.dtype,
                    "wall_ms": [1e3 * w for w in wall],
                    "device_ms_by_kind": by_kind, "phases_ms": phases,
-                   "kernel_launches_per_batch": n_kernels / args.batches}, f,
+                   "kernel_launches_per_batch":
+                       traced_rows["launches_per_run"],
+                   "busy_share_of_window": traced_rows["busy_share"],
+                   "window_ms": traced_rows["span_us_per_run"] / 1e3}, f,
                   indent=1)
     return 0
 

@@ -38,6 +38,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+from imagecaptioner_tpu_torch.core import profiling as PP  # noqa: E402
 from imagecaptioner_tpu_torch.core.config import (STUDENT_CONFIGS,  # noqa: E402
                                                   DistillConfig,
                                                   KDTrainConfig,
@@ -57,34 +58,6 @@ from imagecaptioner_tpu_torch.train import common, steps  # noqa: E402
 from imagecaptioner_tpu_torch.utils import convert as CV  # noqa: E402
 
 VOCAB, A, B, T_STEPS, SEED = 2994, 2, 16, 47, 0
-
-# kernel-name fragments -> kind, first match wins
-KINDS = [
-    # csrc/decoder_scan_bwd.cu: the recompute (prep, gemm), the cooperative
-    # reverse chain and the post-loop reductions
-    ("decoder scan backward (recompute, chain, reductions)",
-     ("prep_kernel", "::gemm_kernel", "chain_kernel", "post_kernel")),
-    ("decoder scan backward (weight grads)", ("weight_grad_kernel",
-                                              "bias_grad_kernel")),
-    # the three students' forward recurrences: scan_kernel,
-    # compact_scan_kernel, enhanced_scan_kernel
-    ("decoder scan forward", ("scan_kernel",)),
-    ("attention kernel", ("attention_kernel",)),
-    ("copies", ("memcpy", "memset")),
-    ("batch norm", ("batch_norm", "batchnorm", "bn_fw", "bn_bw", "bnorm")),
-    ("convolution (cuDNN)", ("cudnn", "conv", "wgrad", "dgrad", "fprop",
-                             "implicit", "winograd", "nchw", "nhwc")),
-    ("matrix products (cuBLAS)", ("gemm", "gemv", "cutlass", "cublas", "xmma")),
-]
-
-
-def kind_of(name: str) -> str:
-    low = name.lower()
-    for kind, frags in KINDS:
-        if any(f in low for f in frags):
-            return kind
-    return "elementwise, reductions, optimizer, other"
-
 
 def main() -> int:
     ap = argparse.ArgumentParser()
@@ -173,17 +146,10 @@ def main() -> int:
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) as prof:
         traced = run(args.steps)
-    by_kind, n_kernels = {}, 0
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "self_device_time_total", 0) or \
-            getattr(ev, "self_cuda_time_total", 0)
-        is_dev = str(getattr(ev, "device_type", "")).endswith("CUDA")
-        if dev_us <= 0 or not is_dev:
-            continue
-        k = kind_of(ev.key)
-        by_kind[k] = by_kind.get(k, 0.0) + dev_us / 1e3 / args.steps
-        n_kernels += ev.count
-    device_ms = sum(by_kind.values())
+    traced_rows = PP.trace_rows(PP.profiler_events(prof), args.steps)
+    by_kind = {d["kind"]: d["dur_us_per_run"] / 1e3
+               for d in traced_rows["by_kind"]}
+    device_ms = traced_rows["device_us_per_run"] / 1e3
     wall_ms = 1e3 * statistics.median(wall)
     print(f"untraced step: median {wall_ms:.3f} ms, min {1e3 * min(wall):.3f}, "
           f"max {1e3 * max(wall):.3f} ({A * B / statistics.median(wall):.1f} "
@@ -192,9 +158,13 @@ def main() -> int:
     if device_ms <= 0:
         print("the profiler saw no device time: kinds not measured")
     else:
-        print(f"device time {device_ms:.3f} ms per step in "
-              f"{n_kernels / args.steps:.0f} kernel launches: busy "
-              f"{100 * device_ms / wall_ms:.1f}% of an untraced step")
+        print(f"device time {device_ms:.3f} ms per step (kernels and "
+              f"copies) in {traced_rows['launches_per_run']:.0f} kernel "
+              f"launches: busy {100 * device_ms / wall_ms:.1f}% of an "
+              f"untraced step; kernels cover "
+              f"{100 * traced_rows['busy_share']:.1f}% of the traced "
+              f"window's {traced_rows['span_us_per_run'] / 1e3:.3f} ms a "
+              f"step on the device")
         for k, ms in sorted(by_kind.items(), key=lambda kv: -kv[1]):
             print(f"  {k}: {ms:.3f} ms ({100 * ms / device_ms:.1f}%)")
 
@@ -239,7 +209,9 @@ def main() -> int:
                    "optimized": args.optimized,
                    "wall_ms": [1e3 * w for w in wall],
                    "device_ms_by_kind": by_kind, "phases_ms": phases,
-                   "kernel_launches_per_step": n_kernels / args.steps}, f,
+                   "kernel_launches_per_step": traced_rows["launches_per_run"],
+                   "busy_share_of_window": traced_rows["busy_share"],
+                   "window_ms": traced_rows["span_us_per_run"] / 1e3}, f,
                   indent=1)
     return 0
 

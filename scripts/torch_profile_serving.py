@@ -29,7 +29,6 @@ import argparse
 import json
 import os
 import statistics
-import tempfile
 import subprocess
 import sys
 import time
@@ -40,6 +39,7 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from imagecaptioner_tpu_torch.core.config import STUDENT_CONFIGS  # noqa: E402
+from imagecaptioner_tpu_torch.core import profiling as PP  # noqa: E402
 from imagecaptioner_tpu_torch.core.modules import cast_parameters  # noqa: E402
 from imagecaptioner_tpu_torch.eval import serve  # noqa: E402
 from imagecaptioner_tpu_torch.models.student import Student, student_init  # noqa: E402
@@ -49,69 +49,22 @@ from imagecaptioner_tpu_torch.utils import convert as CV  # noqa: E402
 
 VOCAB, BATCH, MAX_LEN, SEED = 2994, 32, 20, 0
 
-# kernel-name fragments -> kind, first match wins
-KINDS = [
-    ("int8 products kernel (#11)", ("conv_gemm_kernel", "depthwise_kernel",
-                                    "int8_gemm_kernel",
-                                    "int8_depthwise_kernel")),
-    ("int8 quantization kernel (#12)", ("int8_amax_kernel",
-                                        "int8_quantize_kernel")),
-    ("greedy decode kernel", ("greedy_kernel", "greedy_compact_kernel")),
-    ("attention kernel", ("attention_kernel",)),
-    ("copies", ("memcpy", "memset")),
-    ("batch norm", ("batch_norm", "batchnorm", "bn_fw", "bn_bw", "bnorm")),
-    ("convolution (cuDNN)", ("cudnn", "conv", "fprop", "implicit", "winograd",
-                             "nchw", "nhwc")),
-    ("matrix products (cuBLAS)", ("gemm", "gemv", "cutlass", "cublas", "xmma")),
-]
-
-
-def kind_of(name: str) -> str:
-    low = name.lower()
-    for kind, frags in KINDS:
-        if any(f in low for f in frags):
-            return kind
-    return "elementwise, reductions, softmax, other"
-
-
 QUANT_RANGE = "int8 activation quantization"
 
 
-def traced_quantization(prof, n_batches: int) -> dict:
-    """Device time (ms) and launches a batch of the kernels launched inside
-    ``QUANT_RANGE``: a launch belongs to it when its runtime call on the
-    host lies inside one of the range's host spans; its kernel is found by
-    the launch's correlation id."""
-    fd, path = tempfile.mkstemp(suffix=".json")
-    os.close(fd)
-    try:
-        prof.export_chrome_trace(path)
-        events = json.load(open(path))["traceEvents"]
-    finally:
-        os.remove(path)
-    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
-                   if e.get("name") == QUANT_RANGE and e.get("ph") == "X"
-                   and e.get("cat") == "user_annotation")
-    inside = set()
-    for e in events:
-        if e.get("cat") != "cuda_runtime" or "correlation" not in e.get(
-                "args", {}):
-            continue
-        t = e["ts"]
-        if any(a <= t <= b for a, b in spans):
-            inside.add(e["args"]["correlation"])
+def traced_quantization(events, n_batches: int) -> dict:
+    """Device time (ms) and launches a batch of what was launched inside
+    ``QUANT_RANGE`` (``core/profiling.launched_within``): kernel #12, the
+    memsets of its amax slots, and anything else (plain passes)."""
+    q = PP.launched_within(events, lambda n: n == QUANT_RANGE, n_batches)
     out = {f"{key}_{what}": 0.0 for key in ("kernel", "memset", "plain")
            for what in ("ms", "launches")}
-    out["spans"] = len(spans) / n_batches
-    for e in events:
-        if e.get("cat") not in ("kernel", "gpu_memset", "gpu_memcpy") \
-                or e.get("args", {}).get("correlation") not in inside:
-            continue
-        key = ("memset" if e.get("cat") == "gpu_memset" else "kernel"
-               if kind_of(e["name"]) == "int8 quantization kernel (#12)"
-               else "plain")
-        out[f"{key}_ms"] += e["dur"] / 1e3 / n_batches
-        out[f"{key}_launches"] += 1 / n_batches
+    out["spans"] = q["spans_per_run"]
+    for d in q["by_kind"]:
+        key = {"#12 int8 quantization": "kernel",
+               "copies (memset)": "memset"}.get(d["kind"], "plain")
+        out[f"{key}_ms"] += d["dur_us_per_run"] / 1e3
+        out[f"{key}_launches"] += d["count_per_run"]
     return out
 
 
@@ -182,18 +135,13 @@ def main() -> int:
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) as prof:
         traced = run()
-    by_kind, by_name, n_kernels = {}, {}, 0
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "self_device_time_total", 0) or \
-            getattr(ev, "self_cuda_time_total", 0)
-        is_dev = str(getattr(ev, "device_type", "")).endswith("CUDA")
-        if dev_us <= 0 or not is_dev or ev.key == QUANT_RANGE:
-            continue        # the range's device span is no kernel of its own
-        k = kind_of(ev.key)
-        by_kind[k] = by_kind.get(k, 0.0) + dev_us / 1e3 / args.batches
-        by_name[ev.key] = (dev_us / 1e3 / args.batches, ev.count / args.batches)
-        n_kernels += ev.count
-    device_ms = sum(by_kind.values())
+    events = PP.profiler_events(prof)
+    traced_rows = PP.trace_rows(events, args.batches)
+    by_kind = {d["kind"]: d["dur_us_per_run"] / 1e3
+               for d in traced_rows["by_kind"]}
+    by_name = {d["name"]: (d["dur_us_per_run"] / 1e3, d["count_per_run"])
+               for d in traced_rows["by_name"]}
+    device_ms = traced_rows["device_us_per_run"] / 1e3
     wall_ms = 1e3 * statistics.median(wall)
     print(f"untraced batch of {BATCH}: median {wall_ms:.3f} ms, min "
           f"{1e3 * min(wall):.3f}, max {1e3 * max(wall):.3f} "
@@ -202,16 +150,20 @@ def main() -> int:
     if device_ms <= 0:
         print("the profiler saw no device time: kinds not measured")
     else:
-        print(f"device time {device_ms:.3f} ms per batch in "
-              f"{n_kernels / args.batches:.0f} kernel launches: busy "
-              f"{100 * device_ms / wall_ms:.1f}% of an untraced batch")
+        print(f"device time {device_ms:.3f} ms per batch (kernels and "
+              f"copies) in {traced_rows['launches_per_run']:.0f} kernel "
+              f"launches: busy {100 * device_ms / wall_ms:.1f}% of an "
+              f"untraced batch; kernels cover "
+              f"{100 * traced_rows['busy_share']:.1f}% of the traced "
+              f"window's {traced_rows['span_us_per_run'] / 1e3:.3f} ms a "
+              f"batch on the device")
         for k, ms in sorted(by_kind.items(), key=lambda kv: -kv[1]):
             print(f"  {k}: {ms:.3f} ms ({100 * ms / device_ms:.1f}%)")
         print("  the ten kernels that take the most device time a batch:")
         for key, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0]
                                    )[:10]:
             print(f"    {ms:.3f} ms in {n:.0f} launches: {key[:110]}")
-    quant = traced_quantization(prof, args.batches) if args.int8 else None
+    quant = traced_quantization(events, args.batches) if args.int8 else None
     if quant is not None:
         total = quant["kernel_ms"] + quant["memset_ms"] + quant["plain_ms"]
         print(f"activation quantization ({quant['spans']:.0f} layers a "
@@ -229,7 +181,10 @@ def main() -> int:
                    "wall_ms": [1e3 * w for w in wall],
                    "device_ms_by_kind": by_kind,
                    "device_ms_by_kernel": {k: v[0] for k, v in by_name.items()},
-                   "kernel_launches_per_batch": n_kernels / args.batches}, f,
+                   "kernel_launches_per_batch":
+                       traced_rows["launches_per_run"],
+                   "busy_share_of_window": traced_rows["busy_share"],
+                   "window_ms": traced_rows["span_us_per_run"] / 1e3}, f,
                   indent=1)
     return 0
 

@@ -38,6 +38,7 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+from imagecaptioner_tpu_torch.core import profiling as PP  # noqa: E402
 from imagecaptioner_tpu_torch.core.config import (TeacherConfig,  # noqa: E402
                                                   TeacherTrainConfig)
 from imagecaptioner_tpu_torch.data.synthetic import make_grid_loaders  # noqa: E402
@@ -46,7 +47,6 @@ from imagecaptioner_tpu_torch.ops import _build  # noqa: E402
 from imagecaptioner_tpu_torch.ops import attention as ATT  # noqa: E402
 from imagecaptioner_tpu_torch.train import common, steps  # noqa: E402
 from imagecaptioner_tpu_torch.utils import convert as CV  # noqa: E402
-from torch_profile_kd_step import kind_of  # noqa: E402
 
 VOCAB, T_STEPS, SEED = 2994, 47, 0
 
@@ -102,23 +102,17 @@ def main() -> int:
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) as prof:
         traced, _ = run(args.steps)
-    by_kind, n_kernels, bwd_us = {}, 0, 0.0
-    for ev in prof.key_averages():
-        if "_AttentionCoreBackward" in ev.key:
-            # inclusive: the kernels launched by the node and its children
-            bwd_us = max(bwd_us, getattr(ev, "device_time_total", 0) or
-                         getattr(ev, "cuda_time_total", 0))
-        dev_us = getattr(ev, "self_device_time_total", 0) or \
-            getattr(ev, "self_cuda_time_total", 0)
-        is_dev = str(getattr(ev, "device_type", "")).endswith("CUDA")
-        if dev_us <= 0 or not is_dev:
-            continue
-        k = kind_of(ev.key)
-        by_kind[k] = by_kind.get(k, 0.0) + dev_us / 1e3 / args.steps
-        n_kernels += ev.count
-    device_ms = sum(by_kind.values())
+    events = PP.profiler_events(prof)
+    traced_rows = PP.trace_rows(events, args.steps)
+    by_kind = {d["kind"]: d["dur_us_per_run"] / 1e3
+               for d in traced_rows["by_kind"]}
+    device_ms = traced_rows["device_us_per_run"] / 1e3
+    n_kernels = traced_rows["launches_per_run"]
     wall_ms = statistics.median(wall)
-    bwd_in_step_ms = bwd_us / 1e3 / args.steps
+    # inclusive: what the autograd node and its children launch
+    bwd_in_step_ms = PP.launched_within(
+        events, lambda n: "_AttentionCoreBackward" in n,
+        args.steps)["device_us_per_run"] / 1e3
 
     # the same backward alone: one call per ViT block and micro-batch
     n_calls = A * cfg.encoder_depth
@@ -135,11 +129,8 @@ def main() -> int:
         for _ in range(n_calls):
             ATT.attention_core_grads(q, k, v, g, scale=shape[3] ** -0.5)
         torch.cuda.synchronize()
-    bwd_alone_ms = sum(
-        (getattr(ev, "self_device_time_total", 0) or
-         getattr(ev, "self_cuda_time_total", 0))
-        for ev in prof_bwd.key_averages()
-        if str(getattr(ev, "device_type", "")).endswith("CUDA")) / 1e3
+    bwd_alone_ms = PP.trace_rows(PP.profiler_events(prof_bwd))[
+        "device_us_per_run"] / 1e3
     print(f"untraced step A={A} x B={B}: wall median {wall_ms:.3f} ms, min "
           f"{min(wall):.3f}, max {max(wall):.3f} "
           f"({A * B / wall_ms * 1e3:.1f} images/s); span by CUDA events "
@@ -148,9 +139,12 @@ def main() -> int:
     if device_ms <= 0:
         print("the profiler saw no device time: kinds not measured")
     else:
-        print(f"device time {device_ms:.3f} ms per step in "
-              f"{n_kernels / args.steps:.0f} kernel launches: busy "
-              f"{100 * device_ms / wall_ms:.1f}% of an untraced step")
+        print(f"device time {device_ms:.3f} ms per step (kernels and "
+              f"copies) in {n_kernels:.0f} kernel launches: busy "
+              f"{100 * device_ms / wall_ms:.1f}% of an untraced step; "
+              f"kernels cover {100 * traced_rows['busy_share']:.1f}% of the "
+              f"traced window's {traced_rows['span_us_per_run'] / 1e3:.3f} "
+              f"ms a step on the device")
         for kind, ms in sorted(by_kind.items(), key=lambda kv: -kv[1]):
             print(f"  {kind}: {ms:.3f} ms ({100 * ms / device_ms:.1f}%)")
         print(f"#2's plain backward in the step (under "
@@ -162,7 +156,9 @@ def main() -> int:
     with open(args.out, "w") as f:
         json.dump({"device": smi, "wall_ms": wall, "span_ms": span,
                    "traced_ms": traced, "device_ms": device_ms,
-                   "kernels_per_step": n_kernels / args.steps,
+                   "kernels_per_step": n_kernels,
+                   "busy_share_of_window": traced_rows["busy_share"],
+                   "window_ms": traced_rows["span_us_per_run"] / 1e3,
                    "by_kind_ms": by_kind,
                    "attention_backward_in_step_ms": bwd_in_step_ms,
                    "attention_backward_alone_ms": bwd_alone_ms,

@@ -229,8 +229,12 @@ def test_get_loader_shards_only_in_one_process(mixed, monkeypatch):
 
     monkeypatch.setattr(dist, "is_initialized", lambda: True)
     monkeypatch.setattr(dist, "get_world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        get_loader(root, csv, image_size=S, host_shard=True)
+    monkeypatch.setattr(dist, "get_rank", lambda: 1)
+    # a world of two processes: this rank's host_shard, the vocabulary of all
+    _, shard = get_loader(root, csv, image_size=S, freq_threshold=3,
+                          host_shard=True)
+    assert shard.imgs == ds.imgs[1::2][:len(ds) // 2]
+    assert shard.vocab.stoi == ds.vocab.stoi
     assert PLD.get_loader(root, csv, image_size=S)[1].imgs == ds.imgs
 
 

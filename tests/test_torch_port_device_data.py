@@ -312,8 +312,8 @@ def test_cli_device_dataset_logs_every_step(disk, tmp_path):
     calls = []
     real = PS.make_device_data_step
 
-    def counting(step, k):
-        fn = real(step, k)
+    def counting(step, k, mesh=None):
+        fn = real(step, k, mesh)
 
         def wrapped(*a):
             calls.append(k)

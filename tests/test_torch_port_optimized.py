@@ -44,6 +44,7 @@ from imagecaptioner_tpu_torch.distill.projector import (
     create_feature_projectors, make_projectors)
 from imagecaptioner_tpu_torch.models.student import Student, student_init
 from imagecaptioner_tpu_torch.models.teacher import Teacher, teacher_init
+from imagecaptioner_tpu_torch.train import common
 from imagecaptioner_tpu_torch.train import optim as PO
 from imagecaptioner_tpu_torch.train import steps as PS
 from imagecaptioner_tpu_torch.train import train_student_kd_optimized as PTO
@@ -734,7 +735,7 @@ def test_port_resumes_at_the_saved_global_step(trained, tmp_path,
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(data_parallel=True, device="cuda"), "item 13"),
+    (dict(data_parallel=True, device="cuda"), "one process per card: 2"),
     # accepted now: the trainer goes on to read its data
     pytest.param(dict(device_dataset=True), "captions_clean.csv",
                  id="kw1-item 11"),
@@ -742,20 +743,26 @@ def test_port_resumes_at_the_saved_global_step(trained, tmp_path,
 ])
 def test_unported_options_and_the_default_device(kw, match, monkeypatch):
     """The options the flagship trainer refuses, refused the same way
-    before any data is read; ``device_dataset`` is ported and goes on to
-    the data (here a missing CSV); without a card the default device
+    before any data is read; data parallelism over two visible cards
+    starts one process per card (``common.run_per_card``, recorded here),
+    also before any data is read; ``device_dataset`` is ported and goes on
+    to the data (here a missing CSV); without a card the default device
     raises."""
     if "data_parallel" in kw:
         monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+
+        def per_card(fn, n, kwargs):
+            assert fn is PTO.train_student_with_kd_optimized
+            assert kwargs["data_root"] == "no/data"
+            raise SystemExit(f"one process per card: {n}")
+        monkeypatch.setattr(common, "run_per_card", per_card)
     err = {"student_variant": ValueError,
            "device_dataset": FileNotFoundError}.get(next(iter(kw)),
                                                     SystemExit)
     with pytest.raises(err, match=match) as e:
         PTO.train_student_with_kd_optimized("no/data", None, "t.npz", "out",
                                             **{"device": "cpu", **kw})
-    if err is SystemExit:
-        assert "imagecaptioner_tpu.train.train_student_kd_optimized" in \
-            str(e.value)
+    assert match in str(e.value)
     monkeypatch.undo()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -87,17 +87,20 @@ def test_teacher_cli_default_device_raises_without_a_card(artifacts):
                                    ["--int8", "--int8-calibrate", "2"],
                                    ["--data-parallel"]])
 def test_unported_teacher_flags_exit(artifacts, extra, monkeypatch):
-    """Data parallelism exits as not ported, but only with more than one
-    card visible (on one device it is a no-op).  The int8 flags are ported:
+    """Data parallelism with more than one card visible splits each batch
+    over the cards, and a ``--batch`` that does not divide by them exits
+    with the JAX CLI's message before any card is used (on one device it is
+    a no-op).  The int8 flags are ported:
     with each, the port's CLI writes the JAX CLI's captions (the encoder
     quantized, or encoder and decoder, dynamically or with static scales
     calibrated on the first two images)."""
     if extra == ["--data-parallel"]:
         monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-        args = _args(artifacts, artifacts / "x.jsonl", *extra)
-        with pytest.raises(SystemExit, match="not ported yet") as e:
+        args = _args(artifacts, artifacts / "x.jsonl", *extra) + [
+            "--batch", "3"]
+        with pytest.raises(SystemExit, match="must divide") as e:
             serve.main(args)
-        assert "item 13" in str(e.value)
+        assert "mesh data axis (2)" in str(e.value)
         assert not (artifacts / "x.jsonl").exists()
         return
     tag = "_".join(a.strip("-") for a in extra)

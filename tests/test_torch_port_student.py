@@ -155,8 +155,8 @@ def test_unported_variants_and_flags_raise(tmp_path, monkeypatch, capsys):
     """All three variants build; what no kernel takes raises: a layer count
     other than the variant's, an unknown variant or ``model_type``; the
     int8 flags (ported) exit with the JAX CLI's two parse errors where they
-    do not apply; data parallelism over several cards exits as not ported
-    yet."""
+    do not apply; data parallelism over several cards needs a ``--batch``
+    that divides by them, as the JAX CLI's mesh does."""
     for variant, layers in (("full", 2), ("compact", 1), ("enhanced", 3)):
         cfg = PC.STUDENT_CONFIGS[variant](V, embed_size=E, hidden_size=H)
         assert cfg.variant == variant and cfg.num_layers == layers
@@ -186,10 +186,13 @@ def test_unported_variants_and_flags_raise(tmp_path, monkeypatch, capsys):
         assert e.value.code == 2
         err = capsys.readouterr().err
         assert msg in err
-    # data parallelism is a no-op on one device and refused over several
+    # data parallelism is a no-op on one device and splits each batch over
+    # several, which --batch must divide
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(SystemExit, match="not ported yet.*item 13"):
-        serve.main(base + ["--model", "student", "--data-parallel"])
+    with pytest.raises(SystemExit, match=r"--batch 3 must divide by the "
+                       r"mesh data axis \(2\)"):
+        serve.main(base + ["--model", "student", "--data-parallel",
+                           "--batch", "3"])
 
 
 def test_serve_cli_end_to_end(jax_student, tmp_path):

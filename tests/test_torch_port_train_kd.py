@@ -165,7 +165,7 @@ def test_checkpoint_reads_in_jax_and_serves_through_the_port(trained, grid):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(data_parallel=True, device="cuda"), "item 13"),
+    (dict(data_parallel=True, device="cuda"), "one process per card: 2"),
     # a CPU run has one device: past data parallelism to the next check;
     # the device-resident dataset is accepted and the trainer goes on to
     # read its data (a missing CSV or teacher checkpoint here)
@@ -176,16 +176,23 @@ def test_checkpoint_reads_in_jax_and_serves_through_the_port(trained, grid):
 ])
 def test_unported_options_exit_with_their_roadmap_item(grid, kw, match,
                                                       monkeypatch):
-    """Options whose paths are not ported exit with their roadmap item; the
-    three student variants are all ported, and an unknown one raises.  Data
-    parallelism is on by default and a no-op on one device, as the
-    reference's ``maybe_mesh`` makes it: it exits only when training on the
-    card with more than one card visible (checked before any card is used).
-    ``device_dataset`` is ported: it passes the checks, and the trainers go
-    on to read the teacher checkpoint or the CSV."""
+    """The three student variants are all ported, and an unknown one
+    raises.  Data parallelism is on by default and a no-op on one device,
+    as the reference's ``maybe_mesh`` makes it: on the card with two cards
+    visible both entry points start one process per card
+    (``common.run_per_card``, recorded here) before any data or card is
+    used.  ``device_dataset`` is ported: it passes the checks, and the
+    trainers go on to read the teacher checkpoint or the CSV."""
     train_loader, val_loader, vocab = grid
     if "data_parallel" in kw:
         monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+
+        def per_card(fn, n, kwargs):
+            assert fn in (TK.train_student_with_kd,
+                          TK.train_student_with_kd_on_loaders)
+            assert kwargs["device"] == "cuda"
+            raise SystemExit(f"one process per card: {n}")
+        monkeypatch.setattr(common, "run_per_card", per_card)
     unknown = "student_variant" in kw
     accepted = "device_dataset" in kw
     err = (ValueError if unknown else FileNotFoundError if accepted
@@ -194,8 +201,7 @@ def test_unported_options_exit_with_their_roadmap_item(grid, kw, match,
                       train_loader, val_loader, vocab, "t.npz", "out", **k),
                   lambda **k: TK.train_student_with_kd("no/data", None,
                                                        "t.npz", "out", **k)):
-        with pytest.raises(err, match=match if unknown or accepted
-                           else "not ported yet") as e:
+        with pytest.raises(err, match=match) as e:
             train(**{"device": "cpu", **kw})      # before any data is read
         assert match in str(e.value)
 

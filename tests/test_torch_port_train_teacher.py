@@ -365,13 +365,18 @@ def test_train_checkpoints_and_resume_across_packages(run, data, tmp_path,
 def test_entry_runs_on_the_card_unless_asked_and_refuses_several(
         data, tmp_path, monkeypatch):
     """The default device is the card: without one the trainer raises; with
-    several cards visible, data parallelism (the default) exits naming
-    ROADMAP item 13, before any data is read.  The CLI passes its flags
-    on."""
+    several cards visible, data parallelism (the default) starts one
+    process per card (``common.run_per_card``, recorded here) before any
+    data is read.  The CLI passes its flags on."""
     with pytest.raises(RuntimeError, match="no CUDA device"):
         PTT.train(data["root"], output_dir=str(tmp_path))
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(SystemExit, match="item 13"):
+
+    def per_card(fn, n, kwargs):
+        assert fn is PTT.train and kwargs["data_root"] == "no/such/dir"
+        raise SystemExit(f"one process per card: {n}")
+    monkeypatch.setattr(PTT.common, "run_per_card", per_card)
+    with pytest.raises(SystemExit, match="one process per card: 2"):
         PTT.train("no/such/dir", output_dir=str(tmp_path))
     seen = {}
     monkeypatch.setattr(PTT, "train",
