@@ -208,6 +208,22 @@ Imports nothing of JAX.  In order it:
      rank) and a device-resident chain of 2 steps against two direct steps
      on each rank, held against one process on the global batch (1e-4);
      each rank must launch #5 and #6 (#2 for the teacher);
+ 17. tensor and sequence parallelism of the frozen teacher, after 16d: (a)
+     two ``spawn``ed gloo ranks sharing the card as a (1, 2) mesh run the
+     full-width teacher's KD forward (ViT-S/16 at 224, 512/8/4, V=2994,
+     B=16, T=47) placed by ``parallel.tp.place_teacher_tp``,
+     inside ``parallel.sp.sequence_sharding`` and both, float32 and as
+     ``cast_teacher`` rounds it to bf16, against one process's unsharded
+     teacher (1e-4, bf16 2e-2); each rank launches #2 on its heads, or on
+     its rows with the causal offset form; (b) four ranks as a (2, 2) mesh
+     take one float32 KD step of the full student (A=1 x B=8 a data index)
+     with the teacher placed and sharded, against one process on the
+     global batch by 16d's bounds, the model replicas bit-identical, each
+     rank launching #2, #5 and #6; (c) #2's offset form against its plain
+     version and bit for bit against the full-length launch's rows, float32
+     and bf16, and #2 timed at every rank's shape beside SDPA with the same
+     mask; (d) the native tokenizer built by g++, token for token against
+     the Python one over the disk pipeline's captions and a fuzz set;
  14. prints kernel, plain and library times (CUDA events, median after
      warm-up), each kernel's bound, the chain floor of the six cooperative
      kernels (#1, #3, #4/#5, #6, #7, #8: the median of 2,000 empty grid
@@ -217,25 +233,28 @@ Imports nothing of JAX.  In order it:
  15. prints the kernels JSON line, the nvidia-smi line, and last
      ``{"ok": true, "device": {...}}``.
 Any failed check exits non-zero before the last line.  ``--data-int8`` runs
-only 11g and 13b.  ``--mutation``
-builds eleven faulty copies of the kernels' sources (a scan backward
+only 11g and 13b, ``--tensor-parallel`` only 17.  ``--mutation``
+builds twelve faulty copies of the kernels' sources (a scan backward
 without its dropout mask, a beam
 self-attention that ignores the ancestry table, one that stages every chunk
 of rows from position 0, a beam cross-attention whose
 bulk copy of V drops its last 16 keys, an enhanced scan whose attention
 ignores its dropout multiplier, an enhanced scan whose LayerNorms combine
-stale partials, an attention core whose causal mask is off by one, a greedy
+stale partials, an attention core whose causal mask is off by one, one
+whose causal mask ignores its ``q_offset``, a greedy
 decode whose blocks all read row 0's broadcast context, a scan forward whose
 layer 1 reads the broadcast h0 without its mask, a compact greedy decode
 whose row blocks all reduce row 0's partial argmaxes, a compact scan whose
 cell reads the previous step's recurrent part at even steps), then an
 int8 convolution whose ring drops its last K stage and an int8
-quantization that rounds half away from zero, and plants four faults in
+quantization that rounds half away from zero, and plants five faults in
 Python (an on-device gather that takes each row's neighbour; first, a
 profiler that counts a device-side ``record_function`` range as a kernel;
-last, in both ranks of the data-parallel world, batch norms whose
-statistics stay local and a ``max(lengths)`` that stays local); it expects
-all seventeen checks to fail.
+last, in both ranks of 17a's world, a ``place_teacher_tp`` that splits the
+packed q/k/v projection into contiguous blocks instead of whole heads, and
+in both ranks of the data-parallel world, batch norms whose statistics
+stay local and a ``max(lengths)`` that stays local); it expects all
+nineteen checks to fail.
 """
 
 from __future__ import annotations
@@ -257,6 +276,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 import torch
@@ -308,7 +328,10 @@ from imagecaptioner_tpu_torch.ops import greedy as G
 from imagecaptioner_tpu_torch.ops import int8 as I8
 from imagecaptioner_tpu_torch.ops import lstm_scan as S
 from imagecaptioner_tpu_torch.ops import quant as Q
+from imagecaptioner_tpu_torch.distill.wrapper import teacher_forward_for_kd
 from imagecaptioner_tpu_torch.parallel import multihost as MH
+from imagecaptioner_tpu_torch.parallel import sp as SP
+from imagecaptioner_tpu_torch.parallel import tp as TP
 from imagecaptioner_tpu_torch.runners import streamlit_app as DEMO
 from imagecaptioner_tpu_torch.train import common, steps
 from imagecaptioner_tpu_torch.train import optim as O
@@ -872,14 +895,6 @@ def check_attention_kd(dev, gen):
                   f"{'ok' if ok else 'FAIL'}", flush=True)
             if not ok:
                 fail("attention kernel disagrees with its plain version")
-    q = torch.randn((2, 2, 5, 64), device=dev, generator=gen)
-    k = torch.randn((2, 2, 9, 64), device=dev, generator=gen)
-    try:
-        A.attention_core_cuda(q, k, k, causal=True, scale=0.125)
-    except ValueError:
-        pass
-    else:
-        fail("the attention wrapper took a causal mask with Lq != Lk")
     for shape, dtype in itertools.product(
             ((KD_B, 4, 49, 64), (TEACH_B, 6, 197, 64)),
             (torch.float32, torch.bfloat16)):
@@ -1592,7 +1607,8 @@ def kd_counters(variant):
 
 
 def zero_counters():
-    A.launches = G.launches = G.launches_compact = ES.launches = 0
+    A.launches = A.launches_offset = 0
+    G.launches = G.launches_compact = ES.launches = 0
     S.launches_eval = S.launches_train = S.launches_bwd = 0
     S.launches_compact = 0
     BA.launches_self = BA.launches_cross = 0
@@ -4370,6 +4386,10 @@ def forget_libraries() -> None:
     BA._KERNELS = ES._LIB = None
 
 
+# #2's causal mask, the line two mutants replace
+OFFSET_MASK = "if (col >= Lk || (causal && col > row + q_offset)) x = -INFINITY;"
+
+
 def mutant_caught(source: str, good: str, bad: str, check, what: str) -> bool:
     """Build a copy of ``csrc/`` in which one line of ``source`` is replaced
     and run ``check`` on it: the check must fail.  The copy lives in a
@@ -4402,7 +4422,7 @@ def mutant_caught(source: str, good: str, bad: str, check, what: str) -> bool:
 
 
 def run_mutation(dev) -> int:
-    """Seventeen planted faults, each of which its check must catch: a
+    """Nineteen planted faults, each of which its check must catch: a
     profiler that counts a device-side ``record_function`` range as a
     kernel, the scan
     backward without the dropout mask on layer 1's input gradient (``dh0 =
@@ -4412,7 +4432,8 @@ def run_mutation(dev) -> int:
     position (only the chunked case, K=10 at S=64 in float32, can see it),
     an enhanced scan
     whose attention heads ignore their dropout multiplier ``amask``, an
-    attention core whose causal mask lets each row see one key ahead, two
+    attention core whose causal mask lets each row see one key ahead, one
+    whose causal mask ignores ``q_offset`` (17c's check), two
     faults in the cross-block exchange of the cooperative chains (a greedy
     decode whose blocks all read batch row 0's context from L2 when they
     build x0, a scan forward whose layer 1 reads the broadcast h0 without
@@ -4425,9 +4446,11 @@ def run_mutation(dev) -> int:
     whose ring drops its last K stage, an int8 quantization that rounds half
     away from zero, and an on-device batch gather
     that takes each row's neighbour (a Python fault, planted by replacing
-    ``device_cache.gather_batch``), and in both ranks of the data-parallel
-    KD check, batch norms whose statistics stay local and a
-    ``max(lengths)`` that stays local."""
+    ``device_cache.gather_batch``), in both ranks of 17a's tensor-parallel
+    teacher a ``place_teacher_tp`` that splits the packed q/k/v projection
+    into contiguous blocks, and in both ranks of the data-parallel KD
+    check, batch norms whose statistics stay local and a ``max(lengths)``
+    that stays local."""
     caught = [spawned_mutant_caught(
         lambda: check_profiling(dev, mutant=True),
         "the profiler counts device-side record_function ranges as kernels")]
@@ -4445,12 +4468,16 @@ def run_mutation(dev) -> int:
                       "const float fed = h;",
                       lambda: check_scan(decoder, dev, mutant="fwd"),
                       "layer 1 reads the broadcast h0 without its mask"),
-        mutant_caught("attention_core.cu",
-                      "if (col >= Lk || (causal && col > row)) x = -INFINITY;",
-                      "if (col >= Lk || (causal && col > row + 1)) x = -INFINITY;",
+        mutant_caught("attention_core.cu", OFFSET_MASK,
+                      OFFSET_MASK.replace("row + q_offset", "row + q_offset + 1"),
                       lambda: check_attention(
                           dev, torch.Generator(device=dev).manual_seed(SEED)),
                       "causal mask lets each row see one key ahead"),
+        mutant_caught("attention_core.cu", OFFSET_MASK,
+                      OFFSET_MASK.replace("row + q_offset", "row"),
+                      lambda: check_attention_offset(
+                          dev, torch.Generator(device=dev).manual_seed(SEED)),
+                      "the causal mask ignores q_offset"),
         mutant_caught("decoder_scan_bwd.cu",
                       "const float dh0 = a.dh0c[rj] + s.px[r * CMAX + c] * m;",
                       "const float dh0 = a.dh0c[rj] + s.px[r * CMAX + c];",
@@ -4522,6 +4549,10 @@ def run_mutation(dev) -> int:
             DC, "gather_batch", gather_off_by_one,
             lambda: check_resident_rows(dev, root, csv_path, DISK_SIZE),
             "the on-device gather takes each row's neighbour"))
+    caught.append(spawned_mutant_caught(
+        lambda: check_tp_teacher(dev, modes=("tp",), dtypes=("f32",),
+                                 mutant="qkv_halves"),
+        "place_teacher_tp splits the packed qkv into contiguous blocks"))
     for mutant, what in (("bn_local", "the batch norms' statistics left "
                           "local to each rank"),
                          ("lengths_local", "max(lengths) left local to each "
@@ -5177,6 +5208,525 @@ def check_dp_serving(dev, model16, cfg16, batches) -> dict:
                 greedy_images_per_s=n_rows / greedy_s)
 
 
+# --- 17. tensor and sequence parallelism of the frozen teacher ----------
+
+TP_MODES = ("tp", "sp", "tpsp")
+TP_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+TP_M = 2                  # the model axis of 17a: two ranks sharing the card
+TP_KD_MESH = (2, 2)       # 17b: data x model, four ranks sharing the card
+TP_B, TP_KD_B = 16, 8     # 17a's batch; 17b's rows a data index (global 16)
+TP_LIMIT = {"f32": 1e-4, "bf16": 2e-2}   # logits and memory, relative
+# kernel #2 where a model rank of 17a launches it, by mode and model index:
+# (heads, Lq, Lk, causal, q_offset), B = 16 at every call
+TP_ATTN_CALLS = {
+    "tp": [{(3, 197, 197, 0, 0), (4, 47, 47, 1, 0), (4, 47, 197, 0, 0)}] * 2,
+    "sp": [{(6, 99, 197, 0, 0), (8, 24, 47, 1, 0), (8, 24, 197, 0, 0)},
+           {(6, 98, 197, 0, 0), (8, 23, 47, 1, 24), (8, 23, 197, 0, 0)}],
+}
+TP_ATTN_CALLS["tpsp"] = TP_ATTN_CALLS["tp"]
+# kernel #2 at those shapes, timed: (B, heads, Lq, Lk, hd, causal,
+# q_offset, dtype); the offset form also in bf16
+ATTN_RANK_SHAPES = {
+    "sp_self_rank0": (16, 8, 24, 47, 64, True, 0, torch.float32),
+    "sp_self_rank1": (16, 8, 23, 47, 64, True, 24, torch.float32),
+    "sp_self_rank1_bf16": (16, 8, 23, 47, 64, True, 24, torch.bfloat16),
+    "sp_cross_rank0": (16, 8, 24, 197, 64, False, 0, torch.float32),
+    "sp_vit_rank0": (16, 6, 99, 197, 64, False, 0, torch.float32),
+    "tp_vit": (16, 3, 197, 197, 64, False, 0, torch.float32),
+    "tp_self": (16, 4, 47, 47, 64, True, 0, torch.float32),
+    "tp_cross": (16, 4, 47, 197, 64, False, 0, torch.float32),
+}
+
+
+def packed_halves(dim: int, heads: int, mesh) -> np.ndarray:
+    """The planted fault: the packed q/k/v rows cut into contiguous blocks,
+    JAX's layout, without GSPMD's collectives to make it right."""
+    return np.array_split(np.arange(3 * dim), mesh.model_size)[
+        mesh.model_index]
+
+
+def tp_teacher(dev, tree=None):
+    """The full-width teacher (ViT-S/16 at 224, 512/8/4, V=2994) from
+    ``teacher_init(SEED + 3)`` (or ``tree``), float32, in eval mode on
+    ``dev``.  Not sharpened: ``sharpen_teacher``'s gains make the logits
+    chaotic for the beam phase's purpose (a 1e-6 relative perturbation of
+    the images moves them 6e-4 at float32 and 0.88 at bf16, measured on the
+    H100), so no reordering of its sums could hold 17a's bounds; at its
+    default init the same perturbation moves them 9e-7 and 7.5e-3.  Each
+    check prints that perturbation's move beside its error as the
+    floor."""
+    t_cfg = TeacherConfig(vocab_size=VOCAB, dropout=0.0)
+    if tree is None:
+        tree = teacher_init(SEED + 3, t_cfg)
+    teacher = TM.Teacher(t_cfg)
+    teacher.load_state_dict(CV.jax_teacher_to_state_dict(tree), strict=True)
+    return teacher.to(dev).eval(), t_cfg
+
+
+def tp_teacher_inputs(dev):
+    """17a's batch: 16 normalized images and time-major captions (T=47)."""
+    rng = np.random.default_rng(SEED + 41)
+    images = T.normalize(torch.from_numpy(rng.integers(
+        0, 256, (TP_B, 224, 224, 3), dtype=np.uint8)).to(dev))
+    captions = torch.from_numpy(rng.integers(
+        4, VOCAB, (KD_T, TP_B))).to(dev)
+    return images, captions
+
+
+def tp_teacher_rank(out, modes=TP_MODES, dtypes=tuple(TP_DTYPES),
+                    mutant=None, device="cuda:0"):
+    """One model rank of 17a: the teacher's forward for KD
+    (``teacher_forward_for_kd``) placed by ``place_teacher_tp`` (tp), inside
+    ``sequence_sharding`` (sp) and both (tpsp), float32 and as
+    ``cast_teacher`` rounds it to bf16; each arm's whole logits and memory,
+    #2's launches and the shapes of its calls, to ``out/rank<r>.npz``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    if mutant == "qkv_halves":
+        TP.packed_rows = packed_halves
+    mesh = MS.create_mesh(dev, shape=(1, TP_M))
+    images, captions = tp_teacher_inputs(dev)
+    tree = teacher_init(SEED + 3, TeacherConfig(vocab_size=VOCAB))
+    seen, real = [], A.attention_core_cuda
+
+    def recording(q, k, v, *, causal=False, scale=1.0, q_offset=0):
+        seen.append((q.shape[1], q.shape[2], k.shape[2], int(causal),
+                     q_offset))
+        return real(q, k, v, causal=causal, scale=scale, q_offset=q_offset)
+
+    A.attention_core_cuda = recording
+    res = {}
+    for mode in modes:
+        for dn in dtypes:
+            teacher, t_cfg = tp_teacher(dev, tree)
+            if "tp" in mode:
+                TP.place_teacher_tp(mesh, teacher, t_cfg)
+            policy = (SP.sequence_sharding(mesh) if "sp" in mode
+                      else contextlib.nullcontext())
+            seen.clear()
+            A.launches = A.launches_offset = 0
+            t0 = time.perf_counter()
+            with policy:
+                got = teacher_forward_for_kd(teacher, images, captions,
+                                             compute_dtype=TP_DTYPES[dn])
+            torch.cuda.synchronize()
+            res[f"{mode}.{dn}.s"] = np.array([time.perf_counter() - t0])
+            res[f"{mode}.{dn}.logits"] = got["logits"].cpu().numpy()
+            res[f"{mode}.{dn}.memory"] = got["encoder_features"].cpu().numpy()
+            res[f"{mode}.{dn}.launches"] = np.array([A.launches,
+                                                     A.launches_offset])
+            res[f"{mode}.{dn}.seen"] = np.array(sorted(set(seen)))
+    A.attention_core_cuda = real
+    np.savez(os.path.join(out, f"rank{mesh.rank}.npz"), **res)
+
+
+def check_tp_teacher(dev, modes=TP_MODES, dtypes=tuple(TP_DTYPES),
+                     mutant=None) -> dict:
+    """17a: two ranks, started with ``spawn``, share the card over gloo as a
+    (1, 2) mesh and run the full-width teacher's KD forward under TP, SP
+    and TP+SP, float32 and bf16, B=16, T=47, V=2994.  Each rank's whole
+    logits and memory are held against one process's unsharded teacher on
+    the card (``TP_LIMIT``, max abs error over the reference's max abs
+    value; printed beside the floor, what a 1e-6 relative perturbation of
+    the images moves the reference by), the two ranks' logits must be
+    identical, and each rank must
+    launch #2 at its shapes (``TP_ATTN_CALLS``): on its heads under TP, on
+    its rows under SP alone with the causal offset form on rank 1."""
+    t_all = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        _build.build_all()        # the ranks load, never build, the kernels
+        MH.launch(tp_teacher_rank, ["cuda:0"] * TP_M, backend="gloo",
+                  in_parent=False,
+                  kwargs=dict(out=tmp, modes=modes, dtypes=dtypes,
+                              mutant=mutant),
+                  timeout_s=300, join_timeout_s=600,
+                  init_file=os.path.join(tmp, "store"))
+        ranks = [dict(np.load(os.path.join(tmp, f"rank{r}.npz")))
+                 for r in range(TP_M)]
+    images, captions = tp_teacher_inputs(dev)
+    teacher, _ = tp_teacher(dev)
+    ok, rows = True, {}
+    noise = torch.randn(images.shape, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(
+                            SEED + 44))
+    for dn in dtypes:
+        ref, moved = ({k: v[k].cpu().numpy()
+                       for k in ("logits", "encoder_features")}
+                      for v in (teacher_forward_for_kd(
+                          teacher, x, captions, compute_dtype=TP_DTYPES[dn])
+                          for x in (images, images * (1 + 1e-6 * noise))))
+        floor = max(float(np.abs(moved[f] - ref[f]).max()
+                          / np.abs(ref[f]).max()) for f in ref)
+        for mode in modes:
+            key = f"{mode}.{dn}"
+            errs = [max(float(np.abs(r[f"{key}.{w}"] - ref[f]).max()
+                              / np.abs(ref[f]).max())
+                        for w, f in (("logits", "logits"),
+                                     ("memory", "encoder_features")))
+                    for r in ranks]
+            same = all(np.array_equal(ranks[0][f"{key}.{w}"], r[f"{key}.{w}"])
+                       for r in ranks for w in ("logits", "memory"))
+            calls = [set(map(tuple, r[f"{key}.seen"].tolist())) for r in ranks]
+            launches = [r[f"{key}.launches"].tolist() for r in ranks]
+            good = (max(errs) <= TP_LIMIT[dn] and same
+                    and calls == TP_ATTN_CALLS[mode]
+                    and all(n[0] == 20 for n in launches))
+            ok &= good
+            rows[key] = dict(err=max(errs), floor=floor,
+                             ranks_identical=same, launches=launches,
+                             s=[float(r[f"{key}.s"][0]) for r in ranks])
+            print(f"teacher {mode} {dn}, {TP_M} model ranks on one card "
+                  f"(gloo) vs one process: logits and memory {max(errs):.3e} "
+                  f"(limit {TP_LIMIT[dn]:g}; floor {floor:.3e}); ranks' "
+                  f"logits identical {same};"
+                  f" #2 (launches, offset form) by rank {launches}, calls "
+                  f"(heads, Lq, Lk, causal, q_offset) by rank "
+                  f"{[sorted(c) for c in calls]} "
+                  f"{'ok' if good else 'FAIL'}", flush=True)
+    rows["seconds"] = time.perf_counter() - t_all
+    if not ok:
+        fail("the tensor- or sequence-parallel teacher differs from the "
+             "unsharded one")
+    return rows
+
+
+def tp_kd_batch() -> dict:
+    """17b's global batch: A=1 micro-batch of 16 rows, T=47 + 1, caption
+    lengths varied so that the data blocks' longest differ."""
+    rng = np.random.default_rng(SEED + 42)
+    B = TP_KD_MESH[0] * TP_KD_B
+    lengths = rng.integers(10, KD_T + 2, (1, B)).astype(np.int32)
+    lengths[0, :TP_KD_B] = np.minimum(lengths[0, :TP_KD_B], KD_T - 4)
+    lengths[0, -1] = KD_T + 1
+    caps = np.zeros((1, KD_T + 1, B), np.int32)
+    for b in range(B):
+        n = lengths[0, b]
+        caps[0, :n, b] = [START] + list(rng.integers(4, VOCAB, n - 2)) + [END]
+    return {"images": rng.integers(0, 256, (1, B, 224, 224, 3),
+                                   dtype=np.uint8),
+            "captions": caps, "lengths": lengths}
+
+
+def tp_kd_step(dev, mesh=None, dp_batch_norm=False) -> dict:
+    """One float32 KD step of the full student (dropout and augmentation
+    off) with the teacher placed and run inside the sequence policy on a
+    ``mesh`` with a model axis (this rank's rows), or unsharded on the
+    global batch.  ``dp_batch_norm``: one process with the data-parallel
+    batch norm's arithmetic (``modules._GlobalBatchNorm`` over its one
+    process), as ``tests/test_torch_port_data_parallel.py`` isolates it."""
+    if dp_batch_norm:
+        real = M.MS
+        M.MS = types.SimpleNamespace(data_size=lambda: TP_KD_MESH[0],
+                                     psum_over_data=lambda x: x)
+        try:
+            return tp_kd_step(dev)
+        finally:
+            M.MS = real
+    teacher, t_cfg = tp_teacher(dev)
+    s_cfg = STUDENT_CONFIGS["full"](VOCAB, freeze_backbone=True, dropout=0.0)
+    student, projectors = TK.make_student_and_projectors(s_cfg, t_cfg, SEED,
+                                                         dev)
+    state = steps.init_train_state(student, projectors, s_cfg)
+    out = tensors_npz("kd.start.", state.named_parameters())
+    step = steps.make_kd_train_step(teacher, t_cfg, s_cfg, DistillConfig(),
+                                    KDTrainConfig(dropout=0.0),
+                                    aug=T.AugmentConfig(),
+                                    compute_dtype=torch.float32)
+    policy = contextlib.nullcontext()
+    if mesh is None:
+        batch = steps.batch_to_device(tp_kd_batch(), dev)
+    else:
+        if mesh.model_size > 1:
+            TP.place_teacher_tp(mesh, teacher, t_cfg)
+            policy = SP.sequence_sharding(mesh)
+        batch = common.put_global_batch(dataclasses.replace(mesh, split=True),
+                                        tp_kd_batch())
+    gen = torch.Generator(device=dev).manual_seed(common.rank_seed(SEED,
+                                                                   mesh))
+    zero_counters()
+    A.launches_offset = 0
+    with M.no_dropout(), policy:
+        m = step(state, batch, 0.0, gen)
+    torch.cuda.synchronize()
+    out["launches"] = np.array([A.launches, A.launches_offset,
+                                S.launches_train, S.launches_bwd])
+    out.update({k: np.array(float(v)) for k, v in m.items()})
+    out.update(tensors_npz("kd.param.", state.named_parameters()))
+    out.update(tensors_npz("kd.mu.", state.opt_state.mu))
+    out.update(tensors_npz("kd.buffer.", dict(state.student.named_buffers())))
+    return out
+
+
+def tp_kd_rank(out, device="cuda:0"):
+    """One rank of 17b's (2, 2) world."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    mesh = MS.create_mesh(dev, shape=TP_KD_MESH)
+    t0 = time.perf_counter()
+    res = tp_kd_step(dev, mesh)
+    res["s"] = np.array([time.perf_counter() - t0])
+    np.savez(os.path.join(out, f"rank{mesh.rank}.npz"), **res)
+
+
+def check_tp_kd(dev) -> dict:
+    """17b: four ranks share the card over gloo as a (2, 2) mesh and take
+    one float32 KD step of the full student, A=1 x B=8 a data index (global
+    16), T=47, V=2994, dropout and augmentation off, the teacher placed by
+    ``place_teacher_tp`` and run inside ``sequence_sharding``; held against
+    one process on the global batch with the unsharded teacher and the
+    data-parallel batch norm's arithmetic by 16d's ``compare_step`` and
+    bounds (loss terms and gradient norm 1e-4, the ResNet's gradients
+    3e-2).  Against the stock process the worst errors are printed too:
+    the batch norm's other formula moves the refinement's gradients by
+    about 2% at 16 rows, and a (2, 1) world without the model axis moves
+    them as much (``scripts/torch_tp_kd_probe.py``), so the stock process
+    measures the batch norm, not the model axis.  The two model ranks of one data index
+    must hold bit-identical students, projectors, moments and metrics, and
+    each rank must launch #2 (its offset form too), #5 and #6."""
+    t_all = time.perf_counter()
+    n = TP_KD_MESH[0] * TP_KD_MESH[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        _build.build_all()
+        MH.launch(tp_kd_rank, ["cuda:0"] * n, backend="gloo",
+                  in_parent=False, kwargs=dict(out=tmp), timeout_s=300,
+                  join_timeout_s=600, init_file=os.path.join(tmp, "store"))
+        ranks = [dict(np.load(os.path.join(tmp, f"rank{r}.npz")))
+                 for r in range(n)]
+    one = tp_kd_step(dev, dp_batch_norm=True)
+    stock = tp_kd_step(dev)
+    names = ("total_loss", "ce_loss", "token_kd_loss", "feature_kd_loss",
+             "grad_norm")
+    loss_err = max((abs(float(r[k]) - float(one[k]))
+                    / max(abs(float(one[k])), 1e-30), k)
+                   for r in ranks for k in names)
+    lr = KDTrainConfig().learning_rate
+    for r in ranks:
+        r["grad_norm"] = float(r["grad_norm"])
+    one["grad_norm"] = float(one["grad_norm"])
+    stock["grad_norm"] = float(stock["grad_norm"])
+    rows = [compare_step(r, one, "kd.", lr) for r in ranks]
+    vs_stock = compare_step(ranks[0], stock, "kd.", lr)
+    m = TP_KD_MESH[1]
+    keys = [k for k in ranks[0] if k.startswith(("kd.param.", "kd.mu.",
+                                                 "kd.buffer."))
+            or k in names]
+    apart = sorted({k for i in range(0, n, m) for j in range(1, m)
+                    for k in keys
+                    if not np.array_equal(ranks[i][k], ranks[i + j][k])})
+    identical = not apart
+    launches = [r["launches"].tolist() for r in ranks]
+    ok = (loss_err[0] <= DP_LIMIT and identical
+          and all(x[0] > 0 and x[2] > 0 and x[3] > 0 for x in launches)
+          and all(not c["broken"] and c["params"][0] <= DP_LIMIT
+                  and c["resnet_params"][0] <= DP_RESNET_PARAM_LIMIT
+                  and c["stats"][0] <= DP_LIMIT
+                  and c["grads"][0] <= DP_GRAD_LIMIT
+                  and c["resnet_grads"] <= DP_RESNET_GRAD_LIMIT
+                  for c in rows))
+    out = dict(seconds=time.perf_counter() - t_all, loss_err=loss_err[0],
+               params_err=max(c["params"][0] for c in rows),
+               resnet_params_err=max(c["resnet_params"][0] for c in rows),
+               stats_err=max(c["stats"][0] for c in rows),
+               grads_err=max(c["grads"][0] for c in rows),
+               resnet_grads_err=max(c["resnet_grads"] for c in rows),
+               stock_grads_err=vs_stock["grads"][0],
+               stock_resnet_grads_err=vs_stock["resnet_grads"],
+               replicas_identical=identical, launches=launches,
+               rank_s=[float(r["s"][0]) for r in ranks])
+    print(f"DP x TP x SP KD step, {TP_KD_MESH} mesh of {n} ranks on one card "
+          f"(gloo) vs one process with the unsharded teacher and the "
+          f"data-parallel batch norm's arithmetic: loss terms and "
+          f"grad norm {loss_err[0]:.3e} ({loss_err[1]}; limit {DP_LIMIT:g}); "
+          f"updated parameters {out['params_err']:.3e} "
+          f"({max(c['params'] for c in rows)[1]}), the ResNet's "
+          f"{out['resnet_params_err']:.3e}, running statistics "
+          f"{out['stats_err']:.3e}, gradients {out['grads_err']:.3e} "
+          f"({max(c['grads'] for c in rows)[1]}), the ResNet's "
+          f"{out['resnet_grads_err']:.3e}"
+          + "".join(f", rank {i} BROKEN {c['broken']}"
+                    for i, c in enumerate(rows) if c["broken"])
+          + f"; against the stock process: gradients "
+          f"{vs_stock['grads'][0]:.3e} ({vs_stock['grads'][1]}), the "
+          f"ResNet's {vs_stock['resnet_grads']:.3e}"
+          + f"; model replicas bit-identical {identical}"
+          + (f" (apart: {apart[:6]})" if apart else "")
+          + f"; (#2, its offset "
+          f"form, #5, #6) by rank {launches}; ranks {out['rank_s']} s; "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail("the DP x TP x SP KD step differs from one process")
+    return out
+
+
+def offset_operands(shape, dev, gen, dtype=None):
+    B, H, lq, lk, d, causal, o, dt = shape
+    dt = dtype or dt
+    q = torch.randn((B, H, lk, d), device=dev, generator=gen).to(dt)
+    k, v = (torch.randn((B, H, lk, d), device=dev, generator=gen).to(dt)
+            for _ in range(2))
+    return q[:, :, o:o + lq].contiguous() if causal else \
+        q[:, :, :lq].contiguous(), q, k, v
+
+
+def check_attention_offset(dev, gen) -> float:
+    """17c: #2's offset form at the sequence-parallel caption shapes (rows
+    0-23 at offset 0, rows 24-46 at offset 24, of 47 keys), float32 and
+    bf16: against its plain version (``ATTN_LIMIT``) and bit for bit
+    against the rows of the full-length causal launch; the wrapper refuses
+    a block past the keys and an offset without the causal mask.  Returns
+    the worst float32 error."""
+    worst = 0.0
+    for name in ("sp_self_rank0", "sp_self_rank1"):
+        for dt in (torch.float32, torch.bfloat16):
+            shape = ATTN_RANK_SHAPES[name]
+            o = shape[6]
+            qb, q, k, v = offset_operands(shape, dev, gen, dt)
+            got = A.attention_core_cuda(qb, k, v, causal=True, scale=0.125,
+                                        q_offset=o)
+            full = A.attention_core_cuda(q, k, v, causal=True, scale=0.125)
+            ref = A.attention_core_plain(qb, k, v, causal=True, scale=0.125,
+                                         q_offset=o)
+            torch.cuda.synchronize()
+            err = (got.float() - ref.float()).abs().max().item()
+            rows = torch.equal(got, full[:, :, o:o + qb.shape[2]])
+            good = err <= ATTN_LIMIT[dt] and rows
+            if dt == torch.float32:
+                worst = max(worst, err)
+            print(f"attention_core offset form {tuple(qb.shape)} x "
+                  f"{k.shape[2]} keys, q_offset {o}, {str(dt)[6:]}: "
+                  f"max_abs_err {err:.3e} (limit {ATTN_LIMIT[dt]:g}), rows "
+                  f"of the full-length launch bit for bit {rows} "
+                  f"{'ok' if good else 'FAIL'}", flush=True)
+            if not good:
+                fail("the attention kernel's offset form disagrees")
+    q = torch.randn((2, 2, 5, 64), device=dev, generator=gen)
+    k = torch.randn((2, 2, 9, 64), device=dev, generator=gen)
+    for kw in (dict(causal=True, q_offset=5), dict(causal=False, q_offset=1),
+               dict(causal=True, q_offset=-1)):
+        try:
+            A.attention_core_cuda(q, k, k, scale=0.125, **kw)
+        except ValueError:
+            continue
+        fail(f"the attention wrapper took {kw} with Lq=5, Lk=9")
+    return worst
+
+
+def time_attention_ranks(dev, gen) -> dict:
+    """17c: #2 at each shape a model rank gives it, per call and queued,
+    beside its plain version, SDPA given the same boolean mask (the
+    yardstick, used nowhere in the port) and the bound (bytes of q, k, v
+    and the output; 4·d operations a pair the mask keeps)."""
+    out = {}
+    for name, shape in ATTN_RANK_SHAPES.items():
+        B, H, lq, lk, d, causal, o, dt = shape
+        qb, _, k, v = offset_operands(shape, dev, gen)
+        sc = d ** -0.5
+        mask = None
+        if causal:
+            mask = (torch.arange(lk, device=dev)[None, :]
+                    <= torch.arange(lq, device=dev)[:, None] + o)
+        kern = lambda: A.attention_core_cuda(  # noqa: E731
+            qb, k, v, causal=causal, scale=sc, q_offset=o)
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qb, k, v, attn_mask=mask, scale=sc)
+        kind = "bf16" if dt == torch.bfloat16 else "f32"
+        pairs = B * H * (lq * (o + 1) + lq * (lq - 1) // 2 if causal
+                         else lq * lk)
+        t = dict(ms=median_ms(kern, 200), queued_ms=queued_ms(kern, 100),
+                 sdpa_ms=median_ms(sdpa, 200),
+                 sdpa_queued_ms=queued_ms(sdpa, 100),
+                 plain_ms=median_ms(lambda: A.attention_core_plain(
+                     qb, k, v, causal=causal, scale=sc, q_offset=o), 50),
+                 bound=bound_ms(nbytes(qb, k, v, qb), 4 * pairs * d, kind))
+        print(f"attention_core {name} ({B},{H},{lq}x{lk},{d}) {kind} "
+              f"causal={causal} q_offset={o}: kernel {t['ms']:.4f} ms per "
+              f"call, {t['queued_ms']:.4f} queued; SDPA {t['sdpa_ms']:.4f}, "
+              f"{t['sdpa_queued_ms']:.4f} queued; plain {t['plain_ms']:.4f}; "
+              f"bound {t['bound'][0]:.5f} by {t['bound'][1]}", flush=True)
+        out[name] = t
+    return out
+
+
+def check_native_tokenizer() -> dict:
+    """17d: the native tokenizer built by g++ here, token for token against
+    ``tokenize_py`` over the disk pipeline's captions and a seeded fuzz set
+    (the JAX test's alphabet; caption-like word strings), and the
+    vocabulary built either way identical.  Fails if it did not build."""
+    from imagecaptioner_tpu_torch import native as NT
+    from imagecaptioner_tpu_torch.data import tokenizer as TKZ
+
+    had = NT.library_path().exists()    # an earlier phase's vocabulary
+    t0 = time.perf_counter()            # build may have built it already
+    if not NT.native_available():
+        fail("the native tokenizer did not build with g++")
+    build_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        csv_path = write_disk_dataset(os.path.join(tmp, "flickr"))
+        captions = [ln.split(",", 1)[1]
+                    for ln in open(csv_path).read().splitlines()[1:]]
+    rng = np.random.default_rng(SEED + 43)
+    alphabet = list("abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ"
+                    " .,!?'\"-/()[]{}0123456789   ")
+    words = ["A", "dog", "runs", "don't", "it's", "blue-eyed", "child's",
+             "dogs,", "ball!", '"quote"', "(paren)", "and/or", "U.S.",
+             "cannot", "well...", "mid-air"]
+    fuzz = ["".join(rng.choice(alphabet, rng.integers(0, 61)))
+            for _ in range(2000)]
+    fuzz += [" ".join(rng.choice(words, rng.integers(1, 13))) + " ."
+             for _ in range(1000)]
+    bad = [t for t in captions + fuzz
+           if NT.tokenize_native(t) != TKZ.tokenize_py(t)]
+    vocabs = []
+    for native in (NT.tokenize_native, None):
+        real = TKZ._native_checked, TKZ._native_tokenize
+        TKZ._native_checked, TKZ._native_tokenize = True, native
+        try:
+            v = Vocabulary(freq_threshold=5)
+            v.build_vocabulary(captions)
+        finally:
+            TKZ._native_checked, TKZ._native_tokenize = real
+        vocabs.append(v.stoi)
+    t_native = time.perf_counter()
+    for c in captions:
+        NT.tokenize_native(c)
+    t_native = time.perf_counter() - t_native
+    t_py = time.perf_counter()
+    for c in captions:
+        TKZ.tokenize_py(c)
+    t_py = time.perf_counter() - t_py
+    ok = not bad and vocabs[0] == vocabs[1] and len(vocabs[0]) == VOCAB
+    print(f"native tokenizer: {NT.library_path().name} loaded ("
+          + ("built by g++ earlier in this run or checkout" if had else
+             f"built by g++ now in {build_s:.2f} s")
+          + f"); {len(captions)} disk-pipeline "
+          f"captions and {len(fuzz)} fuzz strings, {len(bad)} differ from "
+          f"tokenize_py; vocabulary identical {vocabs[0] == vocabs[1]} "
+          f"(V={len(vocabs[0])}); host {1e3 * t_native:.1f} ms native, "
+          f"{1e3 * t_py:.1f} ms Python over the captions "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail(f"the native tokenizer differs from tokenize_py: {bad[:3]}")
+    return dict(built_now=not had, build_s=build_s,
+                texts=len(captions) + len(fuzz),
+                differ=len(bad), native_ms=1e3 * t_native,
+                python_ms=1e3 * t_py)
+
+
+def check_tensor_parallel(dev, gen) -> dict:
+    """Phase 17: 17a-d."""
+    t0 = time.perf_counter()
+    out = dict(teacher=check_tp_teacher(dev), kd=check_tp_kd(dev),
+               offset_err=check_attention_offset(dev, gen),
+               attention=time_attention_ranks(dev, gen),
+               tokenizer=check_native_tokenizer())
+    out["seconds"] = time.perf_counter() - t0
+    print(f"tensor and sequence parallelism phase ok in "
+          f"{out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     faulthandler.enable()     # a crash in native code prints where it was
     if not torch.cuda.is_available():
@@ -5204,6 +5754,10 @@ def main() -> int:
                 print(f"  {src}: {line.strip()}")
     if "--data-int8" in sys.argv[1:]:
         return run_data_int8(dev)
+    if "--tensor-parallel" in sys.argv[1:]:
+        check_tensor_parallel(dev, torch.Generator(device=dev).manual_seed(SEED))
+        print(json.dumps({"ok": True, "phases": "tensor-parallel"}))
+        return 0
 
     # --- 16a. core/profiling, in a spawned process -------------------------
     prof_row = check_profiling(dev)
@@ -5429,6 +5983,10 @@ def main() -> int:
     # --- 16d. data-parallel training: two ranks sharing the card ----------
     dp_training = check_dp_training(dev)
 
+    # --- 17. tensor and sequence parallelism of the frozen teacher; the
+    # offset form of #2; the native tokenizer -----------------------------
+    tp_sp = check_tensor_parallel(dev, gen)
+
     # --- 14./15. timings, bounds and the result lines ----------------------
     floors = chain_floors(dev)
     usage = {src: ptxas_usage(src, kernel) for src, kernel in (
@@ -5491,6 +6049,13 @@ def main() -> int:
         launches_enhanced_serving=e_launches["attention_core"],
         launches_enhanced_kd=ekd_launches["attention_core"],
         **{f"launches_{k}": d["attention_core"] for k, d in later.items()})
+    tp_runs = [r for k, r in tp_sp["teacher"].items() if k != "seconds"]
+    attn_by_path["launches_tensor_parallel_teacher"] = sum(
+        n[0] for r in tp_runs for n in r["launches"])
+    attn_by_path["launches_tensor_parallel_kd"] = sum(
+        n[0] for n in tp_sp["kd"]["launches"])
+    offset_launches = sum(n[1] for r in tp_runs for n in r["launches"]) \
+        + sum(n[1] for n in tp_sp["kd"]["launches"])
 
     def with_later(name, n):
         """A kernel's launches on its main path plus those of the disk
@@ -5552,7 +6117,9 @@ def main() -> int:
                   "plain_backward_queued_ms_f32"],
               by_shape={
                   n: {k: (v if k != "bound" else v[0]) for k, v in t.items()}
-                  for n, t in attn_t.items()},
+                  for n, t in {**attn_t, **tp_sp["attention"]}.items()},
+              offset_form_launches=offset_launches,
+              offset_form_max_abs_err=tp_sp["offset_err"],
               **attn_by_path),
         entry("greedy_decode_compact", "greedy_decode_compact.cu",
               "pallas_greedy.py:214", err=cg_diff, ms=cg_ms, plain=cg_plain_ms,
@@ -5658,7 +6225,9 @@ def main() -> int:
                       "int8_serving": dict(i8_rates, compare=i8_compare),
                       "profiling": prof_row, "timing": timing_row,
                       "data_parallel_serving": dp_serving,
-                      "data_parallel_training": dp_training}))
+                      "data_parallel_training": dp_training,
+                      "tensor_parallel": {k: v for k, v in tp_sp.items()
+                                          if k != "attention"}}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

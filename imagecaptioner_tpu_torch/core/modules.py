@@ -326,14 +326,38 @@ def multi_head_attention(p: "MultiheadAttention", query: torch.Tensor,
                          num_heads: int, causal: bool = False,
                          dropout_rate: float = 0.0, train: bool = False,
                          generator: Optional[torch.Generator] = None,
-                         need_weights: bool = False):
+                         need_weights: bool = False,
+                         seq: Optional[Tuple[int, int]] = None):
     """nn.MultiheadAttention forward semantics (batch first): the packed
     ``in_proj`` split into q/k/v, heads split as ``modules._split_heads``,
     the ported attention core, ``out_proj``.  With dropout on the attention
     weights (train mode, rate > 0) the function is a different one than the
     kernel computes, and runs as plain tensor code, as in the JAX package;
     so does ``need_weights``, which returns ``(output, weights (B, Lq, Lk))``
-    with the weights averaged over the heads *after* their dropout."""
+    with the weights averaged over the heads *after* their dropout.
+
+    A module placed by ``parallel/tp.py`` holds its heads' rows of the
+    packed projection, ``num_heads`` of them, and a row-parallel
+    ``out_proj``.  ``seq = (Lq, Lk)``: under the sequence policy
+    (``parallel/sp.py``) query, key and value are this rank's blocks of
+    token axes of Lq and Lk rows; the result is the rank's block of the
+    output.  Without tensor parallelism each rank projects its own tokens,
+    gathers K and V, and attends with its queries to all keys (causal: with
+    its block's first row as ``q_offset``); with it, the sequences are
+    gathered first and the row-parallel ``out_proj`` reduce-scatters."""
+    q_offset = 0
+    gather_kv = False
+    if seq is not None:
+        from imagecaptioner_tpu_torch.parallel import sp, tp
+
+        if tp.is_placed(p.out_proj):
+            same_q, same_v = query is key, value is key
+            key = sp.gather_seq(key, 1, seq[1])
+            query = key if same_q else sp.gather_seq(query, 1, seq[0])
+            value = key if same_v else sp.gather_seq(value, 1, seq[1])
+        else:
+            gather_kv = True
+            q_offset = sp.local_rows(seq[0])[0] if causal else 0
     e = query.shape[-1]
     if "in_proj_weight_q" in p._buffers:
         # one static scale for q, k and v: all three inputs are recorded
@@ -349,20 +373,23 @@ def multi_head_attention(p: "MultiheadAttention", query: torch.Tensor,
         q = _split_heads(dense(query, w_q, b_q), num_heads)  # (B, H, Lq, D)
         k = _split_heads(dense(key, w_k, b_k), num_heads)
         v = _split_heads(dense(value, w_v, b_v), num_heads)
-    scale = 1.0 / math.sqrt(e // num_heads)
+    if gather_kv:
+        k, v = sp.gather_seq(k, 2, seq[1]), sp.gather_seq(v, 2, seq[1])
+    scale = 1.0 / math.sqrt(q.shape[-1])
     weights = None
     if need_weights or dropout_on(dropout_rate, train):
         s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
         if causal:
             lq, lk = s.shape[-2], s.shape[-1]
             keep = torch.ones(lq, lk, dtype=torch.bool, device=s.device
-                              ).tril(lk - lq)
+                              ).tril(q_offset)
             s = s.masked_fill(~keep, float("-inf"))
         w = dropout(torch.softmax(s, dim=-1), dropout_rate, train, generator)
         out = torch.matmul(w.to(v.dtype).float(), v.float()).to(v.dtype)
         weights = w.mean(dim=1)
     else:
-        out = attention_core(q, k, v, causal=causal, scale=scale)
+        out = attention_core(q, k, v, causal=causal, scale=scale,
+                             q_offset=q_offset)
     b, h, lq, d = out.shape
     out = p.out_proj(out.transpose(1, 2).reshape(b, lq, h * d))
     return (out, weights) if need_weights else out
@@ -452,11 +479,12 @@ class MultiheadAttention(nn.Module):
     def forward(self, query, key, value, *, causal: bool = False,
                 dropout_rate: float = 0.0,
                 generator: Optional[torch.Generator] = None,
-                need_weights: bool = False):
+                need_weights: bool = False,
+                seq: Optional[Tuple[int, int]] = None):
         return multi_head_attention(
             self, query, key, value, num_heads=self.num_heads, causal=causal,
             dropout_rate=dropout_rate, train=self.training,
-            generator=generator, need_weights=need_weights)
+            generator=generator, need_weights=need_weights, seq=seq)
 
 
 # ---------------------------------------------------------------------------

@@ -9,7 +9,9 @@
 // Lk <= 256.  q and k share one type, v may have the other (all four
 // pairings of float32 and bfloat16).
 // Numerics follow the JAX core: scores accumulate in float32 and are scaled
-// after the product, the causal mask sets col > row to -inf, softmax runs
+// after the product, the causal mask sets col > row + q_offset to -inf (query
+// row i of a block of rows that starts at position q_offset of the keys'
+// sequence, Lq + q_offset <= Lk; 0 with Lq == Lk), softmax runs
 // in float32 as exp(s - max) / sum with the max and the sum of the whole
 // row, the NORMALISED probabilities are rounded to v's type before the
 // product with v, which accumulates in float32; the output has v's type.
@@ -277,7 +279,8 @@ template <int D, typename TQ, typename TV, int NT>
 __global__ void __launch_bounds__(MAX_WARPS * 32, 1)
 attention_kernel(const TQ* __restrict__ q, const TQ* __restrict__ k,
                  const TV* __restrict__ v, TV* __restrict__ out, int Lq, int Lk,
-                 int parts, int tiles_per_part, float scale, int causal) {
+                 int parts, int tiles_per_part, float scale, int causal,
+                 int q_offset) {
   constexpr int KS = D + Pad<TQ>::value, VS = D + Pad<TV>::value;
   extern __shared__ __align__(16) unsigned char smem[];
   const int Lkp = (Lk + 15) / 16 * 16;
@@ -322,7 +325,7 @@ attention_kernel(const TQ* __restrict__ q, const TQ* __restrict__ k,
         const int col = j * 8 + 2 * t + (c & 1);
         const int row = c < 2 ? row_lo : row_hi;
         float x = s[j][c] * scale;
-        if (col >= Lk || (causal && col > row)) x = -INFINITY;
+        if (col >= Lk || (causal && col > row + q_offset)) x = -INFINITY;
         s[j][c] = x;
       }
       m_lo = fmaxf(m_lo, fmaxf(s[j][0], s[j][1]));
@@ -371,7 +374,7 @@ attention_kernel(const TQ* __restrict__ q, const TQ* __restrict__ k,
 
 template <int D, typename TQ, typename TV, int NT>
 int launch(const void* q, const void* k, const void* v, void* out, int BH, int Lq,
-           int Lk, float scale, int causal, cudaStream_t stream) {
+           int Lk, float scale, int causal, int q_offset, cudaStream_t stream) {
   auto kern = attention_kernel<D, TQ, TV, NT>;
   const int Lkp = (Lk + 15) / 16 * 16;
   const int mtiles = (Lq + 15) / 16;
@@ -411,47 +414,56 @@ int launch(const void* q, const void* k, const void* v, void* out, int BH, int L
   const int per_part = (mtiles + parts - 1) / parts;
   kern<<<BH * parts, warps * 32, smem, stream>>>(
       static_cast<const TQ*>(q), static_cast<const TQ*>(k), static_cast<const TV*>(v),
-      static_cast<TV*>(out), Lq, Lk, parts, per_part, scale, causal);
+      static_cast<TV*>(out), Lq, Lk, parts, per_part, scale, causal, q_offset);
   return (int)cudaGetLastError();
 }
 
 // Two register budgets: up to 64 keys, and up to 256.
 template <int D, typename TQ, typename TV>
 int by_keys(const void* q, const void* k, const void* v, void* out, int BH, int Lq,
-            int Lk, float scale, int causal, cudaStream_t s) {
-  if (Lk <= 64) return launch<D, TQ, TV, 8>(q, k, v, out, BH, Lq, Lk, scale, causal, s);
-  if (Lk <= 256) return launch<D, TQ, TV, 32>(q, k, v, out, BH, Lq, Lk, scale, causal, s);
+            int Lk, float scale, int causal, int q_offset, cudaStream_t s) {
+  if (Lk <= 64)
+    return launch<D, TQ, TV, 8>(q, k, v, out, BH, Lq, Lk, scale, causal, q_offset, s);
+  if (Lk <= 256)
+    return launch<D, TQ, TV, 32>(q, k, v, out, BH, Lq, Lk, scale, causal, q_offset, s);
   return (int)cudaErrorInvalidValue;
 }
 
 template <int D>
 int dispatch(int qk_dtype, int v_dtype, const void* q, const void* k, const void* v,
              void* out, int BH, int Lq, int Lk, float scale, int causal,
-             cudaStream_t s) {
+             int q_offset, cudaStream_t s) {
   if (qk_dtype == 0 && v_dtype == 0)
-    return by_keys<D, float, float>(q, k, v, out, BH, Lq, Lk, scale, causal, s);
+    return by_keys<D, float, float>(q, k, v, out, BH, Lq, Lk, scale, causal,
+                                   q_offset, s);
   if (qk_dtype == 1 && v_dtype == 1)
-    return by_keys<D, bf16, bf16>(q, k, v, out, BH, Lq, Lk, scale, causal, s);
+    return by_keys<D, bf16, bf16>(q, k, v, out, BH, Lq, Lk, scale, causal,
+                                   q_offset, s);
   if (qk_dtype == 0 && v_dtype == 1)
-    return by_keys<D, float, bf16>(q, k, v, out, BH, Lq, Lk, scale, causal, s);
+    return by_keys<D, float, bf16>(q, k, v, out, BH, Lq, Lk, scale, causal,
+                                   q_offset, s);
   if (qk_dtype == 1 && v_dtype == 0)
-    return by_keys<D, bf16, float>(q, k, v, out, BH, Lq, Lk, scale, causal, s);
+    return by_keys<D, bf16, float>(q, k, v, out, BH, Lq, Lk, scale, causal,
+                                   q_offset, s);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16; D is 64 or 48; 0 < Lk <= 256.
+// dtype codes: 0 = float32, 1 = bfloat16; D is 64 or 48; 0 < Lk <= 256;
+// causal: query row i sees keys <= i + q_offset (Lq + q_offset <= Lk).
 // Returns a cudaError_t.
 extern "C" int ic_attention_core(int qk_dtype, int v_dtype, const void* q,
                                  const void* k, const void* v, void* out, int BH,
                                  int Lq, int Lk, int D, float scale, int causal,
-                                 void* stream) {
+                                 int q_offset, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 64)
-    return dispatch<64>(qk_dtype, v_dtype, q, k, v, out, BH, Lq, Lk, scale, causal, s);
+    return dispatch<64>(qk_dtype, v_dtype, q, k, v, out, BH, Lq, Lk, scale, causal,
+                       q_offset, s);
   if (D == 48)
-    return dispatch<48>(qk_dtype, v_dtype, q, k, v, out, BH, Lq, Lk, scale, causal, s);
+    return dispatch<48>(qk_dtype, v_dtype, q, k, v, out, BH, Lq, Lk, scale, causal,
+                       q_offset, s);
   return (int)cudaErrorInvalidValue;
 }
 

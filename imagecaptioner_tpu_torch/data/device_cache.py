@@ -23,9 +23,10 @@ trainers' ``stacked_batches`` drops them.  A byte budget (4 GiB, or
 
 Under data parallelism (``core/mesh.py``) each rank holds the rows of its
 own loader on its card, as the JAX class replicates them over a mesh, and
-``gather_batch(..., mesh)`` assembles its part of each index batch: its
-contiguous block of the batch axis when the world's batches are global
-(``mesh.split``), the whole batch when each process loaded its own rows.
+``gather_batch(..., mesh)`` assembles its part of each index batch: the
+contiguous block of the batch axis at its data index when the world's
+batches are global (``mesh.split``), the whole batch when each process
+loaded its own rows (the rows of its data index).
 The chained steps (``train/steps.make_device_data_step``) are unchanged
 per rank.
 """
@@ -130,8 +131,9 @@ def gather_batch(arrays: Dict[str, torch.Tensor], idx: torch.Tensor,
     """idx (A, B) int32 on the arrays' device -> the batch a host
     ``BatchLoader`` stack gives: (A, B, H, W, 3) uint8 images, (A, T, B)
     captions, (A, B) lengths; rows gathered on the leading axis with
-    ``index_select``.  With a ``mesh`` whose batches are global, only this
-    rank's block of the B axis is gathered (module docstring)."""
+    ``index_select``.  With a ``mesh`` whose batches are global, only the
+    block of the B axis at this rank's data index is gathered (module
+    docstring)."""
     if mesh is not None and mesh.split:
         idx = MS.batch_block(idx, mesh, 1)
     a, b = idx.shape

@@ -192,19 +192,20 @@ def get_loader(root_folder: str,
                host_shard: bool = False) -> Tuple[BatchLoader, CaptionDataset]:
     """The reference's entry point: ``(loader, dataset)``.
 
-    ``host_shard=True``: in a world of more than one process whose
+    ``host_shard=True``: in a world of more than one data index whose
     processes load their own rows, narrow the dataset to this process's
-    ``host_shard`` AFTER the vocabulary is built (token ids must agree
-    across processes): the train-loader setting for data parallelism.  A
-    no-op in one process, and where the world's loader batches are global
-    (``parallel/multihost.launch(split=True)``)."""
+    ``host_shard`` (the rows of its data index: every model rank of one
+    data index loads the same rows) AFTER the vocabulary is built (token
+    ids must agree across processes): the train-loader setting for data
+    parallelism.  A no-op in one process, and where the world's loader
+    batches are global (``parallel/multihost.launch(split=True)``)."""
+    from imagecaptioner_tpu_torch.core import mesh as MS
     from imagecaptioner_tpu_torch.parallel import multihost as MH
 
     dataset = CaptionDataset(root_folder, annotation_file,
                              freq_threshold=freq_threshold,
                              image_size=image_size, vocab=vocab)
-    if (host_shard and MH.process_info()["process_count"] > 1
-            and not MH.split_batches()):
+    if host_shard and MS.data_size() > 1 and not MH.split_batches():
         dataset.select(MH.host_shard(len(dataset)))
     loader = BatchLoader(dataset, batch_size=batch_size,
                          max_caption_len=max_caption_len, shuffle=shuffle,

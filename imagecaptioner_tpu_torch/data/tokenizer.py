@@ -1,7 +1,7 @@
 """Rule-based English tokenizer: the port's own copy of
 ``imagecaptioner_tpu/data/tokenizer.py`` (``tokenize_py`` and its helpers,
-pure ``re``), so that the port's vocabulary tokenizes exactly as the JAX
-package's does without importing it.
+pure ``re``; ``tokenize``), so that the port's vocabulary tokenizes exactly
+as the JAX package's does without importing it.
 
 It reproduces the subset of spaCy's English tokenizer, lowercased, that
 matters for caption text:
@@ -15,11 +15,15 @@ matters for caption text:
   * infix splitting on hyphens and slashes between word characters
   * everything lowercased
 
-The JAX package's native C++ twin of the same contract is not carried over.
+``tokenize`` runs the native C++ twin of the same contract
+(``native/__init__.py``, the port's copy of ``tokenizer.cpp``) when it
+builds, and ``tokenize_py`` otherwise, as the JAX package's ``tokenize``
+does; both give the same tokens.
 """
 
 from __future__ import annotations
 
+import os
 import re
 from typing import List
 
@@ -105,10 +109,32 @@ def _split_infix(chunk: str) -> List[str]:
     return [chunk]
 
 
-def tokenize(text: str) -> List[str]:
-    """Tokenize and lowercase, mirroring
+def tokenize_py(text: str) -> List[str]:
+    """Tokenize and lowercase in Python, mirroring
     ``[t.text.lower() for t in spacy(...)]`` on caption text."""
     tokens: List[str] = []
     for chunk in str(text).split():
         tokens.extend(_split_chunk(chunk))
     return [t.lower() for t in tokens]
+
+
+_native_tokenize = None
+_native_checked = False
+
+
+def tokenize(text: str) -> List[str]:
+    """Tokenize and lowercase: the C++ tokenizer when it builds
+    (token-identical by contract, fuzz-tested), else ``tokenize_py``.
+    ``IC_NO_NATIVE=1`` forces Python."""
+    global _native_tokenize, _native_checked
+    if not _native_checked:
+        _native_checked = True
+        if os.environ.get("IC_NO_NATIVE") != "1":
+            from imagecaptioner_tpu_torch.native import (native_available,
+                                                         tokenize_native)
+
+            if native_available():
+                _native_tokenize = tokenize_native
+    if _native_tokenize is not None:
+        return _native_tokenize(text)
+    return tokenize_py(text)

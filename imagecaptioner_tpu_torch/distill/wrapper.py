@@ -4,6 +4,13 @@ One encoder pass serves the decoder's memory and the feature tap.  Outputs
 are float32, carry no gradient, and ``hidden_states`` is None, which keeps
 gamma (hidden-state KD) structurally dead in every real run, as in the
 reference.
+
+On a (data, model) world the frozen teacher may be placed for tensor
+parallelism (``parallel/tp.place_teacher_tp``) and run inside the sequence
+policy (``parallel/sp.sequence_sharding``), which the caller enters around
+the step as JAX's callers do: its logits and encoder features come back
+whole on every rank, and ``cast_teacher`` copies a placed teacher with its
+shards.
 """
 
 from __future__ import annotations
@@ -24,7 +31,9 @@ def cast_teacher(teacher: Teacher, dtype: torch.dtype,
     the JAX package's ``bf16_compute`` casts the whole parameter tree: the
     LayerNorms, embeddings, position embeddings, CLS token and biases too.
     ``into``, a copy an earlier call returned, is refilled in place; the
-    teacher itself is left as it is."""
+    teacher itself is left as it is.  A teacher placed by
+    ``parallel/tp.py`` is copied shard by shard (the copy shares its
+    mesh)."""
     if into is None:
         return cast_parameters(copy.deepcopy(teacher), dtype).eval()
     torch._foreach_copy_(list(into.parameters()), list(teacher.parameters()))

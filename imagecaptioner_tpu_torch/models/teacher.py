@@ -8,6 +8,13 @@ The KD step runs it frozen in eval mode; ``ops/decode.py`` decodes from it
 (greedy and beam search over ``encode_image``'s memory);
 ``train/train_teacher.py`` trains it, with ``set_trainable`` marking what
 ``teacher_trainable_mask`` unfreezes.
+
+The KD step's frozen teacher may be placed for tensor parallelism
+(``parallel/tp.py``) and run under the sequence policy
+(``parallel/sp.py``): the memory and the caption stream are cut into the
+model ranks' token blocks where JAX's ``teacher_apply`` constrains them
+(``models/teacher.py:94-101``), and the memory and the logits come back
+whole on every rank.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ from imagecaptioner_tpu_torch.core.modules import (Embedding, LayerNorm,
 from imagecaptioner_tpu_torch.models.transformer import (DecoderLayer,
                                                          decoder_apply)
 from imagecaptioner_tpu_torch.models.vit import ViT, vit_trainable_mask
+from imagecaptioner_tpu_torch.parallel import sp, tp
 from imagecaptioner_tpu_torch.utils.checkpoint import load_checkpoint
 from imagecaptioner_tpu_torch.utils.convert import jax_teacher_to_state_dict
 
@@ -83,11 +91,21 @@ class Teacher(nn.Module):
         if memory is None:
             memory = self.encode_image(images)
         x = self.embed_captions(captions, generator=generator)
+        seq = None
+        if sp.active():
+            sp.check_frozen(self)
+            seq = (x.shape[1], memory.shape[1])
+            memory, x = sp.shard_seq(memory, 1), sp.shard_seq(x, 1)
         x = decoder_apply(self.decoder, x, memory, causal=True,
-                          generator=generator)
+                          generator=generator, seq=seq)
         x = dropout(self.pre_output_norm(x), self.cfg.dropout, self.training,
                     generator)
-        return self.fc_out(x).transpose(0, 1)
+        if seq is None:
+            return self.fc_out(x).transpose(0, 1)
+        if tp.is_placed(self.fc_out):
+            # the vocabulary's blocks gather over ranks of the same rows
+            return self.fc_out(sp.gather_seq(x, 1, seq[0])).transpose(0, 1)
+        return sp.gather_seq(self.fc_out(x), 1, seq[0]).transpose(0, 1)
 
 
 def teacher_trainable_mask(model: Teacher, cfg: TeacherConfig

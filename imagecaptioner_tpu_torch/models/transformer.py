@@ -29,6 +29,7 @@ from imagecaptioner_tpu_torch.ops import quant as Q
 from imagecaptioner_tpu_torch.ops.attention import attention_core_plain
 from imagecaptioner_tpu_torch.ops.beam_attn import (beam_cross_attention,
                                                     beam_self_attention)
+from imagecaptioner_tpu_torch.parallel import sp, tp
 
 KVCache = List[Dict[str, torch.Tensor]]
 
@@ -59,24 +60,36 @@ class DecoderLayer(nn.Module):
 
     def forward(self, x: torch.Tensor, memory: torch.Tensor, *,
                 causal: bool = True,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """``decoder_layer_apply``: x (B, T, E), memory (B, L, E)."""
+                generator: Optional[torch.Generator] = None,
+                seq: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+        """``decoder_layer_apply``: x (B, T, E), memory (B, L, E).
+        ``seq = (T, L)``: under the sequence policy x and memory are this
+        rank's blocks of those token axes (``parallel/sp.py``); the norms
+        stay on the rank's rows, the attentions read the whole memory and
+        the whole caption stream, and with a layer placed by
+        ``parallel/tp.py`` the FFN gathers the stream before its
+        column-parallel ``linear1``."""
         drop = lambda t: dropout(t, self.rate, self.training, generator)  # noqa: E731
         sa = self.self_attn(x, x, x, causal=causal, dropout_rate=self.rate,
-                            generator=generator)
+                            generator=generator,
+                            seq=None if seq is None else (seq[0], seq[0]))
         x = self.norm1(x + drop(sa))
         ca = self.multihead_attn(x, memory, memory, dropout_rate=self.rate,
-                                 generator=generator)
+                                 generator=generator, seq=seq)
         x = self.norm2(x + drop(ca))
-        h = self.linear2(drop(torch.relu(self.linear1(x))))
+        h = x
+        if seq is not None and tp.is_placed(self.linear2):
+            h = sp.gather_seq(h, 1, seq[0])
+        h = self.linear2(drop(torch.relu(self.linear1(h))))
         return self.norm3(x + drop(h))
 
 
 def decoder_apply(layers, x: torch.Tensor, memory: torch.Tensor, *,
                   causal: bool = True,
-                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                  generator: Optional[torch.Generator] = None,
+                  seq: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     for layer in layers:
-        x = layer(x, memory, causal=causal, generator=generator)
+        x = layer(x, memory, causal=causal, generator=generator, seq=seq)
     return x
 
 

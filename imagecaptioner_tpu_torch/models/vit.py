@@ -7,15 +7,22 @@ KD features.  Submodule names follow the JAX tree (timm naming).
 The ViT applies no dropout, in training either: the JAX
 ``vit_forward_features`` defaults ``dropout=0.0`` and the teacher passes
 none.  So a training forward is the same forward with gradients through
-the blocks; ``vit_trainable_mask`` says which parameters train.  The JAX
-module's sequence-parallel hook (``models/vit.py:109-116``) waits for the
-tensor- and sequence-parallel slice (ROADMAP Queue 1, TP/SP).
+the blocks; ``vit_trainable_mask`` says which parameters train.
+
+Under the sequence policy (``parallel/sp.py``; JAX's hooks at
+``models/vit.py:109-116``) the tokens are cut into the model ranks' blocks
+before the blocks, each block returns its rank's block, and the final
+norm's output is gathered whole.  A block keeps its LayerNorms and, without
+tensor parallelism, its MLP on the rank's tokens and gathers K and V; with
+a block placed by ``parallel/tp.py`` it gathers the normed tokens before
+each column-parallel product and its row-parallel products reduce-scatter
+back to token blocks (Megatron's order).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -27,6 +34,7 @@ from imagecaptioner_tpu_torch.core.modules import (Conv2d, LayerNorm, Linear,
                                                    layer_norm_init,
                                                    linear_init)
 from imagecaptioner_tpu_torch.ops.attention import attention_core
+from imagecaptioner_tpu_torch.parallel import sp, tp
 
 
 class Block(nn.Module):
@@ -41,14 +49,28 @@ class Block(nn.Module):
         self.mlp = nn.ModuleDict({"fc1": Linear(dim, hidden),
                                   "fc2": Linear(hidden, dim)})
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b, l, d = x.shape
-        hd = d // self.num_heads
-        qkv = self.attn.qkv(self.norm1(x)).reshape(b, l, 3, self.num_heads, hd)
+    def forward(self, x: torch.Tensor, tokens: Optional[int] = None
+                ) -> torch.Tensor:
+        """x (B, l, dim); ``tokens``: under the sequence policy, x is this
+        rank's block of a token axis of that many rows (module
+        docstring)."""
+        megatron = tokens is not None and tp.is_placed(self.attn.proj)
+        h = self.norm1(x)
+        if megatron:
+            h = sp.gather_seq(h, 1, tokens)
+        b, l, _ = h.shape
+        qkv = self.attn.qkv(h)
+        hd = qkv.shape[-1] // (3 * self.num_heads)
+        qkv = qkv.reshape(b, l, 3, self.num_heads, hd)
         q, k, v = (qkv[:, :, i].transpose(1, 2).contiguous() for i in range(3))
+        if tokens is not None and not megatron:
+            k, v = sp.gather_seq(k, 2, tokens), sp.gather_seq(v, 2, tokens)
         a = attention_core(q, k, v, causal=False, scale=1.0 / math.sqrt(hd))
-        x = x + self.attn.proj(a.transpose(1, 2).reshape(b, l, d))
-        return x + self.mlp.fc2(gelu(self.mlp.fc1(self.norm2(x))))
+        x = x + self.attn.proj(a.transpose(1, 2).reshape(b, l, -1))
+        h = self.norm2(x)
+        if megatron:
+            h = sp.gather_seq(h, 1, tokens)
+        return x + self.mlp.fc2(gelu(self.mlp.fc1(h)))
 
 
 class ViT(nn.Module):
@@ -97,9 +119,16 @@ class ViT(nn.Module):
         x = x.flatten(2).transpose(1, 2)                 # row-major patches
         cls = self.cls_token.to(x.dtype).expand(x.shape[0], 1, x.shape[2])
         x = torch.cat([cls, x], dim=1) + self.pos_embed.to(x.dtype)
+        if not sp.active():
+            for blk in self.blocks:
+                x = blk(x)
+            return self.norm(x)
+        sp.check_frozen(self)
+        n = x.shape[1]
+        x = sp.shard_seq(x, 1)       # each block's output is its rank's too
         for blk in self.blocks:
-            x = blk(x)
-        return self.norm(x)
+            x = blk(x, n)
+        return sp.gather_seq(self.norm(x), 1, n)
 
 
 def vit_trainable_mask(vit: ViT, cfg: TeacherConfig) -> Dict[str, bool]:

@@ -8,8 +8,9 @@ in a ``torch.distributed`` world:
   * ``initialize`` joins the world (``init_process_group``): a no-op
     (False) with no arguments, with ``num_processes <= 1`` or when a world
     already exists, so that trainers call it unconditionally;
-  * ``process_info`` and ``host_shard`` (each process's rows of a dataset:
-    strided, deterministic, equal-size, the JAX function's indices);
+  * ``process_info`` and ``host_shard`` (each data index's rows of a
+    dataset: strided, deterministic, equal-size, the JAX function's
+    indices);
   * ``global_batch``: this process's part of the global batch on its card
     (each process holds only its own rows);
   * ``launch``: one process per device, started with ``spawn`` (CUDA
@@ -88,9 +89,12 @@ def initialize(
 def shutdown() -> None:
     """Leave the world (no-op without one)."""
     global _SPLIT
+    from imagecaptioner_tpu_torch.core import mesh as MS
+
     if dist.is_initialized():
         dist.destroy_process_group()
     _SPLIT = False
+    MS._MESH = None
 
 
 def process_info() -> Dict[str, int]:
@@ -110,10 +114,13 @@ def host_shard(
 
     Every process gets exactly ``n_examples // process_count`` indices
     (equal sizes keep the per-process batch shapes static; the remainder
-    rows are dropped, as the loader's drop_last drops them)."""
-    info = process_info()
-    pi = info["process_index"] if process_index is None else process_index
-    pc = info["process_count"] if process_count is None else process_count
+    rows are dropped, as the loader's drop_last drops them).  The defaults
+    are this rank's data index and the data axis's size (``core/mesh``):
+    the model ranks of one data index load the same rows."""
+    from imagecaptioner_tpu_torch.core import mesh as MS
+
+    pi = MS.data_index() if process_index is None else process_index
+    pc = MS.data_size() if process_count is None else process_count
     per = n_examples // pc
     return np.arange(n_examples)[pi::pc][:per]
 

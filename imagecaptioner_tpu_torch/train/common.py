@@ -87,8 +87,9 @@ def stacked_batches(loader, accumulation_steps: int, *, mesh=None,
 
 def put_global_batch(mesh, batch: Dict, *, stacked: bool = True) -> Dict:
     """This rank's part of a loader batch on its card: the batch itself
-    when each process loads its own rows, its contiguous block of the
-    batch axis when the loaders' batches are global (``mesh.split``).
+    when each process loads its own rows (its data index's), the
+    contiguous block of the batch axis at its data index when the loaders'
+    batches are global (``mesh.split``).
     ``stacked=True`` takes accumulation stacks with a leading (A, ...)
     axis (train), ``stacked=False`` one loader batch (eval)."""
     a = 1 if stacked else 0
@@ -172,9 +173,11 @@ def run_per_card(fn, n: int, kwargs: Dict):
 
 
 def rank_seed(seed: int, mesh) -> int:
-    """The seed of a rank's dropout and augmentation draws: ``seed`` on
-    rank 0 (and in one process), a distinct one on each other rank."""
-    return seed if mesh is None else seed + 1_000_003 * mesh.rank
+    """The seed of a rank's dropout and augmentation draws: ``seed`` at
+    data index 0 (and in one process), a distinct one at each other data
+    index.  The model ranks of one data index draw alike, so that their
+    student replicas stay identical, as JAX's replicated student is one."""
+    return seed if mesh is None else seed + 1_000_003 * mesh.data_index
 
 
 def is_primary(mesh) -> bool:

@@ -327,7 +327,19 @@ def make_kd_train_step(teacher: Teacher, t_cfg: TeacherConfig,
     ``KDTrainConfig``, or with ``optimized=True`` an
     ``OptimizedKDTrainConfig``; then ``sched_t`` is the optimizer step of
     a OneCycle over ``onecycle_total_steps`` and ``epoch`` drives the loss's
-    warmup."""
+    warmup.
+
+    On a (data, model) world (``core/mesh.create_mesh(shape=(d, m))``) the
+    ``teacher`` may be placed by ``parallel/tp.place_teacher_tp`` and the
+    step called inside ``parallel/sp.sequence_sharding(mesh)``, as JAX's
+    ``dryrun_multichip`` runs its step.  The student and the projectors are
+    replicated over the model axis: every model rank of one data index
+    takes the same rows and draws (``train/common.rank_seed``), the
+    gradients, the loss normalizers and the metrics are summed over the
+    data group only, and model index 0's summed gradients go to the other
+    replicas (``core/mesh.agree_over_model_``: the card's atomic backward
+    algorithms would leave them apart in their last bits), so the replicas
+    stay bit for bit one student."""
     compute_dtype = as_dtype(compute_dtype)
     teacher_dtype = (torch.bfloat16 if getattr(tr_cfg, "teacher_bf16", False)
                      else torch.float32)
@@ -376,6 +388,7 @@ def make_kd_train_step(teacher: Teacher, t_cfg: TeacherConfig,
                  for n, p in params.items() if trainable[n]}
         torch._foreach_div_(list(grads.values()), float(A))
         MS.psum_tensors_(list(grads.values()))
+        MS.agree_over_model_(list(grads.values()))
         gnorm = O.clip_by_global_norm(grads, tr_cfg.grad_clip)
         O.adamw_update(grads, state.opt_state, params, lr_fn=lr_fn,
                        lr_scale=scales,

@@ -113,7 +113,7 @@ def validate_student(eval_step, state, val_loader, vocab, device, *,
         loss, _, preds, cap_tgt = eval_step(state, batch)
         b = int(preds.shape[1])
         if mesh is not None:
-            b *= mesh.size                  # the global batch's rows
+            b *= mesh.data_size             # the global batch's rows
         losses.append(float(loss) * b)
         n += b
         if bi < 5:

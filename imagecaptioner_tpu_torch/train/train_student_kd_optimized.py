@@ -75,7 +75,7 @@ def validate_fast(eval_step, state, val_loader, vocab, device, epoch: int, *,
         loss, _, preds, cap_tgt = eval_step(state, batch, epoch)
         b = int(preds.shape[1])
         if mesh is not None:
-            b *= mesh.size                  # the global batch's rows
+            b *= mesh.data_size             # the global batch's rows
         losses.append(float(loss) * b)
         n += b
         if bi == 0:

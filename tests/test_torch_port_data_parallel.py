@@ -269,8 +269,8 @@ def test_maybe_mesh_refusals_mirror_jax(monkeypatch):
         (0, 2, "cpu", True)
     monkeypatch.setattr(MH, "_SPLIT", False)  # each process its own rows
     assert common.maybe_mesh(3, device="cpu").split is False
-    with pytest.raises(NotImplementedError, match="TP/SP"):
-        MS.create_mesh("cpu", shape=(1, 2))
+    with pytest.raises(ValueError, match="processes"):   # 2 x 2 != 2
+        MS.create_mesh("cpu", shape=(2, 2))
 
 
 def test_initialize_is_a_no_op_in_one_process(monkeypatch):
