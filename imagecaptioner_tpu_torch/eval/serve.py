@@ -18,7 +18,9 @@ imported only then (``data/dataset.decode_image_file``), so the CLI runs on
 PPM files on a machine without PIL, as ``make_greedy_captioner`` and
 ``make_beam_captioner`` (which take uint8 arrays) do.  Runs on
 ``--device`` (default ``cuda``): without a card it raises, and only
-``--device cpu`` runs on the CPU.
+``--device cpu`` runs on the CPU.  Under a profiler each captioner call is
+the span ``serve.call`` over ``serve.upload``, ``serve.encode``,
+``serve.decode`` and ``serve.fetch`` (``core/spans.py``).
 
 Usage:
   python -m imagecaptioner_tpu_torch.eval.serve \\
@@ -48,6 +50,7 @@ from imagecaptioner_tpu_torch.core.config import StudentConfig
 from imagecaptioner_tpu_torch.core.device import resolve_device
 from imagecaptioner_tpu_torch.core.modules import cast_parameters
 from imagecaptioner_tpu_torch.core.precision import as_dtype
+from imagecaptioner_tpu_torch.core.spans import span
 from imagecaptioner_tpu_torch.data import transforms as T
 from imagecaptioner_tpu_torch.data.dataset import decode_image_file
 from imagecaptioner_tpu_torch.data.vocabulary import START, Vocabulary
@@ -101,12 +104,17 @@ def make_greedy_captioner(student: Student, cfg: StudentConfig, device, *,
         rng = None
         if temperature != 1.0:
             rng = torch.Generator(device=device).manual_seed(seed)
-        x = torch.from_numpy(np.ascontiguousarray(images_u8)).to(device)
-        _, refined = student.encode_image(T.normalize(x, dtype=dtype))
-        toks = best_greedy_decode_student(
-            student, refined, cfg, max_length=max_length,
-            temperature=temperature, rng=rng)
-        return toks.cpu().numpy()
+        with span("serve.call"):
+            with span("serve.upload"):
+                x = torch.from_numpy(np.ascontiguousarray(images_u8)).to(device)
+            with span("serve.encode"):
+                _, refined = student.encode_image(T.normalize(x, dtype=dtype))
+            with span("serve.decode"):
+                toks = best_greedy_decode_student(
+                    student, refined, cfg, max_length=max_length,
+                    temperature=temperature, rng=rng)
+            with span("serve.fetch"):
+                return toks.cpu().numpy()
 
     return caption
 
@@ -125,11 +133,17 @@ def make_beam_captioner(teacher: Teacher, cfg, device, *, max_length: int = 20,
 
     @torch.inference_mode()
     def caption(images_u8: np.ndarray):
-        x = torch.from_numpy(np.ascontiguousarray(images_u8)).to(device)
-        memory = teacher.encode_image(T.normalize(x, dtype=dtype))
-        out = beam_search_teacher_packed(
-            teacher, memory, max_length=max_length, beam_size=beam_size)
-        return tuple(t.cpu().numpy() for t in out)
+        with span("serve.call"):
+            with span("serve.upload"):
+                x = torch.from_numpy(np.ascontiguousarray(images_u8)).to(device)
+            with span("serve.encode"):
+                memory = teacher.encode_image(T.normalize(x, dtype=dtype))
+            with span("serve.decode"):
+                out = beam_search_teacher_packed(
+                    teacher, memory, max_length=max_length,
+                    beam_size=beam_size)
+            with span("serve.fetch"):
+                return tuple(t.cpu().numpy() for t in out)
 
     return caption
 

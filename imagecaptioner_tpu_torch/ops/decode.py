@@ -26,7 +26,9 @@ beam's lineage, and on a CUDA tensor the step's two attention cores are the
 kernels of ``ops/beam_attn.py``.  The JAX package's switches between XLA
 lowerings of the same search (physical cache permutation, the
 selection-first ancestry form, the fusion barrier) have identical outputs
-and are not carried over.
+and are not carried over.  Under a profiler each beam step is a span
+``beam.step`` holding ``beam.decoder`` and ``beam.select``, after its own
+``beam.exit_check`` (``core/spans.py``).
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ import numpy as np
 import torch
 
 from imagecaptioner_tpu_torch.core.config import StudentConfig
+from imagecaptioner_tpu_torch.core.spans import span
 from imagecaptioner_tpu_torch.data.vocabulary import END, PAD, START
 from imagecaptioner_tpu_torch.models import lstm as L
 from imagecaptioner_tpu_torch.models import transformer as TD
@@ -267,38 +270,48 @@ def beam_decode_packed_kv(teacher, mem_kv, *, max_length: int = 20,
     anc = slots[None, :, None].expand(N, K, S).contiguous()
 
     for t in range(max_length):
-        if early_exit and not bool((state["n_live"] > 0).any()):
-            break
-        tok = state["seqs"][:, :, t].reshape(N * K)
-        x = _teacher_embed_step(teacher, tok, t).to(dtype)
-        anc[:, :, t] = slots   # this step's rows are written by the current slots
-        y, self_kv = TD.decoder_step_cached(
-            layers, x, t, self_kv, mem_kv, num_heads=cfg.num_heads,
-            mem_group=K, anc=anc)
-        logits = _teacher_logits_step(teacher, y)               # (N*K, V)
-        logp = torch.log_softmax(logits, dim=-1).reshape(N, K, V)
-        cand = state["scores"][:, :, None] + logp              # dead rows -inf
-        top_scores, top_idx = torch.topk(cand.reshape(N, K * V), K, dim=1)
-        state, origin_src = _beam_bookkeeping(
-            state, top_scores, top_idx // V, top_idx % V, t, length_penalty)
-        # surviving beams inherit their ancestor's lineage row
-        anc = anc.gather(1, origin_src[:, :, None].expand(N, K, S))
+        if early_exit:
+            with span("beam.exit_check"):
+                if not bool((state["n_live"] > 0).any()):
+                    break
+        with span("beam.step"):
+            with span("beam.decoder"):
+                tok = state["seqs"][:, :, t].reshape(N * K)
+                x = _teacher_embed_step(teacher, tok, t).to(dtype)
+                # this step's rows are written by the current slots
+                anc[:, :, t] = slots
+                y, self_kv = TD.decoder_step_cached(
+                    layers, x, t, self_kv, mem_kv, num_heads=cfg.num_heads,
+                    mem_group=K, anc=anc)
+                logits = _teacher_logits_step(teacher, y)       # (N*K, V)
+            with span("beam.select"):
+                logp = torch.log_softmax(logits, dim=-1).reshape(N, K, V)
+                cand = state["scores"][:, :, None] + logp      # dead rows -inf
+                top_scores, top_idx = torch.topk(cand.reshape(N, K * V), K,
+                                                 dim=1)
+                state, origin_src = _beam_bookkeeping(
+                    state, top_scores, top_idx // V, top_idx % V, t,
+                    length_penalty)
+                # surviving beams inherit their ancestor's lineage row
+                anc = anc.gather(1, origin_src[:, :, None].expand(N, K, S))
 
-    # if nothing finished, the live beams are the result
-    ar = torch.arange(K, device=dev)
-    live_norm = torch.where(
-        ar[None] < state["n_live"][:, None],
-        state["scores"] / _length_penalty(S, length_penalty), neg_inf)
-    none_finished = (state["fin_count"] == 0)[:, None]
-    fin_scores = torch.where(none_finished, live_norm, state["fin_scores"])
-    fin_seqs = torch.where(none_finished[:, :, None], state["seqs"],
-                           state["fin_seqs"])
-    fin_lens = torch.where(none_finished, S, state["fin_lens"])
-    order = torch.argsort(-fin_scores, dim=1, stable=True)
-    return (fin_seqs.gather(1, order[:, :, None].expand(N, K, S)
-                            ).to(torch.int32),
-            fin_scores.gather(1, order),
-            fin_lens.gather(1, order).to(torch.int32))
+    with span("beam.finish"):
+        # if nothing finished, the live beams are the result
+        ar = torch.arange(K, device=dev)
+        live_norm = torch.where(
+            ar[None] < state["n_live"][:, None],
+            state["scores"] / _length_penalty(S, length_penalty), neg_inf)
+        none_finished = (state["fin_count"] == 0)[:, None]
+        fin_scores = torch.where(none_finished, live_norm,
+                                 state["fin_scores"])
+        fin_seqs = torch.where(none_finished[:, :, None], state["seqs"],
+                               state["fin_seqs"])
+        fin_lens = torch.where(none_finished, S, state["fin_lens"])
+        order = torch.argsort(-fin_scores, dim=1, stable=True)
+        return (fin_seqs.gather(1, order[:, :, None].expand(N, K, S)
+                                ).to(torch.int32),
+                fin_scores.gather(1, order),
+                fin_lens.gather(1, order).to(torch.int32))
 
 
 def beam_search_teacher_packed(teacher, memory: torch.Tensor, **kw
@@ -306,7 +319,7 @@ def beam_search_teacher_packed(teacher, memory: torch.Tensor, **kw
     """N-image beam search, memory (N, L, E) -> (seqs (N, K, S), scores
     (N, K), lens (N, K)): the memory K/V projected once per image, then
     :func:`beam_decode_packed_kv`."""
-    with torch.no_grad():
+    with torch.no_grad(), span("beam.memory_kv"):
         mem_kv = TD.precompute_memory_kv(teacher.decoder, memory,
                                          num_heads=teacher.cfg.num_heads)
     return beam_decode_packed_kv(teacher, mem_kv, **kw)

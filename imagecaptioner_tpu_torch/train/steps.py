@@ -22,7 +22,10 @@ parameters are rounded to bf16 once a step, as JAX casts its tree.  With
 ``optimized=True`` (the optimized trainer) the loss is
 ``optimized_distillation_loss`` at the step's epoch, the schedule is
 OneCycle over the optimizer step, and the others may decay at their own
-rate.
+rate.  Under a profiler the step is the span ``kd.step``, holding
+``kd.augment``, ``kd.teacher``, ``kd.student``, ``kd.loss`` and
+``kd.backward`` for each micro-batch and ``kd.optimizer`` once;
+``batch_to_device`` is ``kd.feed`` (``core/spans.py``).
 
 Batch layout (stacked for accumulation):
   images   uint8 (A, B, S, S, 3)  NHWC
@@ -46,6 +49,7 @@ from imagecaptioner_tpu_torch.core.config import (DistillConfig,
                                                   TeacherConfig,
                                                   TeacherTrainConfig)
 from imagecaptioner_tpu_torch.core.precision import as_dtype
+from imagecaptioner_tpu_torch.core.spans import span
 from imagecaptioner_tpu_torch.data import transforms as T
 from imagecaptioner_tpu_torch.distill import losses as DL
 from imagecaptioner_tpu_torch.distill.wrapper import (cast_teacher,
@@ -277,21 +281,24 @@ def batch_to_device(batch: Dict, device) -> Dict[str, torch.Tensor]:
         t = torch.from_numpy(np.ascontiguousarray(x)) \
             if isinstance(x, np.ndarray) else x
         return t.to(device=device, dtype=dtype)
-    return {"images": put(batch["images"]),
-            "captions": put(batch["captions"], torch.long),
-            "lengths": put(batch["lengths"], torch.long)}
+    with span("kd.feed"):
+        return {"images": put(batch["images"]),
+                "captions": put(batch["captions"], torch.long),
+                "lengths": put(batch["lengths"], torch.long)}
 
 
 def _kd_forward(teacher: Teacher, t_cfg: TeacherConfig, state: TrainState,
                 s_cfg: StudentConfig, images: torch.Tensor,
                 captions_in: torch.Tensor, *, generator, teacher_dtype):
-    teacher_out = teacher_forward_for_kd(teacher, images, captions_in,
-                                         compute_dtype=teacher_dtype)
-    s_logits, s_feats, s_hiddens, _ = state.student(images, captions_in,
-                                                    generator=generator)
-    projected = state.projectors["encoder"](
-        teacher_out["encoder_features"], teacher_seq_len=t_cfg.num_tokens,
-        student_seq_len=s_cfg.feature_tokens, generator=generator)
+    with span("kd.teacher"):
+        teacher_out = teacher_forward_for_kd(teacher, images, captions_in,
+                                             compute_dtype=teacher_dtype)
+    with span("kd.student"):
+        s_logits, s_feats, s_hiddens, _ = state.student(
+            images, captions_in, generator=generator)
+        projected = state.projectors["encoder"](
+            teacher_out["encoder_features"], teacher_seq_len=t_cfg.num_tokens,
+            student_seq_len=s_cfg.feature_tokens, generator=generator)
     student_out = {"logits": s_logits, "encoder_features": s_feats,
                    "hidden_states": s_hiddens}
     teacher_out = dict(teacher_out, encoder_features=projected,
@@ -350,56 +357,64 @@ def make_kd_train_step(teacher: Teacher, t_cfg: TeacherConfig,
              generator: Optional[torch.Generator], epoch: int = 0
              ) -> Dict[str, torch.Tensor]:
         nonlocal cast
-        lr_fn = (_onecycle_lr_fn(tr_cfg, sched_t, onecycle_total_steps)
-                 if optimized else _lr_fn(tr_cfg, sched_t))
-        params = state.named_parameters()
-        trainable = {n: p.requires_grad for n, p in params.items()}
-        scales = kd_group_scales(params,
-                                 encoder_scale=tr_cfg.encoder_lr_scale,
-                                 others_scale=others_scale)
-        frozen_teacher = teacher
-        if teacher_dtype != torch.float32:
-            # once a step, outside the micro-batches, as the JAX step casts
-            cast = cast_teacher(teacher, teacher_dtype, into=cast)
-            frozen_teacher = cast
-        state.student.train()
-        state.projectors.train()
-        for p in params.values():
-            p.grad = None
-        A = batch["images"].shape[0]
-        ld_sum = None
-        for a in range(A):
-            images = T.augment_and_normalize(batch["images"][a], aug,
-                                             generator, dtype=compute_dtype)
-            captions = batch["captions"][a]
-            student_out, teacher_out = _kd_forward(
-                frozen_teacher, t_cfg, state, s_cfg, images, captions[:-1],
-                generator=generator, teacher_dtype=teacher_dtype)
-            loss, ld = _kd_loss(optimized, loss_cfg, student_out,
-                                teacher_out, captions[1:],
-                                batch["lengths"][a], epoch)
-            loss.backward()                  # .grad holds the running sum
-            ld = {k: v.detach() for k, v in ld.items()}
-            ld_sum = ld if ld_sum is None else {k: ld_sum[k] + v
-                                                for k, v in ld.items()}
-        # a trainable parameter the loss never reached (the `hidden`
-        # projector) has a zero gradient and still decays, as in JAX
-        grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
-                 for n, p in params.items() if trainable[n]}
-        torch._foreach_div_(list(grads.values()), float(A))
-        MS.psum_tensors_(list(grads.values()))
-        MS.agree_over_model_(list(grads.values()))
-        gnorm = O.clip_by_global_norm(grads, tr_cfg.grad_clip)
-        O.adamw_update(grads, state.opt_state, params, lr_fn=lr_fn,
-                       lr_scale=scales,
-                       weight_decay=kd_weight_decays(
-                           params, weight_decay=tr_cfg.weight_decay,
-                           others_wd=others_wd),
-                       trainable=trainable)
-        metrics = world_sums({k: v / A for k, v in ld_sum.items()})
-        metrics["grad_norm"] = gnorm
-        metrics["lr"] = torch.tensor(lr_fn(1.0))
-        return metrics
+        with span("kd.step"):
+            lr_fn = (_onecycle_lr_fn(tr_cfg, sched_t, onecycle_total_steps)
+                     if optimized else _lr_fn(tr_cfg, sched_t))
+            params = state.named_parameters()
+            trainable = {n: p.requires_grad for n, p in params.items()}
+            scales = kd_group_scales(params,
+                                     encoder_scale=tr_cfg.encoder_lr_scale,
+                                     others_scale=others_scale)
+            frozen_teacher = teacher
+            if teacher_dtype != torch.float32:
+                # once a step, outside the micro-batches, as JAX casts
+                cast = cast_teacher(teacher, teacher_dtype, into=cast)
+                frozen_teacher = cast
+            state.student.train()
+            state.projectors.train()
+            for p in params.values():
+                p.grad = None
+            A = batch["images"].shape[0]
+            ld_sum = None
+            for a in range(A):
+                with span("kd.augment"):
+                    images = T.augment_and_normalize(batch["images"][a], aug,
+                                                     generator,
+                                                     dtype=compute_dtype)
+                captions = batch["captions"][a]
+                student_out, teacher_out = _kd_forward(
+                    frozen_teacher, t_cfg, state, s_cfg, images,
+                    captions[:-1], generator=generator,
+                    teacher_dtype=teacher_dtype)
+                with span("kd.loss"):
+                    loss, ld = _kd_loss(optimized, loss_cfg, student_out,
+                                        teacher_out, captions[1:],
+                                        batch["lengths"][a], epoch)
+                with span("kd.backward"):
+                    loss.backward()              # .grad holds the running sum
+                ld = {k: v.detach() for k, v in ld.items()}
+                ld_sum = ld if ld_sum is None else {k: ld_sum[k] + v
+                                                    for k, v in ld.items()}
+            with span("kd.optimizer"):
+                # a trainable parameter the loss never reached (the `hidden`
+                # projector) has a zero gradient and still decays, as in JAX
+                grads = {n: p.grad if p.grad is not None
+                         else torch.zeros_like(p)
+                         for n, p in params.items() if trainable[n]}
+                torch._foreach_div_(list(grads.values()), float(A))
+                MS.psum_tensors_(list(grads.values()))
+                MS.agree_over_model_(list(grads.values()))
+                gnorm = O.clip_by_global_norm(grads, tr_cfg.grad_clip)
+                O.adamw_update(grads, state.opt_state, params, lr_fn=lr_fn,
+                               lr_scale=scales,
+                               weight_decay=kd_weight_decays(
+                                   params, weight_decay=tr_cfg.weight_decay,
+                                   others_wd=others_wd),
+                               trainable=trainable)
+            metrics = world_sums({k: v / A for k, v in ld_sum.items()})
+            metrics["grad_norm"] = gnorm
+            metrics["lr"] = torch.tensor(lr_fn(1.0))
+            return metrics
 
     return step
 
