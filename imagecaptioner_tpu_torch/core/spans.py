@@ -39,8 +39,6 @@ NAMES = (
     # train/steps.py: the KD step and its feed
     "kd.feed", "kd.step", "kd.augment", "kd.teacher", "kd.student",
     "kd.loss", "kd.backward", "kd.optimizer",
-    # data/loader.py: the wait for the loader's next batch
-    "loader.wait",
 )
 
 _OFF = contextlib.nullcontext()

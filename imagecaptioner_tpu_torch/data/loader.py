@@ -13,12 +13,10 @@ The shuffle draws from ``np.random.default_rng(seed)``, one permutation per
 epoch, so one seed gives the JAX loader's batch order.  Images decode in a
 thread pool and come from the dataset's RAM cache once decoded; a
 background thread prefetches batches and stops when the iterator is
-abandoned; under a profiler the consumer's wait for it is the span
-``loader.wait`` (``core/spans.py``).  ``device_prefetch`` double-buffers
-batches onto a card from pinned host memory on a side stream.
-``get_loader(host_shard=True)`` narrows the dataset to this process's rows
-in a data-parallel world (``parallel/multihost.host_shard``), each process
-onto its own card.
+abandoned.  ``device_prefetch`` double-buffers batches onto a card from
+pinned host memory on a side stream.  ``get_loader(host_shard=True)``
+narrows the dataset to this process's rows in a data-parallel world
+(``parallel/multihost.host_shard``), each process onto its own card.
 """
 
 from __future__ import annotations
@@ -31,7 +29,6 @@ from typing import Dict, Iterator, Optional, Tuple
 import numpy as np
 import torch
 
-from imagecaptioner_tpu_torch.core.spans import span
 from imagecaptioner_tpu_torch.data.dataset import CaptionDataset
 from imagecaptioner_tpu_torch.data.vocabulary import PAD
 
@@ -134,8 +131,7 @@ class BatchLoader:
         threading.Thread(target=producer, daemon=True).start()
         try:
             while True:
-                with span("loader.wait"):
-                    item = q.get()
+                item = q.get()
                 if item is sentinel:
                     break
                 yield item
